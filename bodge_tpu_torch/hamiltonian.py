@@ -1,0 +1,478 @@
+"""The `Hamiltonian` operator/solver facade (PyTorch port).
+
+Parity target: ``bodge/hamiltonian.py:5-387``.  Semantics preserved:
+
+- Coordinate-addressed assembly through a ``with system as (H, Δ)`` context
+  manager; unspecified symmetry partners are autofilled — hopping blocks get
+  particle-hole partners (+v / −v*) and pairing blocks get their Hermitian
+  conjugates (``bodge/hamiltonian.py:102-118``).
+- Hermiticity is verified after every assembly block with the reference's
+  1e-6 gate (``bodge/hamiltonian.py:120-122``).
+- The sparsity skeleton is fixed at construction; re-entering the ``with``
+  block updates terms in place without clearing others.
+- ``matrix(format=…)`` exports dense / BSR / CSR / CSC (sparse formats have
+  explicit zeros trimmed, while the *stored* matrix never does, so new
+  terms can still be added later — ``bodge/hamiltonian.py:140-141``).
+
+Storage is a padded block-ELL ``torch`` tensor ``[N, S, 4, 4]`` on one
+device; assembly writes are batched indexed writes on that device; the
+spectral observables run on the Chebyshev/KPM path driven by the
+hand-written CUDA kernels of :mod:`bodge_tpu_torch.ops.cuda_spmm`.
+
+Device and precision policy: ``Hamiltonian(lattice, dtype=None,
+device=None)`` lives on the CUDA device unless the caller asks for the CPU
+(``device="cpu"``); without a card ``device=None`` raises.  The default
+dtype is complex64 on the card and complex128 on the CPU.
+
+Solvers not ported yet (dense, banded, Lanczos, shift-invert, exact LDOS,
+checkpoints) keep their signatures and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .common import (
+    Coord,
+    Index,
+    Indices,
+    default_cdtype,
+    resolve_device,
+    torch_dtype,
+    typecheck,
+)
+from .lattice import CubicLattice, Lattice
+from .ops import blocksparse as bs
+from .ops import chebyshev
+from .ops.blocksparse import BLOCK, Skeleton
+from .ops.spmm import spmm as _spmm
+
+HERMITICITY_TOL = 1e-6
+
+
+def _not_ported(what: str, item: int):
+    raise NotImplementedError(f"{what}: not ported yet — see ROADMAP.md queue 1, item {item}")
+
+
+class Hamiltonian:
+    """Block-sparse 4N×4N Bogoliubov-de Gennes Hamiltonian on a lattice.
+
+    The matrix acts on Lattice⊗Nambu⊗Spin space; each lattice site carries a
+    4×4 block over the basis {e↑, e↓, h↑, h↓}.  Assembly can go through the
+    reference-compatible ``with`` DSL::
+
+        with system as (H, Δ):
+            H[i, i] = -μ * σ0
+            Δ[i, i] = Δ0 * jσ2
+
+    or through the vectorized :meth:`assemble` fast path, where per-term
+    callables are evaluated over whole coordinate arrays at once.
+    """
+
+    @typecheck
+    def __init__(self, lattice: Lattice, dtype=None, device=None):
+        self.lattice = lattice
+        self.shape: Indices = (BLOCK * lattice.size, BLOCK * lattice.size)
+        self.device = resolve_device(device)
+        self.dtype = np.dtype(dtype or default_cdtype(self.device))
+
+        if isinstance(lattice, CubicLattice):
+            self._sk: Skeleton = bs.skeleton(tuple(lattice.shape))
+        else:
+            self._sk = bs.skeleton_from_lattice(lattice)
+
+        N, S = self._sk.cols.shape
+        self._data = torch.zeros(
+            (N, S, BLOCK, BLOCK), dtype=torch_dtype(self.dtype), device=self.device
+        )
+
+    # ------------------------------------------------------------------
+    # Introspection
+    # ------------------------------------------------------------------
+    @property
+    def data(self):
+        """ELL block data ``[N, S, 4, 4]`` (complex tensor on ``self.device``)."""
+        return self._data
+
+    @property
+    def skeleton(self) -> Skeleton:
+        return self._sk
+
+    def host_data(self) -> np.ndarray:
+        """The complex block data as a host NumPy array."""
+        return self._data.detach().cpu().numpy()
+
+    @typecheck
+    def index(self, row: Coord, col: Coord) -> Index:
+        """Flat block index k of block (row, col): ``data.reshape(-1,4,4)[k]``.
+
+        Analog of the reference's BSR scan (``bodge/hamiltonian.py:157-170``).
+        """
+        i = self.lattice[row]
+        j = self.lattice[col]
+        s = bs.slot_lookup(self._sk, np.array([i]), np.array([j]))[0]
+        return Index(i * self._sk.n_slots + int(s))
+
+    # ------------------------------------------------------------------
+    # Assembly: reference-compatible context-manager DSL
+    # ------------------------------------------------------------------
+    def __enter__(self):
+        self._hopp: dict = {}
+        self._pair: dict = {}
+        return self._hopp, self._pair
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is not None:
+            del self._hopp, self._pair
+            return False
+
+        hopp, pair = self._hopp, self._pair
+        del self._hopp, self._pair
+        self._scatter_terms(hopp, pair)
+        self._check_hermitian()
+        return False
+
+    def _site_indices(self, coords: np.ndarray) -> np.ndarray:
+        """Vectorized coord→site-index, falling back to the scalar API."""
+        if isinstance(self.lattice, CubicLattice):
+            return self.lattice.index_array(coords)
+        return np.array([self.lattice.index(tuple(int(v) for v in c)) for c in coords])
+
+    def _to_device(self, array, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(array), dtype=dtype).to(self.device)
+
+    def _scatter_terms(self, hopp: dict, pair: dict) -> None:
+        """Batched symmetry-respecting block writes for both term dicts.
+
+        Slots are resolved on the host first (a missing block raises
+        ``KeyError`` before anything is written); the writes themselves are
+        indexed in-place writes on the data's device.
+        """
+        sk = self._sk
+        writes = []
+
+        def resolve(terms):
+            ci = np.array([k[0] for k in terms.keys()], dtype=np.int64)
+            cj = np.array([k[1] for k in terms.keys()], dtype=np.int64)
+            vals = np.array(list(terms.values()), dtype=self.dtype)
+            return self._site_indices(ci), self._site_indices(cj), vals
+
+        if hopp:
+            rows, cols, vals = resolve(hopp)
+            slots = bs.slot_lookup(sk, rows, cols)
+            writes.append((rows, slots, slice(0, 2), slice(0, 2), vals))
+            writes.append((rows, slots, slice(2, 4), slice(2, 4), -np.conj(vals)))
+        if pair:
+            rows, cols, vals = resolve(pair)
+            s_fwd = bs.slot_lookup(sk, rows, cols)
+            s_rev = bs.slot_lookup(sk, cols, rows)
+            writes.append((rows, s_fwd, slice(0, 2), slice(2, 4), vals))
+            writes.append((cols, s_rev, slice(2, 4), slice(0, 2), np.conj(np.swapaxes(vals, -1, -2))))
+
+        for rows, slots, a, b, vals in writes:
+            r = self._to_device(rows, torch.int64)
+            s = self._to_device(slots, torch.int64)
+            self._data[r, s, a, b] = self._to_device(vals)
+
+    # ------------------------------------------------------------------
+    # Assembly: vectorized fast path
+    # ------------------------------------------------------------------
+    def assemble(
+        self,
+        *,
+        onsite: Optional[Callable] = None,
+        hopping: Optional[Callable] = None,
+        pairing_onsite: Optional[Callable] = None,
+        pairing: Optional[Callable] = None,
+        reset: bool = False,
+        check: bool = True,
+        device: bool = True,
+    ) -> "Hamiltonian":
+        """Populate the Hamiltonian from batched per-term callables.
+
+        Each callable receives coordinate arrays and returns 2×2 spin
+        blocks, broadcastable to the batch:
+
+        - ``onsite(ci)`` with ``ci: [N, 3]`` → ``[N, 2, 2]`` (or ``[2, 2]``)
+        - ``hopping(ci, cj)`` over all directed structural neighbor pairs
+          (bonds *and* periodic edges) → ``[B, 2, 2]``
+        - ``pairing_onsite(ci)`` / ``pairing(ci, cj)`` likewise for Δ.
+
+        Returning ``None`` from a callable (or passing ``None``) leaves the
+        corresponding terms untouched.  With ``reset=True`` all stored terms
+        are zeroed first.  Symmetry autofill matches the ``with`` DSL.
+
+        The callables are evaluated on the host in NumPy; the symmetry
+        writes are ``torch`` indexed writes.  ``device=True`` does them on
+        the Hamiltonian's own device, ``device=False`` on a host copy that
+        is uploaded in one transfer.  Either way, and for generic
+        (non-stencil) lattices too, the data ends on the Hamiltonian's
+        device.
+        """
+        sk = self._sk
+        if isinstance(self.lattice, CubicLattice):
+            coords_all = self.lattice.site_coords.astype(np.int64)
+        else:
+            coords_all = np.array([c for c in self.lattice.sites()], dtype=np.int64)
+        N, S = sk.cols.shape
+
+        def as_blocks(v):
+            v = np.asarray(v, dtype=self.dtype)
+            if v.ndim == 2:
+                v = np.broadcast_to(v, (N, 2, 2))
+            return np.ascontiguousarray(v)
+
+        def evaluate(fn, *args):
+            v = fn(*args) if fn is not None else None
+            return None if v is None else as_blocks(v)
+
+        row_ids = np.arange(N)
+        if sk.stencil:
+            diag = (slice(None), 0)  # the diagonal block is slot 0 of every row
+            off_slots = [(s, sk.cols[:, s] >= 0) for s in range(1, S)]
+        else:
+            # Generic skeleton: the diagonal block of row i may sit at any
+            # slot, so writes are mask-driven per slot.
+            diag = None
+            off_slots = [
+                (s, (sk.cols[:, s] >= 0) & (sk.cols[:, s] != row_ids)) for s in range(S)
+            ]
+            off_slots = [(s, mask) for s, mask in off_slots if mask.any()]
+            if onsite is not None or pairing_onsite is not None:
+                diag_hits = sk.cols == row_ids[:, None]
+                if not diag_hits.any(axis=1).all():
+                    raise ValueError(
+                        "On-site terms require every row to have a diagonal block"
+                    )
+                diag = (row_ids, np.argmax(diag_hits, axis=1))
+
+        # Evaluate all user callables host-side (NumPy) before any write, in
+        # a fixed order: on-site terms, then per slot hopping, pairing and
+        # the reversed pairing.
+        onsite_v = evaluate(onsite, coords_all)
+        pair_onsite_v = evaluate(pairing_onsite, coords_all)
+        slot_terms = []  # (slot, mask, hop, pair, pair_rev)
+        if hopping is not None or pairing is not None:
+            for s, mask in off_slots:
+                safe_cols = np.where(sk.cols[:, s] >= 0, sk.cols[:, s], 0)
+                ci, cj = coords_all, coords_all[safe_cols]
+                hop = evaluate(hopping, ci, cj)
+                pair = evaluate(pairing, ci, cj)
+                pair_rev = evaluate(pairing, cj, ci)
+                if sk.stencil:  # on a stencil a None return clears the slot's term
+                    zero = np.zeros((N, 2, 2), self.dtype)
+                    if hopping is not None and hop is None:
+                        hop = zero
+                    if pairing is not None:
+                        pair = zero if pair is None else pair
+                        pair_rev = zero if pair_rev is None else pair_rev
+                if mask.any():  # an all-padding slot is evaluated but never written
+                    slot_terms.append((s, mask, hop, pair, pair_rev))
+
+        d = self._data if device else self._data.cpu()
+
+        def up(v):
+            return torch.as_tensor(v).to(d.device)
+
+        def dagger(v):
+            return v.transpose(-1, -2).conj()
+
+        if reset:
+            d.zero_()
+        if diag is not None:
+            rows_t, slot_t = diag if sk.stencil else (up(diag[0]), up(diag[1]))
+            if onsite_v is not None:
+                v = up(onsite_v)
+                d[rows_t, slot_t, 0:2, 0:2] = v
+                d[rows_t, slot_t, 2:4, 2:4] = -v.conj()
+            if pair_onsite_v is not None:
+                v = up(pair_onsite_v)
+                d[rows_t, slot_t, 0:2, 2:4] = v
+                d[rows_t, slot_t, 2:4, 0:2] = dagger(v)
+        for s, mask, hop, pair, pair_rev in slot_terms:
+            m = up(mask)[:, None, None]
+            if hop is not None:
+                v = up(hop)
+                d[:, s, 0:2, 0:2] = torch.where(m, v, d[:, s, 0:2, 0:2])
+                d[:, s, 2:4, 2:4] = torch.where(m, -v.conj(), d[:, s, 2:4, 2:4])
+            if pair is not None and pair_rev is not None:
+                d[:, s, 0:2, 2:4] = torch.where(m, up(pair), d[:, s, 0:2, 2:4])
+                d[:, s, 2:4, 0:2] = torch.where(m, dagger(up(pair_rev)), d[:, s, 2:4, 0:2])
+
+        self._data = d.to(self.device)
+        if check:
+            self._check_hermitian()
+        return self
+
+    def _hermiticity_error(self) -> float:
+        """Max |H − H†|, reduced on the device and moved to the host once."""
+        return float(bs.hermiticity_error(self._data, self._sk))
+
+    def _check_hermitian(self) -> None:
+        if self._hermiticity_error() > HERMITICITY_TOL:
+            raise RuntimeError("The constructed Hamiltonian is not Hermitian!")
+
+    # ------------------------------------------------------------------
+    # Export
+    # ------------------------------------------------------------------
+    @typecheck
+    def matrix(self, format: str = "dense"):
+        """Export the Hamiltonian in a requested matrix format.
+
+        ``"dense"`` → NumPy array; ``"bsr"``/``"csr"``/``"csc"``/``"coo"`` →
+        SciPy sparse with explicit zeros eliminated (parity with
+        ``bodge/hamiltonian.py:128-155``); ``"dense_torch"`` → dense tensor
+        on the Hamiltonian's device.
+        """
+        if format == "dense_torch":
+            return bs.ell_to_dense_torch(self._data, self._sk)
+
+        if format == "dense":
+            return bs.ell_to_dense(self.host_data(), self._sk)
+
+        if format in ("bsr", "csr", "csc", "coo"):
+            H = bs.ell_to_bsr(self.host_data(), self._sk)
+            if format == "csr":
+                H = H.tocsr()
+            elif format == "csc":
+                H = H.tocsc()
+            elif format == "coo":
+                H = H.tocoo()
+            H.eliminate_zeros()
+            return H
+
+        raise RuntimeError("Requested matrix format is not yet supported")
+
+    # ------------------------------------------------------------------
+    # Operator application
+    # ------------------------------------------------------------------
+    def apply(self, v, *, impl: Optional[str] = None):
+        """Block-sparse product ``H @ v`` for ``v: [N, 4, K]`` (array or tensor).
+
+        Returns a tensor on the Hamiltonian's device.  ``impl=None`` is the
+        CUDA kernel on the card and the plain product on the CPU.
+        """
+        v = torch.as_tensor(v).to(device=self.device, dtype=self._data.dtype)
+        return _spmm(self._data, self._sk, v.contiguous(), impl=impl)
+
+    # ------------------------------------------------------------------
+    # Solvers
+    # ------------------------------------------------------------------
+    def _shift_invert(self, nev: int, sigma: float = 0.0, tol: float = 0.0):
+        _not_ported("shift-invert eigensolver", 2)
+
+    @typecheck
+    def diagonalize(
+        self,
+        cuda: bool = False,
+        format: str = "reshape",
+        method: str = "dense",
+        k: Optional[int] = None,
+        **solver_kwargs,
+    ):
+        """Positive eigenvalues and eigenvectors — not ported yet."""
+        if cuda:
+            raise RuntimeError(_CUDA_FLAG_MESSAGE)
+        _not_ported(f"diagonalize(method='{method}')", _SOLVER_ITEM.get(method, 1))
+
+    def eigenvalues(self, method: str = "dense", k: Optional[int] = None, **solver_kwargs):
+        """Positive eigenvalues only — not ported yet."""
+        _not_ported(f"eigenvalues(method='{method}')", _SOLVER_ITEM.get(method, 1))
+
+    def free_energy(
+        self,
+        temperature: float = 0.0,
+        cuda: bool = False,
+        method: str = "dense",
+        **kpm_kwargs,
+    ) -> float:
+        """Landau free energy F = U − T·S.
+
+        Same formulas as ``bodge/hamiltonian.py:305-319`` (Appendix C of
+        Ouassou et al. PRB 109, 174506); the mean-field condensation
+        constant is *not* included and must be added by the caller for
+        self-consistent calculations.
+
+        ``method="kpm"`` computes it by Chebyshev expansion of the
+        free-energy integrand plus (stochastic) trace estimation —
+        O(order·nnz); see :func:`bodge_tpu_torch.ops.chebyshev.free_energy_kpm`
+        for the knobs.  The spectral methods (``"dense"``, ``"banded"``) are
+        not ported yet.  The reference's ``cuda`` flag raises: the device is
+        chosen with ``Hamiltonian(..., device=)``.
+        """
+        if cuda:
+            raise RuntimeError(_CUDA_FLAG_MESSAGE)
+        if temperature < 0:
+            raise ValueError("Expected non-negative temperature!")
+        if method == "kpm":
+            return chebyshev.free_energy_kpm(self._data, self._sk, temperature, **kpm_kwargs)
+        if method not in ("dense", "banded"):
+            raise RuntimeError(f"free_energy method '{method}' is not supported")
+        _not_ported(f"free_energy(method='{method}')", _SOLVER_ITEM[method])
+
+    def dos(self, energies, method: str = "kpm", **kpm_kwargs) -> np.ndarray:
+        """Total density of states over all 4N orbitals (KPM-based)."""
+        return chebyshev.dos_kpm(self._data, self._sk, energies, **kpm_kwargs)
+
+    def ldos(
+        self,
+        site: Coord,
+        energies,
+        method: str = "exact",
+        order: Optional[int] = None,
+        kernel: str = "jackson",
+        **kpm_kwargs,
+    ) -> np.ndarray:
+        """Local density of states at ``site`` for the given energies.
+
+        ``method="kpm"`` uses the Chebyshev/KPM expansion driven by the
+        block-sparse SpMM kernels.  Extra keywords (``eta=`` for a target
+        Lorentzian broadening, ``scale=``, ``impl=``) are forwarded to
+        :func:`bodge_tpu_torch.ops.chebyshev.ldos_kpm`.  ``method="exact"``
+        (the spectral resolvent) is not ported yet.
+        """
+        i = self.lattice[site]
+        if method == "exact":
+            _not_ported("ldos(method='exact')", 1)
+        if method == "kpm":
+            return chebyshev.ldos_kpm(
+                self._data, self._sk, i, energies, order=order, kernel=kernel, **kpm_kwargs
+            )
+        raise RuntimeError(f"LDOS method '{method}' is not supported")
+
+    # ------------------------------------------------------------------
+    # Checkpoint / resume
+    # ------------------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Checkpoint the assembled operator — not ported yet."""
+        _not_ported("save", 5)
+
+    @classmethod
+    def load(cls, path: str) -> "Hamiltonian":
+        """Restore a checkpointed Hamiltonian — not ported yet."""
+        _not_ported("load", 5)
+
+    def ldos_map(self, sites, energies, method: str = "exact", **kwargs) -> np.ndarray:
+        """LDOS at many sites at once → ``[n_sites, n_energies]``.
+
+        The KPM path batches all probe orbitals into a single moment sweep
+        (4·n_sites probe columns per launch).
+        """
+        site_idx = [self.lattice[tuple(s)] if not np.isscalar(s) else int(s) for s in sites]
+        if method == "exact":
+            _not_ported("ldos_map(method='exact')", 1)
+        if method == "kpm":
+            return chebyshev.ldos_kpm_sites(self._data, self._sk, site_idx, energies, **kwargs)
+        raise RuntimeError(f"LDOS method '{method}' is not supported")
+
+
+_CUDA_FLAG_MESSAGE = (
+    "The `cuda` flag is not applicable: choose the device with "
+    "Hamiltonian(lattice, device='cuda') (the default) or device='cpu'."
+)
+
+# ROADMAP.md queue 1 item that ports each solver method.
+_SOLVER_ITEM = {"dense": 1, "banded": 2, "shift_invert": 2, "lanczos": 4}
