@@ -1,11 +1,31 @@
 // Block-ELL SpMM and fused Chebyshev step for 4x4 complex64 blocks (sm_90a).
 //
-// Two kernels share one device body:
+// Three kernels share one device body:
 //
-//   ell_spmm       y[n,a,k] = sum_s sum_b data[n,s,a,b] * v[cols[n,s],b,k]
-//   ell_cheb_step  t_next   = 2*inv*(H t_cur) - t_prev, written out, plus
-//                  per-thread-block partial sums, per probe column k, of
-//                  Re<t_cur,t_cur> and Re<t_next,t_cur> over the block's sites.
+//   ell_spmm          y[n,a,k] = sum_s sum_b data[n,s,a,b] * v[cols[n,s],b,k]
+//   ell_cheb_step     t_next   = 2*inv*(H t_cur) - t_prev, written out, plus
+//                     per-thread-block partial sums, per probe column k, of
+//                     Re<t_cur,t_cur> and Re<t_next,t_cur> over the block's sites.
+//   ell_spmm_adjoint  y[n,a,k] = sum_s sum_b conj(data[j,m,b,a]) * v[j,b,k] with
+//                     j = cols[n,s] and m = mirror(n,s), the slot of row j that
+//                     names column n: the product with the conjugate transpose
+//                     of the stored matrix, whatever its entries (it is not
+//                     assumed Hermitian).  This is the vector cotangent of the
+//                     two kernels above, i.e. the backward pass that the
+//                     reference takes from the XLA VJP of _flat_cheb_step_ref /
+//                     _plane_cheb_step_halo_ref (cheb_step_pallas_ad,
+//                     bodge_tpu/ops/pallas_spmm.py:1397).  mirror is the
+//                     skeleton's trans_slot, [S] on stencil skeletons and
+//                     [N,S] on generic ones.  Bytes as ell_spmm; the operator
+//                     read becomes a gather of whole 128-byte blocks (one
+//                     cache line each), loaded as 8 float4 per thread.
+//                     Its epilogue can scale the product and add row-local
+//                     terms, y = alpha*(H^dagger v) + add + c1[k]*x1 + c2[k]*x2,
+//                     so that the step's vector cotangent
+//                     2*inv*H^dagger G + 2*cc_bar*t_cur + nc_bar*t_next (+ what
+//                     later steps already sent to t_cur) is one pass over
+//                     memory instead of four elementwise ones.  y may be the
+//                     buffer of `add` (read and written by the same thread).
 //
 // They replace the four stencil Pallas kernels of bodge_tpu/ops/pallas_spmm.py
 // (_flat_spmm_kernel and _plane_stencil_kernel; _flat_cheb_kernel and
@@ -49,16 +69,28 @@ constexpr int THREADS = 256;
 constexpr int BLK = 4;               // 4x4 blocks: Nambu x spin
 constexpr int BLK_FLOAT4 = 8;        // 16 complex64 = 32 floats = 8 float4
 
+// Epilogue of the adjoint product: y = alpha*acc + add + c1[k]*x1 + c2[k]*x2.
+// Null pointers drop their term; c1, c2 are real, one per probe column.
+struct Epilogue {
+  float alpha;
+  const float2* add;
+  const float2* x1;
+  const float* c1;
+  const float2* x2;
+  const float* c2;
+};
+
 __device__ __forceinline__ void cfma(float2& acc, float dre, float dim, const float2& v) {
   acc.x = fmaf(dre, v.x, fmaf(-dim, v.y, acc.x));
   acc.y = fmaf(dre, v.y, fmaf(dim, v.x, acc.y));
 }
 
-template <bool CHEB>
+template <bool CHEB, bool ADJ>
 __global__ void __launch_bounds__(THREADS)
 ell_kernel(const float4* __restrict__ data, const int* __restrict__ cols,
+           const int* __restrict__ mirror, int mirror_per_row,
            const float2* __restrict__ t_cur, const float2* t_prev, float2* t_next,
-           float* __restrict__ partials, float two_inv,
+           float* __restrict__ partials, float two_inv, Epilogue ep,
            long long N, int S, int K, int TK) {
   const int tid = threadIdx.x;
   const int kk = tid & (TK - 1);
@@ -82,15 +114,31 @@ ell_kernel(const float4* __restrict__ data, const int* __restrict__ cols,
       float2 vb[BLK];
 #pragma unroll
       for (int b = 0; b < BLK; ++b) vb[b] = __ldg(vrow + (size_t)b * K);
-      const float4* blk = drow + (size_t)s * BLK_FLOAT4;
+      if (ADJ) {
+        // The mirror block lives in row `col`; row b of it feeds column b of
+        // its conjugate transpose: acc[a] += conj(blk[b][a]) * v[b].
+        const int ms = __ldg(mirror + (mirror_per_row ? (size_t)n * S + s : (size_t)s));
+        const float4* blk = data + ((size_t)col * S + ms) * BLK_FLOAT4;
 #pragma unroll
-      for (int a = 0; a < BLK; ++a) {
-        const float4 d01 = __ldg(blk + 2 * a);      // entries (a,0), (a,1)
-        const float4 d23 = __ldg(blk + 2 * a + 1);  // entries (a,2), (a,3)
-        cfma(acc[a], d01.x, d01.y, vb[0]);
-        cfma(acc[a], d01.z, d01.w, vb[1]);
-        cfma(acc[a], d23.x, d23.y, vb[2]);
-        cfma(acc[a], d23.z, d23.w, vb[3]);
+        for (int b = 0; b < BLK; ++b) {
+          const float4 d01 = __ldg(blk + 2 * b);      // entries (b,0), (b,1)
+          const float4 d23 = __ldg(blk + 2 * b + 1);  // entries (b,2), (b,3)
+          cfma(acc[0], d01.x, -d01.y, vb[b]);
+          cfma(acc[1], d01.z, -d01.w, vb[b]);
+          cfma(acc[2], d23.x, -d23.y, vb[b]);
+          cfma(acc[3], d23.z, -d23.w, vb[b]);
+        }
+      } else {
+        const float4* blk = drow + (size_t)s * BLK_FLOAT4;
+#pragma unroll
+        for (int a = 0; a < BLK; ++a) {
+          const float4 d01 = __ldg(blk + 2 * a);      // entries (a,0), (a,1)
+          const float4 d23 = __ldg(blk + 2 * a + 1);  // entries (a,2), (a,3)
+          cfma(acc[a], d01.x, d01.y, vb[0]);
+          cfma(acc[a], d01.z, d01.w, vb[1]);
+          cfma(acc[a], d23.x, d23.y, vb[2]);
+          cfma(acc[a], d23.z, d23.w, vb[3]);
+        }
       }
     }
 
@@ -108,6 +156,26 @@ ell_kernel(const float4* __restrict__ data, const int* __restrict__ cols,
         t_next[o] = nx;
         cc = fmaf(c.x, c.x, fmaf(c.y, c.y, cc));
         nc = fmaf(nx.x, c.x, fmaf(nx.y, c.y, nc));
+      } else if (ADJ) {
+        float2 r = make_float2(ep.alpha * acc[a].x, ep.alpha * acc[a].y);
+        if (ep.add != nullptr) {
+          const float2 q = ep.add[o];  // may be the buffer written below
+          r.x += q.x;
+          r.y += q.y;
+        }
+        if (ep.x1 != nullptr) {
+          const float c = __ldg(ep.c1 + k);
+          const float2 q = __ldg(ep.x1 + o);
+          r.x = fmaf(c, q.x, r.x);
+          r.y = fmaf(c, q.y, r.y);
+        }
+        if (ep.x2 != nullptr) {
+          const float c = __ldg(ep.c2 + k);
+          const float2 q = __ldg(ep.x2 + o);
+          r.x = fmaf(c, q.x, r.x);
+          r.y = fmaf(c, q.y, r.y);
+        }
+        t_next[o] = r;
       } else {
         t_next[o] = acc[a];
       }
@@ -137,6 +205,8 @@ ell_kernel(const float4* __restrict__ data, const int* __restrict__ cols,
 
 bool bad_tile(int TK) { return TK < 1 || TK > 32 || (TK & (TK - 1)) != 0; }
 
+constexpr Epilogue NO_EPILOGUE = {1.f, nullptr, nullptr, nullptr, nullptr, nullptr};
+
 dim3 grid_for(long long N, int K, int TK) {
   const int TN = THREADS / TK;
   return dim3((unsigned)((N + TN - 1) / TN), (unsigned)((K + TK - 1) / TK), 1);
@@ -144,16 +214,35 @@ dim3 grid_for(long long N, int K, int TK) {
 
 }  // namespace
 
-// Both entry points launch on the given stream, do not synchronise, allocate
+// All entry points launch on the given stream, do not synchronise, allocate
 // nothing, and return cudaGetLastError() (0 = launched).
 
 extern "C" int ell_spmm_launch(const void* data, const void* cols, const void* v, void* y,
                                long long N, int S, int K, int TK, void* stream) {
   if (bad_tile(TK) || N < 0 || S < 1 || K < 1) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  ell_kernel<false><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float4*)data, (const int*)cols, (const float2*)v, nullptr, (float2*)y,
-      nullptr, 0.f, N, S, K, TK);
+  ell_kernel<false, false><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)data, (const int*)cols, nullptr, 0, (const float2*)v, nullptr, (float2*)y,
+      nullptr, 0.f, NO_EPILOGUE, N, S, K, TK);
+  return (int)cudaGetLastError();
+}
+
+// y = alpha * (H^dagger v) + add + c1[k]*x1 + c2[k]*x2; add, x1/c1 and x2/c2
+// may be null.  y must not be v (other threads gather from it); it may be add.
+extern "C" int ell_spmm_adjoint_launch(const void* data, const void* cols, const void* mirror,
+                                       int mirror_per_row, const void* v, void* y, float alpha,
+                                       const void* add, const void* x1, const void* c1,
+                                       const void* x2, const void* c2,
+                                       long long N, int S, int K, int TK, void* stream) {
+  if (bad_tile(TK) || N < 0 || S < 1 || K < 1 || mirror == nullptr) return (int)cudaErrorInvalidValue;
+  if ((x1 == nullptr) != (c1 == nullptr) || (x2 == nullptr) != (c2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  const Epilogue ep = {alpha, (const float2*)add, (const float2*)x1, (const float*)c1,
+                       (const float2*)x2, (const float*)c2};
+  ell_kernel<false, true><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)data, (const int*)cols, (const int*)mirror, mirror_per_row,
+      (const float2*)v, nullptr, (float2*)y, nullptr, 0.f, ep, N, S, K, TK);
   return (int)cudaGetLastError();
 }
 
@@ -163,8 +252,8 @@ extern "C" int ell_cheb_step_launch(const void* data, const void* cols, const vo
                                     void* stream) {
   if (bad_tile(TK) || N < 0 || S < 1 || K < 1) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  ell_kernel<true><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float4*)data, (const int*)cols, (const float2*)t_cur, (const float2*)t_prev,
-      (float2*)t_next, (float*)partials, 2.0f * inv, N, S, K, TK);
+  ell_kernel<true, false><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)data, (const int*)cols, nullptr, 0, (const float2*)t_cur, (const float2*)t_prev,
+      (float2*)t_next, (float*)partials, 2.0f * inv, NO_EPILOGUE, N, S, K, TK);
   return (int)cudaGetLastError();
 }

@@ -24,8 +24,12 @@ device=None)`` lives on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); without a card ``device=None`` raises.  The default
 dtype is complex64 on the card and complex128 on the CPU.
 
-Solvers not ported yet (dense, banded, Lanczos, shift-invert, exact LDOS,
-checkpoints) keep their signatures and raise ``NotImplementedError``.
+The dense solvers (``diagonalize``, ``eigenvalues``, ``free_energy`` with
+``method="dense"``, ``ldos`` / ``ldos_map`` with ``method="exact"``) run
+``torch.linalg.eigh`` on the Hamiltonian's device and share one
+eigendecomposition per assembled state.  Solvers not ported yet (banded,
+Lanczos, shift-invert, checkpoints) keep their signatures and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from .common import (
 from .lattice import CubicLattice, Lattice
 from .ops import blocksparse as bs
 from .ops import chebyshev
+from .ops import dense as dense_ops
 from .ops.blocksparse import BLOCK, Skeleton
 from .ops.spmm import spmm as _spmm
 
@@ -88,6 +93,12 @@ class Hamiltonian:
         self._data = torch.zeros(
             (N, S, BLOCK, BLOCK), dtype=torch_dtype(self.dtype), device=self.device
         )
+
+        # Monotonic version for spectral-artifact caching: bumped on every
+        # write path so the dense solvers reuse one eigendecomposition across
+        # repeated observable queries on an unchanged Hamiltonian.
+        self._version = 0
+        self._eigh_cache = None
 
     # ------------------------------------------------------------------
     # Introspection
@@ -176,6 +187,7 @@ class Hamiltonian:
             r = self._to_device(rows, torch.int64)
             s = self._to_device(slots, torch.int64)
             self._data[r, s, a, b] = self._to_device(vals)
+        self._version += 1
 
     # ------------------------------------------------------------------
     # Assembly: vectorized fast path
@@ -303,6 +315,7 @@ class Hamiltonian:
                 d[:, s, 2:4, 0:2] = torch.where(m, dagger(up(pair_rev)), d[:, s, 2:4, 0:2])
 
         self._data = d.to(self.device)
+        self._version += 1
         if check:
             self._check_hermitian()
         return self
@@ -364,6 +377,26 @@ class Hamiltonian:
     def _shift_invert(self, nev: int, sigma: float = 0.0, tol: float = 0.0):
         _not_ported("shift-invert eigensolver", 2)
 
+    def _cached_spectrum(self, vectors: bool):
+        """The version-keyed cache entry ``(E, X)`` if it is current (and
+        holds eigenvectors when ``vectors`` asks for them), else ``None``."""
+        cache = self._eigh_cache
+        if cache is None or cache[0] != self._version:
+            return None
+        if vectors and cache[2] is None:
+            return None
+        return cache[1], cache[2]
+
+    def _full_spectrum(self):
+        """Full ``(E, X)`` eigendecomposition as tensors on the Hamiltonian's
+        device, cached per Hamiltonian version."""
+        hit = self._cached_spectrum(vectors=True)
+        if hit is not None:
+            return hit
+        E, X = torch.linalg.eigh(self.matrix(format="dense_torch"))
+        self._eigh_cache = (self._version, E, X)
+        return E, X
+
     @typecheck
     def diagonalize(
         self,
@@ -373,14 +406,71 @@ class Hamiltonian:
         k: Optional[int] = None,
         **solver_kwargs,
     ):
-        """Positive eigenvalues and eigenvectors — not ported yet."""
+        """Positive eigenvalues and eigenvectors of the dense Hamiltonian.
+
+        ``format="raw"``: ``(E, X)`` with eigenvectors as columns, exactly
+        as a direct LAPACK call would return them.  The default
+        ``"reshape"`` returns ``X[n, i, α]`` with α ∈ {e↑, e↓, h↑, h↓}
+        (reference layout contract, ``bodge/hamiltonian.py:239-248``).
+        Both are NumPy arrays.  Only ``method="dense"`` is ported; the
+        banded, Lanczos and shift-invert tiers raise ``NotImplementedError``.
+        """
         if cuda:
             raise RuntimeError(_CUDA_FLAG_MESSAGE)
-        _not_ported(f"diagonalize(method='{method}')", _SOLVER_ITEM.get(method, 1))
+        if method in ("lanczos", "shift_invert"):
+            if k is None:
+                raise ValueError(
+                    f"diagonalize(method='{method}') needs k = number of "
+                    "positive eigenpairs to compute"
+                )
+            _not_ported(f"diagonalize(method='{method}')", _SOLVER_ITEM[method])
+        if solver_kwargs:
+            raise TypeError(
+                f"diagonalize(method='{method}') got unexpected keywords: "
+                f"{sorted(solver_kwargs)}"
+            )
+        if method == "banded":
+            _not_ported("diagonalize(method='banded')", _SOLVER_ITEM[method])
+        if method != "dense":
+            raise RuntimeError(f"diagonalize method '{method}' is not supported")
+        E, X = self._full_spectrum()
+        half = E.shape[0] // 2
+        eigval = E[half:].cpu().numpy()
+        eigvec = X[:, half:].cpu().numpy()
+        if format == "raw":
+            return eigval, eigvec
+        if format == "reshape":
+            return eigval, eigvec.T.reshape(eigval.size, -1, BLOCK)
+        raise RuntimeError(f"Eigenstate format '{format}' is not yet supported.")
 
     def eigenvalues(self, method: str = "dense", k: Optional[int] = None, **solver_kwargs):
-        """Positive eigenvalues only — not ported yet."""
-        _not_ported(f"eigenvalues(method='{method}')", _SOLVER_ITEM.get(method, 1))
+        """Positive eigenvalues only (no eigenvectors), as a NumPy array.
+
+        Only ``method="dense"`` is ported.  The eigenvalues are cached so
+        repeated ``free_energy()`` calls on an unchanged Hamiltonian skip the
+        O(N³) solve; eigenvectors stay uncomputed until ``diagonalize()``
+        needs them.
+        """
+        if method in ("lanczos", "shift_invert"):
+            if k is None:
+                raise ValueError(
+                    f"eigenvalues(method='{method}') needs k = number of "
+                    "positive eigenvalues to compute"
+                )
+            _not_ported(f"eigenvalues(method='{method}')", _SOLVER_ITEM[method])
+        if solver_kwargs or k is not None:
+            raise TypeError(f"eigenvalues(method='{method}') got unexpected keywords")
+        if method == "banded":
+            _not_ported("eigenvalues(method='banded')", _SOLVER_ITEM[method])
+        if method != "dense":
+            raise RuntimeError(f"eigenvalues method '{method}' is not supported")
+        hit = self._cached_spectrum(vectors=False)
+        if hit is not None:
+            E = hit[0]
+        else:
+            E = torch.linalg.eigvalsh(self.matrix(format="dense_torch"))
+            self._eigh_cache = (self._version, E, None)
+        return E[E.shape[0] // 2 :].cpu().numpy()
 
     def free_energy(
         self,
@@ -399,9 +489,10 @@ class Hamiltonian:
         ``method="kpm"`` computes it by Chebyshev expansion of the
         free-energy integrand plus (stochastic) trace estimation —
         O(order·nnz); see :func:`bodge_tpu_torch.ops.chebyshev.free_energy_kpm`
-        for the knobs.  The spectral methods (``"dense"``, ``"banded"``) are
-        not ported yet.  The reference's ``cuda`` flag raises: the device is
-        chosen with ``Hamiltonian(..., device=)``.
+        for the knobs.  ``method="dense"`` sums over the positive spectrum
+        of :meth:`eigenvalues`; ``"banded"`` is not ported yet.  The
+        reference's ``cuda`` flag raises: the device is chosen with
+        ``Hamiltonian(..., device=)``.
         """
         if cuda:
             raise RuntimeError(_CUDA_FLAG_MESSAGE)
@@ -411,7 +502,10 @@ class Hamiltonian:
             return chebyshev.free_energy_kpm(self._data, self._sk, temperature, **kpm_kwargs)
         if method not in ("dense", "banded"):
             raise RuntimeError(f"free_energy method '{method}' is not supported")
-        _not_ported(f"free_energy(method='{method}')", _SOLVER_ITEM[method])
+        if method == "banded":
+            _not_ported("free_energy(method='banded')", _SOLVER_ITEM[method])
+        E = self.eigenvalues(method=method)
+        return float(dense_ops.free_energy_from_spectrum(E, temperature))
 
     def dos(self, energies, method: str = "kpm", **kpm_kwargs) -> np.ndarray:
         """Total density of states over all 4N orbitals (KPM-based)."""
@@ -432,11 +526,17 @@ class Hamiltonian:
         block-sparse SpMM kernels.  Extra keywords (``eta=`` for a target
         Lorentzian broadening, ``scale=``, ``impl=``) are forwarded to
         :func:`bodge_tpu_torch.ops.chebyshev.ldos_kpm`.  ``method="exact"``
-        (the spectral resolvent) is not ported yet.
+        evaluates the exact diagonal resolvent elements spectrally, with the
+        reference's grid-adaptive broadening Γ = gradient(unique(|ε|)).
         """
         i = self.lattice[site]
         if method == "exact":
-            _not_ported("ldos(method='exact')", 1)
+            if kpm_kwargs:
+                raise TypeError(
+                    f"ldos(method='exact') got unexpected KPM keywords: "
+                    f"{sorted(kpm_kwargs)}"
+                )
+            return dense_ops.ldos_from_spectrum(*self._full_spectrum(), i, energies)
         if method == "kpm":
             return chebyshev.ldos_kpm(
                 self._data, self._sk, i, energies, order=order, kernel=kernel, **kpm_kwargs
@@ -458,12 +558,14 @@ class Hamiltonian:
     def ldos_map(self, sites, energies, method: str = "exact", **kwargs) -> np.ndarray:
         """LDOS at many sites at once → ``[n_sites, n_energies]``.
 
-        The KPM path batches all probe orbitals into a single moment sweep
+        The dense path reuses one cached eigendecomposition for all sites;
+        the KPM path batches all probe orbitals into a single moment sweep
         (4·n_sites probe columns per launch).
         """
         site_idx = [self.lattice[tuple(s)] if not np.isscalar(s) else int(s) for s in sites]
         if method == "exact":
-            _not_ported("ldos_map(method='exact')", 1)
+            E, X = self._full_spectrum()
+            return np.stack([dense_ops.ldos_from_spectrum(E, X, i, energies) for i in site_idx])
         if method == "kpm":
             return chebyshev.ldos_kpm_sites(self._data, self._sk, site_idx, energies, **kwargs)
         raise RuntimeError(f"LDOS method '{method}' is not supported")

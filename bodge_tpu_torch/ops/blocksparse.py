@@ -104,6 +104,25 @@ class Skeleton:
         """``valid`` as a bool tensor on ``device``."""
         return self._device_copy("valid", device, lambda: self.valid)
 
+    def device_trans_slot(self, device):
+        """``trans_slot`` as a contiguous int32 tensor on ``device`` (``[S]``
+        on stencil skeletons, ``[N, S]`` on generic ones)."""
+        return self._device_copy(
+            "trans_slot", device, lambda: np.ascontiguousarray(self.trans_slot, dtype=np.int32)
+        )
+
+    def device_mirror_index(self, device):
+        """``[N, S]`` int64 mirror slots for gathers: the block at ``(i, s)``
+        with column ``j`` has its partner at ``(j, mirror[i, s])``."""
+        return self._device_copy(
+            "mirror_index", device,
+            lambda: np.broadcast_to(self.trans_slot, self.cols.shape).astype(np.int64),
+        )
+
+    @property
+    def has_padding(self) -> bool:
+        return self.nnz_blocks < self.cols.size
+
 
 @functools.lru_cache(maxsize=64)
 def skeleton(shape: Tuple[int, int, int]) -> Skeleton:
@@ -292,7 +311,12 @@ def dense_to_ell(dense: np.ndarray, sk: Skeleton) -> np.ndarray:
 
 
 def ell_to_dense_torch(data, sk: Skeleton):
-    """Densification of a ``torch`` block tensor on its own device."""
+    """Densification of a ``torch`` block tensor on its own device.
+
+    Differentiable: the blocks are gathered and written with indexed
+    operations of ``torch``, so gradients flow from the dense matrix back to
+    ``data`` (the dense self-consistency objective differentiates through it).
+    """
     import torch
 
     N, S = sk.cols.shape
@@ -319,10 +343,7 @@ def hermiticity_error(data, sk: Skeleton):
     """
     import torch
 
-    safe_cols = sk.device_safe_cols(data.device)
-    trans = sk.trans_slot if sk.trans_slot.ndim == 2 else sk.trans_slot[None, :]
-    trans_t = torch.as_tensor(trans.astype(np.int64), device=data.device)
-    mirror = data[safe_cols, trans_t]  # [N, S, 4, 4]
-    mirror = mirror.transpose(-1, -2).conj()
+    mirror = data[sk.device_safe_cols(data.device), sk.device_mirror_index(data.device)]
+    mirror = mirror.transpose(-1, -2).conj()  # [N, S, 4, 4]
     diff = (data - mirror).abs() * sk.device_valid(data.device)[..., None, None]
     return diff.max()

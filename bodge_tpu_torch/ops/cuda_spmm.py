@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for the block-ELL operator, with their plain versions.
 
-Two kernels, both in ``csrc/ell_spmm.cu`` (CUDA C++ for ``sm_90a``, built by
-``nvcc`` at first use and bound through ``ctypes``, see :mod:`._build`):
+Four kernels in ``csrc/`` (CUDA C++ for ``sm_90a``, built by ``nvcc`` at
+first use and bound through ``ctypes``, see :mod:`._build`).  Forward, in
+``csrc/ell_spmm.cu``:
 
 - :func:`ell_spmm` — ``y = H v``.  Replaces ``_flat_spmm_kernel`` and
   ``_plane_stencil_kernel`` of ``bodge_tpu/ops/pallas_spmm.py``.
@@ -33,14 +34,34 @@ cast down to complex64 by the callers that choose the kernel
 (:func:`moments_fused`, :func:`bodge_tpu_torch.ops.spmm.spmm`), as the TPU
 path casts when it packs; ``impl="plain"`` keeps complex128.
 
+Backward (the gradient of the step, which the reference takes from the XLA
+VJP of its ``_flat_cheb_step_ref`` / ``_plane_cheb_step_halo_ref``
+restatements inside ``cheb_step_pallas_ad``, ``pallas_spmm.py:1397``):
+
+- :func:`ell_spmm_adjoint` — ``y = H† v`` for any stored blocks, Hermitian or
+  not: the vector cotangent.  The same device body as :func:`ell_spmm` with
+  the mirror block (``sk.trans_slot``) read conjugate-transposed; bound by
+  the same bytes.
+- :func:`ell_block_outer` — ``H̄[n,s] (+)= α Σ_k g[n,:,k] ⊗ conj(t[cols[n,s],:,k])``:
+  the operator cotangent, in ``csrc/ell_block_outer.cu``.  Bound by bytes:
+  ``g`` and ``t`` once, ``H̄`` written (and read when accumulating).
+
+:class:`ChebStep` is the ``torch.autograd.Function`` around the step
+(forward :func:`ell_cheb_step`, backward the two kernels above) and
+:func:`moments_fused_ad` the differentiable moment sweep over it.  The scale
+``inv`` is a Python float and gets no gradient: the self-consistency
+objective fixes it once (the reference differentiates it formally and never
+uses that cotangent).
+
 Each wrapper counts its launches in a plain integer attribute
-(``ell_spmm.launches``, ``ell_cheb_step.launches``), raised where the kernel
-is launched and nowhere else.
+(``ell_spmm.launches`` and so on; :func:`launch_counts` reads them all),
+raised where the kernel is launched and nowhere else.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
@@ -50,7 +71,7 @@ from .blocksparse import BLOCK, Skeleton
 from .spmm import default_impl, spmm_gather
 
 THREADS = 256  # threads per block in csrc/ell_spmm.cu
-KERNELS = ("ell_spmm", "ell_cheb_step")
+KERNELS = ("ell_spmm", "ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer")
 
 
 # --------------------------------------------------------------------------
@@ -77,6 +98,43 @@ def ell_cheb_step_plain(data, sk: Skeleton, t_cur, t_prev, inv: float):
     return t_next, torch.cat([cc, nc])[None, :]
 
 
+def _valid_mask(sk: Skeleton, device):
+    return sk.device_valid(device)[..., None, None]
+
+
+def ell_spmm_adjoint_plain(data, sk: Skeleton, v, alpha: float = 1.0, add=None, axpy=()):
+    """Plain version of :func:`ell_spmm_adjoint`: ``y[n] = Σ_s B(n,s)† v[cols[n,s]]``
+    with ``B(n,s) = data[cols[n,s], mirror(n,s)]`` the block that row
+    ``cols[n,s]`` stores for column ``n``; then ``alpha·y + add + Σ c·x``."""
+    safe = sk.device_safe_cols(v.device)
+    mirror = data[safe, sk.device_mirror_index(v.device)]  # [N, S, 4, 4]
+    if sk.has_padding:
+        mirror = mirror * _valid_mask(sk, v.device)
+    y = alpha * torch.einsum("nsba,nsbk->nak", mirror.conj(), v[safe])
+    if add is not None:
+        y = y + add
+    for c, x in axpy:
+        y = y + c.to(x.dtype) * x
+    return y
+
+
+def ell_block_outer_plain(g, sk: Skeleton, t, alpha: float = 1.0, out=None, accumulate=False,
+                          shift=None, neg_out=None):
+    """Plain version of :func:`ell_block_outer`."""
+    G = g
+    if shift is not None:
+        G = shift.to(t.dtype) * t if g is None else g + shift.to(t.dtype) * t
+    if neg_out is not None:
+        neg_out.copy_(-G)
+    gathered = t[sk.device_safe_cols(t.device)]  # [N, S, 4, K]
+    h = alpha * torch.einsum("nak,nsbk->nsab", G, gathered.conj())
+    if sk.has_padding:
+        h = h * _valid_mask(sk, t.device)
+    if out is None:
+        return h
+    return out.add_(h) if accumulate else out.copy_(h)
+
+
 # --------------------------------------------------------------------------
 # Binding.
 # --------------------------------------------------------------------------
@@ -84,17 +142,27 @@ _bound = None
 
 
 def _library():
-    """The built library with ``argtypes`` set (pointers and the stream as
-    ``c_void_p``: without them ctypes would cut a pointer to 32 bits)."""
+    """The launch functions of the built libraries with ``argtypes`` set
+    (pointers and the stream as ``c_void_p``: without them ctypes would cut a
+    pointer to 32 bits).  The first call compiles every source that is not
+    built yet, all compilers started together."""
     global _bound
     if _bound is None:
-        lib = _build.load("ell_spmm")
+        _build.build_all()
+        spmm, outer = _build.load("ell_spmm"), _build.load("ell_block_outer")
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.ell_spmm_launch.argtypes = [p, p, p, p, ll, i, i, i, p]
-        lib.ell_spmm_launch.restype = i
-        lib.ell_cheb_step_launch.argtypes = [p, p, p, p, p, p, f, ll, i, i, i, p]
-        lib.ell_cheb_step_launch.restype = i
-        _bound = lib
+        signatures = {
+            "ell_spmm_launch": (spmm, [p, p, p, p, ll, i, i, i, p]),
+            "ell_cheb_step_launch": (spmm, [p, p, p, p, p, p, f, ll, i, i, i, p]),
+            "ell_spmm_adjoint_launch": (spmm, [p, p, p, i, p, p, f, p, p, p, p, p, ll, i, i, i, p]),
+            "ell_block_outer_launch": (outer, [p, p, p, p, p, p, f, i, ll, i, i, i, p]),
+        }
+        bound = SimpleNamespace()
+        for name, (lib, argtypes) in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, i
+            setattr(bound, name, fn)
+        _bound = bound
     return _bound
 
 
@@ -230,14 +298,273 @@ def ell_cheb_step(
 ell_cheb_step.launches = 0
 
 
+def _check_column_weights(name: str, c, K: int, device):
+    if not isinstance(c, torch.Tensor) or c.dtype != torch.float32 or tuple(c.shape) != (K,):
+        raise TypeError(f"{name} must be a float32 tensor of shape ({K},) for the CUDA kernel")
+    if c.device != device or not c.is_contiguous():
+        raise ValueError(f"{name} must be contiguous on {device}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def ell_spmm_adjoint(data, sk: Skeleton, v, *, alpha: float = 1.0, add=None, axpy=(), out=None,
+                     impl: Optional[str] = None):
+    """``y = alpha · H† v + add + Σ_j c_j ⊙ x_j``, with
+    ``(H† v)[n,a,k] = Σ_s Σ_b conj(data[j,m,b,a]) · v[j,b,k]``, ``j = cols[n,s]`` and
+    ``m = trans_slot`` of ``(n, s)`` (padding slots skipped).  Right for any
+    blocks, not only for Hermitian data: it is the vector cotangent of
+    :func:`ell_spmm`.
+
+    ``add`` (``[N, 4, K]``) and up to two ``axpy`` terms ``(c, x)`` — ``c`` a
+    real ``[K]`` weight per probe column, ``x`` of ``v``'s shape — are folded
+    into the kernel's epilogue, so the step's whole vector cotangent is one
+    pass.  ``out`` (kernel only) is the buffer written; it may be ``add``
+    itself, never ``v``.
+
+    On a CUDA tensor this launches the kernel (complex64, contiguous
+    tensors; anything else raises).  On a CPU tensor, or with
+    ``impl="plain"``, it is :func:`ell_spmm_adjoint_plain`.
+    """
+    if len(axpy) > 2:
+        raise ValueError("at most two axpy terms fit the kernel's epilogue")
+    if _resolve(impl, v) == "plain":
+        return ell_spmm_adjoint_plain(data, sk, v, alpha, add, axpy)
+    N, S, K = _check_call(data, sk, v)
+    shape = (N, BLOCK, K)
+    if add is not None:
+        _check_operand("add", add, shape, v.device)
+    for c, x in axpy:
+        _check_column_weights("axpy weight", c, K, v.device)
+        _check_operand("axpy vector", x, shape, v.device)
+    if out is None:
+        out = torch.empty_like(v)
+    else:
+        _check_operand("out", out, shape, v.device)
+    if out.untyped_storage().data_ptr() == v.untyped_storage().data_ptr():
+        raise ValueError("out must not share memory with v (other threads read it)")
+    (c1, x1), (c2, x2) = (*axpy, (None, None), (None, None))[:2]
+    cols = sk.device_cols(v.device)
+    mirror = sk.device_trans_slot(v.device)
+    lib = _library()
+    with torch.cuda.device(v.device):
+        err = lib.ell_spmm_adjoint_launch(
+            data.data_ptr(), cols.data_ptr(), mirror.data_ptr(), int(mirror.dim() == 2),
+            v.data_ptr(), out.data_ptr(), float(alpha), _ptr(add), _ptr(x1), _ptr(c1),
+            _ptr(x2), _ptr(c2), N, S, K, probe_tile(K),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "ell_spmm_adjoint")
+    ell_spmm_adjoint.launches += 1
+    return out
+
+
+ell_spmm_adjoint.launches = 0
+
+
+def ell_block_outer(
+    g, sk: Skeleton, t, alpha: float = 1.0, *, out=None, accumulate: bool = False,
+    shift=None, neg_out=None, impl: Optional[str] = None,
+):
+    """``H̄[n,s,a,b] (+)= α · Σ_k G[n,a,k] · conj(t[cols[n,s],b,k])`` as a
+    ``[N, S, 4, 4]`` tensor, with ``G = g + shift ⊙ t``; padding slots get zero.
+
+    The operator cotangent of ``y = H t`` given the cotangent ``G`` of ``y``
+    (PyTorch's convention for complex gradients).  ``out`` is the buffer
+    written; with ``accumulate`` the sums are added to what it holds.
+    ``shift`` is a real ``[K]`` weight per probe column (``None``: ``G = g``;
+    then ``g`` may be ``None``, meaning zero) and ``neg_out`` a buffer of
+    ``t``'s shape that receives ``−G`` — in the step's backward pass
+    ``G = g_next + n̄c ⊙ t_cur`` and ``−G`` is the cotangent of ``t_prev``.
+    The kernel gives each row to one group of threads and uses no atomics,
+    so results repeat exactly.
+    """
+    if accumulate and out is None:
+        raise ValueError("accumulate=True needs the buffer to add into (out=)")
+    if g is None and shift is None:
+        raise ValueError("g and shift cannot both be absent")
+    if _resolve(impl, t) == "plain":
+        return ell_block_outer_plain(g, sk, t, alpha, out=out, accumulate=accumulate,
+                                     shift=shift, neg_out=neg_out)
+    if not isinstance(t, torch.Tensor) or t.dim() != 3 or t.shape[1] != BLOCK:
+        raise ValueError("operand must be a tensor of shape [N, 4, K]")
+    N, S = sk.cols.shape
+    K = int(t.shape[2])
+    if K < 1:
+        raise ValueError("operand needs at least one probe column")
+    _check_operand("t", t, (N, BLOCK, K), t.device)
+    if g is not None:
+        _check_operand("g", g, (N, BLOCK, K), t.device)
+    if shift is not None:
+        _check_column_weights("shift", shift, K, t.device)
+    if neg_out is not None:
+        _check_operand("neg_out", neg_out, (N, BLOCK, K), t.device)
+        own = neg_out.untyped_storage().data_ptr()
+        if own == t.untyped_storage().data_ptr() or (g is not None and own == g.untyped_storage().data_ptr()):
+            raise ValueError("neg_out must be a buffer of its own (g and t are read after it is written)")
+    if out is None:
+        out = torch.empty((N, S, BLOCK, BLOCK), dtype=t.dtype, device=t.device)
+    else:
+        _check_operand("out", out, (N, S, BLOCK, BLOCK), t.device)
+    cols = sk.device_cols(t.device)
+    lib = _library()
+    with torch.cuda.device(t.device):
+        err = lib.ell_block_outer_launch(
+            _ptr(g), t.data_ptr(), _ptr(shift), _ptr(neg_out), cols.data_ptr(), out.data_ptr(),
+            float(alpha), int(bool(accumulate)), N, S, K, probe_tile(K),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "ell_block_outer")
+    ell_block_outer.launches += 1
+    return out
+
+
+ell_block_outer.launches = 0
+
+_WRAPPERS = (ell_spmm, ell_cheb_step, ell_spmm_adjoint, ell_block_outer)
+
+
 def launch_counts() -> dict:
     """``{kernel name: launches so far}`` for every kernel of this module."""
-    return {"ell_spmm": ell_spmm.launches, "ell_cheb_step": ell_cheb_step.launches}
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    ell_spmm.launches = 0
-    ell_cheb_step.launches = 0
+    for fn in _WRAPPERS:
+        fn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The differentiable step.
+# --------------------------------------------------------------------------
+def cheb_step_backward(data, sk: Skeleton, t_cur, t_next, inv: float, g_next, cc_bar, nc_bar, *,
+                       h_bar=None, g_cur_add=None, impl: Optional[str] = None):
+    """Cotangents ``(H̄, t̄_cur, t̄_prev)`` of one fused step.
+
+    The step is ``t_next = 2·inv·H t_cur − t_prev`` with the column sums
+    ``cc = Σ|t_cur|²`` and ``nc = Re⟨t_next, t_cur⟩``.  Given the cotangents
+    ``g_next`` of ``t_next`` and ``cc_bar``, ``nc_bar`` (real ``[K]``) of the
+    sums — any of them ``None`` = zero — with ``G = g_next + n̄c·t_cur``::
+
+        t̄_prev = −G
+        t̄_cur  = 2·inv·H†G + 2·c̄c·t_cur + n̄c·t_next   (+ g_cur_add)
+        H̄[n,s] = 2·inv · Σ_k G[n,:,k] ⊗ conj(t_cur[cols[n,s],:,k])   (+ h_bar)
+
+    in PyTorch's convention for complex gradients.  Two launches on CUDA
+    tensors: :func:`ell_block_outer` forms ``G``, writes ``−G`` and sums (or,
+    given the buffer ``h_bar``, accumulates) ``H̄``; :func:`ell_spmm_adjoint`
+    takes ``−G`` and folds the other terms of ``t̄_cur`` into its epilogue,
+    ``g_cur_add`` (what later steps already sent to ``t_cur``) included; the
+    kernel writes ``t̄_cur`` over the ``g_cur_add`` buffer, which the caller
+    gives up.  Both kernels are launched whichever cotangents the caller
+    goes on to use.
+    """
+    real = torch.float32 if t_cur.dtype == torch.complex64 else torch.float64
+    if g_next is None and nc_bar is None:
+        g_next = torch.zeros_like(t_cur)
+    if g_next is not None:
+        g_next = g_next.contiguous()
+    shift = None if nc_bar is None else nc_bar.to(real).contiguous()
+    neg_G = torch.empty_like(t_cur)
+    h_bar = ell_block_outer(g_next, sk, t_cur, 2.0 * inv, out=h_bar, accumulate=h_bar is not None,
+                            shift=shift, neg_out=neg_G, impl=impl)
+    axpy = []
+    if cc_bar is not None:
+        axpy.append(((2.0 * cc_bar).to(real).contiguous(), t_cur))
+    if shift is not None:
+        axpy.append((shift, t_next))
+    g_cur = ell_spmm_adjoint(data, sk, neg_G, alpha=-2.0 * inv, add=g_cur_add, axpy=tuple(axpy),
+                             out=g_cur_add, impl=impl)
+    return h_bar, g_cur, neg_G
+
+
+class ChebStep(torch.autograd.Function):
+    """The fused Chebyshev step with hand-written forward and backward.
+
+    ``ChebStep.apply(data, t_cur, t_prev, sk, inv, impl)`` returns
+    ``(t_next, sums)`` with ``sums[:K] = Σ|t_cur|²`` and ``sums[K:] =
+    Re⟨t_next, t_cur⟩`` per probe column (the kernel's per-thread-block
+    partials, summed).  ``t_prev`` may be ``None`` (zero).  Forward is
+    :func:`ell_cheb_step`, backward :func:`cheb_step_backward`; on CUDA
+    tensors both launch kernels or raise.  Gradients flow to ``data``,
+    ``t_cur`` and ``t_prev``; ``inv`` is a Python float without gradient.
+
+    The counterpart of ``cheb_step_pallas_ad`` (``pallas_spmm.py:1397``).
+    ``t_cur`` and ``t_next`` are kept for the backward pass, so neither may
+    be overwritten afterwards (no ``out=`` aliasing here).
+    """
+
+    @staticmethod
+    def forward(ctx, data, t_cur, t_prev, sk, inv, impl):
+        inv = float(inv)
+        t_next, partials = ell_cheb_step(data, sk, t_cur, t_prev, inv, impl=impl)
+        ctx.save_for_backward(data, t_cur, t_next)
+        ctx.sk, ctx.inv, ctx.impl = sk, inv, impl
+        ctx.set_materialize_grads(False)
+        return t_next, partials.sum(dim=0)
+
+    @staticmethod
+    def backward(ctx, g_next, g_sums):
+        data, t_cur, t_next = ctx.saved_tensors
+        need_data, need_cur, need_prev = ctx.needs_input_grad[:3]
+        K = t_cur.shape[-1]
+        cc_bar, nc_bar = (None, None) if g_sums is None else (g_sums[:K], g_sums[K:])
+        h_bar, g_cur, g_prev = cheb_step_backward(
+            data, ctx.sk, t_cur, t_next, ctx.inv, g_next, cc_bar, nc_bar, impl=ctx.impl,
+        )
+        grads = (h_bar if need_data else None, g_cur if need_cur else None, g_prev if need_prev else None)
+        return (*grads, None, None, None)
+
+
+class MomentSweep(torch.autograd.Function):
+    """The whole doubled-moment sweep as one differentiable function.
+
+    ``MomentSweep.apply(data, v0, sk, inv, order, impl)`` returns the stacked
+    column sums ``[1 + steps, 2K]`` of the half-scaled first step and the
+    ``steps = ceil((order−2)/2)`` full steps.  The same launches as a loop
+    over :class:`ChebStep`, but the backward pass walks the steps itself: the
+    operator cotangent is accumulated in place in one ``[N, S, 4, 4]`` buffer
+    (``accumulate`` of :func:`ell_block_outer`) and each vector's cotangent
+    is completed inside the adjoint kernel's epilogue, so a step costs two
+    launches and no elementwise pass.  Every ``t_m`` is kept from forward to
+    backward (``2 + steps`` vectors).
+    """
+
+    @staticmethod
+    def forward(ctx, data, v0, sk, inv, order, impl):
+        inv = float(inv)
+        steps = max(0, (order - 2 + 1) // 2)
+        ts = [v0]
+        t1, pp = ell_cheb_step(data, sk, v0, None, 0.5 * inv, impl=impl)
+        ts.append(t1)
+        sums = [pp.sum(dim=0)]
+        for _ in range(steps):
+            t_next, pp = ell_cheb_step(data, sk, ts[-1], ts[-2], inv, impl=impl)
+            sums.append(pp.sum(dim=0))
+            ts.append(t_next)
+        ctx.save_for_backward(data, *ts)
+        ctx.sk, ctx.inv, ctx.impl = sk, inv, impl
+        return torch.stack(sums)
+
+    @staticmethod
+    def backward(ctx, g_sums):
+        data, *ts = ctx.saved_tensors
+        need_data, need_v0 = ctx.needs_input_grad[:2]
+        K = ts[0].shape[-1]
+        real = torch.float32 if ts[0].dtype == torch.complex64 else torch.float64
+        cc_bar = g_sums[:, :K].to(real).contiguous()  # one row per step, sliced without a launch
+        nc_bar = g_sums[:, K:].to(real).contiguous()
+        h_bar = None
+        g_later = None  # cotangent of t_{i+1}, complete when step i is reached
+        g_cur_add = None  # what step i+1 sent to t_i as its t_prev
+        for i in range(len(ts) - 2, -1, -1):
+            h_bar, g_cur, neg_G = cheb_step_backward(
+                data, ctx.sk, ts[i], ts[i + 1], ctx.inv if i > 0 else 0.5 * ctx.inv,
+                g_later, cc_bar[i], nc_bar[i], h_bar=h_bar, g_cur_add=g_cur_add, impl=ctx.impl,
+            )
+            g_later, g_cur_add = g_cur, neg_G  # step 0 has no t_prev: its −G is dropped
+        return (h_bar if need_data else None), (g_later if need_v0 else None), None, None, None, None
 
 
 # --------------------------------------------------------------------------
@@ -284,7 +611,40 @@ def moments_fused(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optio
         sums.append(pp.sum(dim=0))
         t_prev, t_cur = t_cur, t_next
     sums = torch.stack(sums)  # [steps, 2K]
+    return _assemble_moments(mu0, mu1, sums, K)[:order]
+
+
+def _assemble_moments(mu0, mu1, sums, K: int):
+    """``[2 + 2·steps, K]`` moments from μ0, μ1 and the stacked step sums
+    ``[steps, 2K]``: ``μ_{2m} = 2⟨t_m,t_m⟩ − μ0``, ``μ_{2m+1} = 2⟨t_{m+1},t_m⟩ − μ1``."""
     alphas = 2.0 * sums[:, :K] - mu0
     betas = 2.0 * sums[:, K:] - mu1
-    rest = torch.stack([alphas, betas], dim=1).reshape(2 * steps, K)
-    return torch.cat([mu0[None], mu1[None], rest], dim=0)[:order]
+    rest = torch.stack([alphas, betas], dim=1).reshape(2 * sums.shape[0], K)
+    return torch.cat([mu0[None], mu1[None], rest], dim=0)
+
+
+def moments_fused_ad(data, sk: Skeleton, v0, inv: float, order: int, *,
+                     impl: Optional[str] = None):
+    """Differentiable :func:`moments_fused`: the same recursion as one
+    :class:`MomentSweep`, so gradients with respect to ``data`` and ``v0``
+    ride the backward kernels.  The counterpart of ``moments_pallas_fused_ad``
+    (``pallas_spmm.py:1585``).
+
+    Every step's vector stays alive until the backward pass
+    (``2 + ceil((order−2)/2)`` vectors of ``[N, 4, K]``), so ``t_next`` never
+    overwrites a buffer here.  One gradient launches ``sweep_launches(order)``
+    steps forward and as many :func:`ell_spmm_adjoint` and
+    :func:`ell_block_outer` backward.  Where nothing asks for a gradient it
+    is :func:`moments_fused` with its three buffers.
+    """
+    if not (torch.is_grad_enabled() and (data.requires_grad or v0.requires_grad)):
+        return moments_fused(data, sk, v0, inv, order, impl=impl)
+    impl = _resolve(impl, v0)
+    if impl == "cuda":
+        data, v0 = as_kernel_operand(data), as_kernel_operand(v0)
+    K = v0.shape[-1]
+    sums = MomentSweep.apply(data, v0, sk, float(inv), order, impl)
+    mu0, mu1 = sums[0, :K], sums[0, K:]
+    if sums.shape[0] == 1:
+        return torch.stack([mu0, mu1])[:order]
+    return _assemble_moments(mu0, mu1, sums[1:], K)[:order]

@@ -34,9 +34,13 @@ from .blocksparse import BLOCK, Skeleton
 def spmm_gather(data, sk: Skeleton, v):
     """Gather-based reference SpMM: ``y[i] = Σ_s data[i, s] @ v[cols[i, s]]``.
 
-    Padding slots (``cols = −1``) are read from row 0; their blocks are zero.
+    Padding slots (``cols = −1``) are read from row 0 and contribute
+    nothing, whatever their blocks hold (the kernels skip them), so the
+    gradient with respect to a padding block is zero.
     """
     gathered = v[sk.device_safe_cols(v.device)]  # [N, S, 4, K]
+    if sk.has_padding:
+        data = data * sk.device_valid(v.device)[..., None, None]
     return torch.einsum("nsab,nsbk->nak", data, gathered)
 
 

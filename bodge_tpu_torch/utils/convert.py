@@ -5,7 +5,9 @@ block-ELL layout hands out as NumPy — the block data ``[N, S, 4, 4]`` (e.g.
 ``system.host_data()``) and, for generic lattices, the skeleton's ``cols``
 and ``trans_slot`` — and returns a :class:`~bodge_tpu_torch.hamiltonian.Hamiltonian`
 holding the same blocks on the requested device.  :func:`to_numpy` is the
-way back.
+way back.  :func:`tensor_from_numpy` carries a pairing field, a probe block or
+a structure array the same way, so that two implementations evaluate the
+same ``F_total(Δ)``.
 """
 
 from __future__ import annotations
@@ -46,7 +48,22 @@ def hamiltonian_from_numpy(
     system._data = torch.from_numpy(np.array(data, order="C")).to(
         device=system.device, dtype=torch_dtype(system.dtype)
     )
+    system._version += 1
     return system
+
+
+def tensor_from_numpy(array, *, device, dtype=None, requires_grad: bool = False):
+    """``array`` (a pairing field ``[N]``, probes ``[N, 4, K]``, a structure
+    array ``[S, 2, 2]``, …) as a contiguous tensor on ``device``.
+
+    ``dtype`` is a NumPy or ``torch`` dtype (``None`` keeps the array's own).
+    With ``requires_grad`` the tensor is a leaf that ``torch.autograd``
+    tracks, e.g. the real gap field a gradient is taken against.
+    """
+    t = torch.from_numpy(np.array(array, order="C")).to(
+        device=device, dtype=None if dtype is None else torch_dtype(dtype)
+    )
+    return t.requires_grad_(requires_grad)
 
 
 def to_numpy(system: Hamiltonian) -> dict:

@@ -6,20 +6,31 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``bodge_tpu_torch/csrc`` into ``build/``,
-holds each kernel against its plain PyTorch version on the card, drives the
-KPM main path (assemble → block SpMM → fused Chebyshev step → free energy /
-LDOS / LDOS map / DOS / apply) through the normal entry points at full size,
-checks it against the complex128 plain path at a small size, and exits
-non-zero if any phase fails.  Every line of output is one JSON object except
-the ``nvidia-smi`` line; the last line is
+holds each kernel against its plain PyTorch version on the card, drives two
+paths through the normal entry points at full size — the KPM observables
+(assemble → block SpMM → fused Chebyshev step → free energy / LDOS / LDOS map
+/ DOS / apply, on 1000×1000 sites) and the differentiable path (``solve_gap``
+on 512×512 sites at order 512: the fused step forward, the adjoint-product
+and block-outer-product kernels backward, with a dense control on the card) —
+checks them against complex128 at small sizes, and exits non-zero if any
+phase fails.  Every line of output is one JSON object except the
+``nvidia-smi`` lines; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it fails at once.  ``--quick`` stops after the small
 kernel checks (for a first look at a new kernel) and prints no result line;
-``--log PATH`` also writes the JSON records of a full run to ``PATH``.
+``--phases main,widths,grad,gap,dwave`` runs only the named phases (and
+prints no result line unless all ran); ``--profile`` adds a
+``torch.profiler`` table of one gradient to the ``gap`` phase; ``--log PATH``
+also writes the JSON records of the run to ``PATH``.
 
-Phases: device, build, kernels (small awkward shapes), main path at full
-size (launch counters read here), kernels at the main path's shapes (times,
-bounds, library yardstick), main path checked against complex128.
+Phases: device, build, kernels (small awkward shapes); ``main``: the KPM path
+at full size (launch counters read here), its kernels at its shapes (times,
+bounds, library yardstick), and the path checked against complex128;
+``widths``: the forward kernels at the other probe widths the entry points
+use; ``grad``: gradients through the kernels against autograd through the
+plain complex128 product; ``gap``: ``solve_gap`` at full width (launch
+counters read here), its dense control, and all four kernels at its shape;
+``dwave``: one d-wave gradient at order 1024.
 """
 
 from __future__ import annotations
@@ -66,7 +77,13 @@ def nvidia_smi_line() -> str:
 
 def main(argv) -> int:
     quick = "--quick" in argv
+    profile = "--profile" in argv
     log_path = argv[argv.index("--log") + 1] if "--log" in argv else None
+    all_phases = ("main", "widths", "grad", "gap", "dwave")
+    phases = tuple(argv[argv.index("--phases") + 1].split(",")) if "--phases" in argv else all_phases
+    if not set(phases) <= set(all_phases):
+        print(f"chip_smoke: unknown phase in {phases} (known: {all_phases})", file=sys.stderr)
+        return 2
     import numpy as np
     import torch
 
@@ -77,11 +94,13 @@ def main(argv) -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from bodge_tpu_torch import CubicLattice, Hamiltonian, jσ2, σ0, σ2, σ3
+    from bodge_tpu_torch.models import selfconsistency as sc
     from bodge_tpu_torch.models.systems import rashba_dp_wave, swave_superconductor
     from bodge_tpu_torch.ops import _build
     from bodge_tpu_torch.ops import blocksparse as bs
     from bodge_tpu_torch.ops import chebyshev as kpm
     from bodge_tpu_torch.ops import cuda_spmm as ck
+    from bodge_tpu_torch.ops.blocksparse import BLOCK
     from bodge_tpu_torch.ops.spmm import chebyshev_step_bytes, spmm_bytes, spmm_flops
 
     dev = torch.device("cuda")
@@ -184,10 +203,64 @@ def main(argv) -> int:
             "partials_rel": float((sums - sums_ref).abs().max() / sums_ref.abs().max()),
         }
 
+    def random_blocks(sk, seed):
+        """Independent random entries in every block, padding slots included: not Hermitian."""
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        return torch.randn((*sk.cols.shape, 4, 4), dtype=c64, generator=g).to(dev)
+
+    # The backward kernels on non-Hermitian data.  ell_spmm_adjoint: atol =
+    # rtol = 2e-4 against the complex64 plain version, as ell_spmm.
+    # ell_block_outer: the same tolerance (float32 sums of K <= 33 products in
+    # another order), with `accumulate` off (fresh and overwritten buffer) and
+    # on (added to a random buffer); a second launch must repeat bit for bit.
+    # The fused forms the backward pass uses (G = g + shift*t formed in the
+    # outer kernel with -G written out, g absent; alpha, add and two axpy terms
+    # in the adjoint's epilogue, written over `add`) to the same tolerance.
+    def compare_backward(sk, K, seed):
+        N = sk.n_sites
+        data = random_blocks(sk, seed + 2)
+        v, g = random_vector(N, K, seed), random_vector(N, K, seed + 1)
+        y = ck.ell_spmm_adjoint(data, sk, v)
+        y_again = ck.ell_spmm_adjoint(data, sk, v)
+        h = ck.ell_block_outer(g, sk, v, 0.75)
+        h_again = ck.ell_block_outer(g, sk, v, 0.75, out=torch.full_like(h, 7.0))
+        start = random_blocks(sk, seed + 3)
+        h_acc = ck.ell_block_outer(g, sk, v, 0.75, out=start.clone(), accumulate=True)
+        h_acc_again = ck.ell_block_outer(g, sk, v, 0.75, out=start.clone(), accumulate=True)
+        shift = torch.linspace(-0.5, 1.5, K, device=dev)
+        c2 = torch.linspace(1.0, -2.0, K, device=dev)
+        x1, x2, add = (random_vector(N, K, seed + 4 + i) for i in range(3))
+        neg, neg0 = torch.empty_like(v), torch.empty_like(v)
+        h_fused = ck.ell_block_outer(g, sk, v, 0.75, shift=shift, neg_out=neg)
+        h_shift = ck.ell_block_outer(None, sk, v, 0.75, shift=shift, neg_out=neg0)
+        buf = add.clone()
+        y_fused = ck.ell_spmm_adjoint(data, sk, v, alpha=-0.3, add=buf, axpy=((shift, x1), (c2, x2)), out=buf)
+        torch.cuda.synchronize()
+        y_ref = ck.ell_spmm_adjoint_plain(data, sk, v)
+        h_ref = ck.ell_block_outer_plain(g, sk, v, 0.75)
+        G = g + shift * v
+        y_fused_ref = -0.3 * y_ref + add + shift * x1 + c2 * x2
+        h_fused_ref = ck.ell_block_outer_plain(G, sk, v, 0.75)
+        close = lambda a, b: torch.allclose(a, b, atol=2e-4, rtol=2e-4)
+        ok = (
+            close(y, y_ref) and close(h, h_ref) and close(h_acc, start + h_ref)
+            and torch.equal(y_again, y) and torch.equal(h_again, h) and torch.equal(h_acc_again, h_acc)
+            and bool((h[~sk.device_valid(dev)] == 0).all())  # padding slots get zero
+            and close(neg, -G) and close(h_fused, h_fused_ref)
+            and close(neg0, -shift * v) and close(h_shift, ck.ell_block_outer_plain(shift * v, sk, v, 0.75))
+            and close(y_fused, y_fused_ref) and y_fused.data_ptr() == buf.data_ptr()
+        )
+        return ok, {
+            "ell_spmm_adjoint": float(max((y - y_ref).abs().max(), (y_fused - y_fused_ref).abs().max())),
+            "ell_block_outer": float(max((h - h_ref).abs().max(), (h_acc - start - h_ref).abs().max(),
+                                         (h_fused - h_fused_ref).abs().max(), (neg + G).abs().max())),
+        }
+
     ck.reset_launch_counts()
     shapes = [(6, 5, 1), (4, 7, 1), (4, 4, 3), (3, 1, 5), (5, 6, 4), (16, 1, 1), (2, 6, 1)]
     probe_counts = [1, 3, 4, 8, 33]
-    small_err = {"ell_spmm": 0.0, "ell_cheb_step": 0.0, "partials_rel": 0.0}
+    small_err = {"ell_spmm": 0.0, "ell_cheb_step": 0.0, "partials_rel": 0.0,
+                 "ell_spmm_adjoint": 0.0, "ell_block_outer": 0.0}
     cases = [(str(shape), *random_system(shape, seed=i)) for i, shape in enumerate(shapes)]
     rng = np.random.default_rng(11)
     r = np.concatenate([np.arange(23), rng.integers(0, 23, size=60)])
@@ -200,110 +273,49 @@ def main(argv) -> int:
         worst = dict.fromkeys(small_err, 0.0)
         for K in probe_counts:
             ok, err = compare(data, sk, K, seed=100 + K)
+            ok_bwd, err_bwd = compare_backward(sk, K, seed=200 + K)
+            err.update(err_bwd)
             worst = {k: max(worst[k], err[k]) for k in worst}
             check(ok, f"kernel disagrees with its plain version on {name}, K={K}: {err}")
+            check(ok_bwd, f"backward kernel disagrees with its plain version on {name}, K={K}: {err_bwd}")
         small_err = {k: max(small_err[k], worst[k]) for k in worst}
         emit({"phase": "kernels", "shape": name, "S": sk.n_slots, "K": probe_counts,
               "padding_slots": bool((sk.cols < 0).any()), "max_abs_err": worst})
     emit({"phase": "kernels", "held": list(ck.KERNELS), "small_shapes": len(cases),
           "tolerance": {"y_t_next": "atol=rtol=2e-4 vs complex64 plain",
-                        "partials": "1e-4 of the largest sum vs complex128 plain"},
+                        "partials": "1e-4 of the largest sum vs complex128 plain",
+                        "adjoint_outer": "atol=rtol=2e-4 vs complex64 plain, non-Hermitian data, "
+                                         "accumulate off and on, second launch bit-equal"},
           "max_abs_err": small_err, "launches": ck.launch_counts()})
     if quick:
         return 0
 
-    # ------------------------------------------------------------------ 4. main path, full size
-    energies = np.linspace(-1.0, 1.0, 41)
-    expected = {"ell_spmm": 0, "ell_cheb_step": 0}
+    def normal_metal(shape, dtype=None):
+        """Tight-binding metal at half filling, open boundaries: the system of the
+        reference's self-consistency showcase (t = 1, μ = 0)."""
+        system = Hamiltonian(CubicLattice(shape), dtype=dtype, device=dev)
+        system.assemble(
+            onsite=lambda ci: 0.0 * σ0,
+            hopping=lambda ci, cj: np.where(
+                (np.abs(ci - cj).max(axis=1) == 1)[:, None, None], -1.0 * σ0, 0
+            ),
+            check=False,
+        )
+        return system
 
-    def call(label, fn, order, K, sk, bound_iters=0):
-        """Run one entry point, synchronised; account for the launches it must make."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        steps = ck.sweep_launches(order) if order else 0
-        expected["ell_cheb_step"] += steps
-        expected["ell_spmm"] += bound_iters
-        rec = {"phase": "main", "call": label, "wall_s": wall, "cheb_launches": steps,
-               "spmm_launches": bound_iters}
-        if steps:
-            step_bytes = chebyshev_step_bytes(sk, K, 8)
-            rec.update({
-                "K": K, "step_bytes": step_bytes,
-                "achieved_GBps_over_wall": steps * step_bytes / wall / 1e9,
-                "bound_ms_per_step_datasheet": step_bytes / HBM_BYTES_PER_S * 1e3,
-                "bound_ms_per_step_measured_copy": step_bytes / copy_bytes_per_s * 1e3,
-            })
-        emit(rec)
-        return out
+    def bound_row(name, label, sk, K, ms, plain_ms, nbytes, flops, err, library_ms, library, runs):
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        row = {
+            "phase": "kernels", "shape": label, "N": sk.n_sites, "S": sk.n_slots, "K": K, "name": name,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
+            "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_ms_measured_copy": nbytes / copy_bytes_per_s * 1e3,
+            "achieved_GBps": nbytes / ms / 1e6, "library_ms": library_ms, "library": library,
+            "runs_ms": runs,
+        }
+        emit(row)
+        return row
 
-    ck.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-
-    t0 = time.perf_counter()
-    big = swave_superconductor((1000, 1000, 1))  # on the card, complex64, Hermiticity-gated
-    torch.cuda.synchronize()
-    sk_big = big.skeleton
-    check(big.data.is_cuda and big.data.dtype == c64, "the full-size system is not complex64 on the card")
-    emit({"phase": "main", "call": "swave_superconductor((1000,1000,1))", "wall_s": time.perf_counter() - t0,
-          "N": sk_big.n_sites, "S": sk_big.n_slots, "data_MB": big.data.numel() * 8 / 1e6,
-          "hermiticity_error": big._hermiticity_error()})
-
-    ITERS = 60  # spectral_bound's power iterations, one ell_spmm each
-    scale_big = call("spectral_bound", lambda: kpm.spectral_bound(big.data, sk_big), 0, 1, sk_big, ITERS)
-    F_cold = call("free_energy(T=0.01, kpm, order=256, samples=8)",
-                  lambda: big.free_energy(0.01, method="kpm", order=256, samples=8), 256, 8, sk_big, ITERS)
-    F_warm = call("free_energy(T=0.5, kpm, order=256, samples=8)",
-                  lambda: big.free_energy(0.5, method="kpm", order=256, samples=8, scale=scale_big),
-                  256, 8, sk_big)
-    rho = call("ldos((500,500,0), order=512)",
-               lambda: big.ldos((500, 500, 0), energies, method="kpm", order=512, scale=scale_big),
-               512, 4, sk_big)
-    sites = [(100 + 50 * i, 100 + 50 * j, 0) for i in range(4) for j in range(4)]
-    rho_map = call("ldos_map(16 sites, order=512)",
-                   lambda: big.ldos_map(sites, energies, method="kpm", order=512, scale=scale_big),
-                   512, 64, sk_big)
-    dos = call("dos(order=256, samples=8)",
-               lambda: big.dos(energies, order=256, samples=8, scale=scale_big), 256, 8, sk_big)
-    v_big = random_vector(sk_big.n_sites, 8, 7)
-    y_big = call("apply(K=8)", lambda: big.apply(v_big), 0, 8, sk_big, 1)
-
-    t0 = time.perf_counter()
-    rashba = rashba_dp_wave((64, 64, 4))
-    torch.cuda.synchronize()
-    sk_r = rashba.skeleton
-    emit({"phase": "main", "call": "rashba_dp_wave((64,64,4))", "wall_s": time.perf_counter() - t0,
-          "N": sk_r.n_sites, "S": sk_r.n_slots, "hermiticity_error": rashba._hermiticity_error()})
-    F_r = call("rashba free_energy(T=0.01, kpm, order=256, samples=8)",
-               lambda: rashba.free_energy(0.01, method="kpm", order=256, samples=8), 256, 8, sk_r, ITERS)
-    rho_r = call("rashba ldos((32,32,2), order=512)",
-                 lambda: rashba.ldos((32, 32, 2), energies, method="kpm", order=512), 512, 4, sk_r, ITERS)
-
-    main_launches = ck.launch_counts()  # read right after the main path
-    peak_GB = torch.cuda.max_memory_allocated() / 1e9
-
-    mid = len(energies) // 2
-    outside = np.abs(energies) >= 0.5  # beyond the s-wave gap Δ = 0.3
-    check(main_launches == expected, f"launch counters {main_launches} != expected {expected}")
-    check(all(v > 0 for v in main_launches.values()), "a kernel of the main path was never launched")
-    check(rho.shape == (41,) and np.isfinite(rho).all() and rho.min() >= -1e-6, "LDOS not finite / negative")
-    check(rho[mid] < 0.1 * rho[outside].mean(), f"no s-wave gap: rho(0)={rho[mid]} vs {rho[outside].mean()}")
-    check(rho_map.shape == (16, 41) and np.isfinite(rho_map).all() and rho_map.min() >= -1e-6, "LDOS map wrong")
-    check(bool((rho_map[:, mid] < 0.1 * rho_map[:, outside].mean(axis=1)).all()), "LDOS map shows no gap")
-    check(dos.shape == (41,) and np.isfinite(dos).all() and dos[mid] < 0.1 * dos[outside].mean(), "DOS shows no gap")
-    check(math.isfinite(F_cold) and math.isfinite(F_warm) and F_warm < F_cold < 0, "F not finite or not falling with T")
-    check(tuple(y_big.shape) == (sk_big.n_sites, 4, 8) and bool(torch.isfinite(torch.view_as_real(y_big)).all()),
-          "apply output wrong")
-    check(math.isfinite(F_r) and F_r < 0 and np.isfinite(rho_r).all() and rho_r.min() >= -1e-6,
-          "Rashba free energy / LDOS wrong")
-    emit({"phase": "main", "launches": main_launches, "expected": expected, "scale": scale_big,
-          "F(T=0.01)": F_cold, "F(T=0.5)": F_warm, "F_per_site": F_cold / sk_big.n_sites,
-          "rho(0)": float(rho[mid]), "rho(|e|>=0.5) mean": float(rho[outside].mean()),
-          "rashba_F": F_r, "peak_device_GB": peak_GB})
-
-    # ------------------------------------------------------------------ 3b. kernels, main path's shapes
     def library_spmm(data, sk, v):
         """One PyTorch sparse product for the same function, or the reason there is none."""
         N, K = sk.n_sites, v.shape[-1]
@@ -326,98 +338,587 @@ def main(argv) -> int:
                 errors.append(f"{layout}: {type(e).__name__}: {str(e)[:120]}")
         return None, None, None, errors
 
-    kernel_rows = {}
-    for label, system, sk in (("swave 1000x1000x1", big, sk_big), ("rashba 64x64x4", rashba, sk_r)):
-        K, N, data = 8, sk.n_sites, system.data
-        ok, err = compare(data, sk, K, seed=21)
-        check(ok, f"kernel disagrees with its plain version at {label}, K={K}: {err}")
-        t_cur, t_prev = random_vector(N, K, 31), random_vector(N, K, 32)
-        out = torch.empty_like(t_cur)
-        reps = 20 if N > 100_000 else 200
-        lib_layout, lib_fn, lib_y, lib_errors = library_spmm(data, sk, t_cur)
-        if lib_fn is not None:
-            check(torch.allclose(lib_y, ck.ell_spmm(data, sk, t_cur), atol=2e-4, rtol=2e-4),
-                  "library product disagrees with the kernel")
-        # plain, kernel, kernel, plain: both versions in turns on the one card
-        spmm_plain_a = timed_ms(lambda: ck.ell_spmm_plain(data, sk, t_cur), 5)
-        spmm_a = timed_ms(lambda: ck.ell_spmm(data, sk, t_cur), reps)
-        cheb_a = timed_ms(lambda: ck.ell_cheb_step(data, sk, t_cur, t_prev, 0.125, out=out), reps)
-        cheb_plain_a = timed_ms(lambda: ck.ell_cheb_step_plain(data, sk, t_cur, t_prev, 0.125), 5)
-        lib_ms = timed_ms(lib_fn, 5) if lib_fn is not None else None
-        cheb_b = timed_ms(lambda: ck.ell_cheb_step(data, sk, t_cur, t_prev, 0.125, out=out), reps)
-        spmm_b = timed_ms(lambda: ck.ell_spmm(data, sk, t_cur), reps)
-        spmm_plain_b = timed_ms(lambda: ck.ell_spmm_plain(data, sk, t_cur), 5)
-        del lib_fn, lib_y
-        flops = spmm_flops(sk, K)
-        for name, ms, plain_ms, nbytes, library in (
-            ("ell_spmm", min(spmm_a, spmm_b), min(spmm_plain_a, spmm_plain_b), spmm_bytes(sk, K, 8), lib_ms),
-            ("ell_cheb_step", min(cheb_a, cheb_b), cheb_plain_a, chebyshev_step_bytes(sk, K, 8), None),
-        ):
-            by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-            row = {
-                "phase": "kernels", "shape": label, "N": N, "S": sk.n_slots, "K": K, "name": name,
-                "max_abs_err": err[name], "partials_rel_err": err["partials_rel"], "ms": ms,
-                "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
-                "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                "bound_ms_measured_copy": nbytes / copy_bytes_per_s * 1e3,
-                "achieved_GBps": nbytes / ms / 1e6, "library_ms": library,
-                "library": (f"torch.sparse {lib_layout} @ dense" if library is not None else
-                            ("none: " + "; ".join(lib_errors) if name == "ell_spmm" else "none")),
-                "runs_ms": [spmm_a, spmm_b] if name == "ell_spmm" else [cheb_a, cheb_b],
-            }
-            emit(row)
-            kernel_rows.setdefault(name, row)  # the first shape is the main path's own
+    def library_sddmm(sk, g, t, alpha, start):
+        """``torch.sparse.sampled_addmm`` for the function of ell_block_outer, or
+        the reason there is none.  The block pattern is expanded to CSR once (16
+        entries per stored block, sorted by row and column) with the entries of
+        ``start`` as its values.  Returns the form that worked, a call with
+        beta = 1 to time, and the beta = 0 result scattered back to
+        ``[N, S, 4, 4]``."""
+        N, K = sk.n_sites, g.shape[-1]
+        n_idx, s_idx = sk.device_valid(dev).nonzero(as_tuple=True)
+        four = torch.arange(BLOCK, device=dev)
+        rows = (BLOCK * n_idx[:, None, None] + four[None, :, None]).expand(-1, BLOCK, BLOCK).reshape(-1)
+        cols = (BLOCK * sk.device_safe_cols(dev)[n_idx, s_idx][:, None, None] + four[None, None, :])
+        cols = cols.expand(-1, BLOCK, BLOCK).reshape(-1)
+        key, order = torch.sort(rows * (BLOCK * N) + cols)
+        if bool((key[1:] == key[:-1]).any()):
+            return None, None, None, ["two slots of a row name the same column: no CSR pattern"]
+        crow = torch.zeros(BLOCK * N + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(torch.bincount(rows, minlength=BLOCK * N), 0)
+        G2, t2 = g.reshape(BLOCK * N, K), t.reshape(BLOCK * N, K)
+        errors = []
+        forms = (("mat2 = conj(t).T, conjugate bit set", lambda: t2.conj().T),
+                 ("mat2 = conj(t).T, conjugate resolved inside the timed call", lambda: t2.conj().resolve_conj().T))
+        for form, mat2 in forms:
+            try:
+                pattern = torch.sparse_csr_tensor(crow, cols[order], start[n_idx, s_idx].reshape(-1)[order],
+                                                  size=(BLOCK * N, BLOCK * N))
+                values = torch.sparse.sampled_addmm(pattern, G2, mat2(), alpha=alpha, beta=0.0).values()
+                flat = torch.empty_like(values)
+                flat[order] = values
+                h_lib = torch.zeros_like(start)
+                h_lib[n_idx, s_idx] = flat.reshape(-1, BLOCK, BLOCK)
+                torch.cuda.synchronize()
+                fn = lambda: torch.sparse.sampled_addmm(pattern, G2, mat2(), alpha=alpha, beta=1.0)
+                return form, fn, h_lib, errors
+            except Exception as e:  # only the yardstick may be missing; the port never calls it
+                errors.append(f"{form}: {type(e).__name__}: {str(e)[:120]}")
+        return None, None, None, errors
 
-    # ------------------------------------------------------------------ 5. main path, checked
-    # impl="cuda" (kernels, complex64 after the down-cast) against impl="plain"
-    # in complex128, both on the card, same scale and probes.  Moments to
-    # 2e-4 of the largest moment (float32 recursion over `order` steps);
-    # free energy to 1e-4 relative (a float32 sum over 4N entries per probe,
-    # then a short series); LDOS to 1e-3 of the curve's maximum (the series
-    # weights amplify moment errors by about the order).
-    for label, system in (
-        ("swave (48,48,1)", swave_superconductor((48, 48, 1), dtype=np.complex128)),
-        ("rashba (12,12,4)", rashba_dp_wave((12, 12, 4), dtype=np.complex128)),
-    ):
-        sk = system.skeleton
+    def phase_main():
+        """The first path: the KPM observables at 1000×1000, their kernels at that
+        shape, and the path checked against complex128."""
+        # ------------------------------------------------------------------ 4. main path, full size
+        energies = np.linspace(-1.0, 1.0, 41)
+        expected = dict.fromkeys(ck.KERNELS, 0)  # the backward kernels stay at 0 on this path
+
+        def call(label, fn, order, K, sk, bound_iters=0):
+            """Run one entry point, synchronised; account for the launches it must make."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = ck.sweep_launches(order) if order else 0
+            expected["ell_cheb_step"] += steps
+            expected["ell_spmm"] += bound_iters
+            rec = {"phase": "main", "call": label, "wall_s": wall, "cheb_launches": steps,
+                   "spmm_launches": bound_iters}
+            if steps:
+                step_bytes = chebyshev_step_bytes(sk, K, 8)
+                rec.update({
+                    "K": K, "step_bytes": step_bytes,
+                    "achieved_GBps_over_wall": steps * step_bytes / wall / 1e9,
+                    "bound_ms_per_step_datasheet": step_bytes / HBM_BYTES_PER_S * 1e3,
+                    "bound_ms_per_step_measured_copy": step_bytes / copy_bytes_per_s * 1e3,
+                })
+            emit(rec)
+            return out
+
+        ck.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+
+        t0 = time.perf_counter()
+        big = swave_superconductor((1000, 1000, 1))  # on the card, complex64, Hermiticity-gated
+        torch.cuda.synchronize()
+        sk_big = big.skeleton
+        check(big.data.is_cuda and big.data.dtype == c64, "the full-size system is not complex64 on the card")
+        emit({"phase": "main", "call": "swave_superconductor((1000,1000,1))", "wall_s": time.perf_counter() - t0,
+              "N": sk_big.n_sites, "S": sk_big.n_slots, "data_MB": big.data.numel() * 8 / 1e6,
+              "hermiticity_error": big._hermiticity_error()})
+
+        ITERS = 60  # spectral_bound's power iterations, one ell_spmm each
+        scale_big = call("spectral_bound", lambda: kpm.spectral_bound(big.data, sk_big), 0, 1, sk_big, ITERS)
+        F_cold = call("free_energy(T=0.01, kpm, order=256, samples=8)",
+                      lambda: big.free_energy(0.01, method="kpm", order=256, samples=8), 256, 8, sk_big, ITERS)
+        F_warm = call("free_energy(T=0.5, kpm, order=256, samples=8)",
+                      lambda: big.free_energy(0.5, method="kpm", order=256, samples=8, scale=scale_big),
+                      256, 8, sk_big)
+        rho = call("ldos((500,500,0), order=512)",
+                   lambda: big.ldos((500, 500, 0), energies, method="kpm", order=512, scale=scale_big),
+                   512, 4, sk_big)
+        sites = [(100 + 50 * i, 100 + 50 * j, 0) for i in range(4) for j in range(4)]
+        rho_map = call("ldos_map(16 sites, order=512)",
+                       lambda: big.ldos_map(sites, energies, method="kpm", order=512, scale=scale_big),
+                       512, 64, sk_big)
+        dos = call("dos(order=256, samples=8)",
+                   lambda: big.dos(energies, order=256, samples=8, scale=scale_big), 256, 8, sk_big)
+        v_big = random_vector(sk_big.n_sites, 8, 7)
+        y_big = call("apply(K=8)", lambda: big.apply(v_big), 0, 8, sk_big, 1)
+
+        t0 = time.perf_counter()
+        rashba = rashba_dp_wave((64, 64, 4))
+        torch.cuda.synchronize()
+        sk_r = rashba.skeleton
+        emit({"phase": "main", "call": "rashba_dp_wave((64,64,4))", "wall_s": time.perf_counter() - t0,
+              "N": sk_r.n_sites, "S": sk_r.n_slots, "hermiticity_error": rashba._hermiticity_error()})
+        F_r = call("rashba free_energy(T=0.01, kpm, order=256, samples=8)",
+                   lambda: rashba.free_energy(0.01, method="kpm", order=256, samples=8), 256, 8, sk_r, ITERS)
+        rho_r = call("rashba ldos((32,32,2), order=512)",
+                     lambda: rashba.ldos((32, 32, 2), energies, method="kpm", order=512), 512, 4, sk_r, ITERS)
+
+        main_launches = ck.launch_counts()  # read right after the main path
+        peak_GB = torch.cuda.max_memory_allocated() / 1e9
+
+        mid = len(energies) // 2
+        outside = np.abs(energies) >= 0.5  # beyond the s-wave gap Δ = 0.3
+        check(main_launches == expected, f"launch counters {main_launches} != expected {expected}")
+        check(main_launches["ell_spmm"] > 0 and main_launches["ell_cheb_step"] > 0,
+              "a kernel of the main path was never launched")
+        check(rho.shape == (41,) and np.isfinite(rho).all() and rho.min() >= -1e-6, "LDOS not finite / negative")
+        check(rho[mid] < 0.1 * rho[outside].mean(), f"no s-wave gap: rho(0)={rho[mid]} vs {rho[outside].mean()}")
+        check(rho_map.shape == (16, 41) and np.isfinite(rho_map).all() and rho_map.min() >= -1e-6, "LDOS map wrong")
+        check(bool((rho_map[:, mid] < 0.1 * rho_map[:, outside].mean(axis=1)).all()), "LDOS map shows no gap")
+        check(dos.shape == (41,) and np.isfinite(dos).all() and dos[mid] < 0.1 * dos[outside].mean(), "DOS shows no gap")
+        check(math.isfinite(F_cold) and math.isfinite(F_warm) and F_warm < F_cold < 0, "F not finite or not falling with T")
+        check(tuple(y_big.shape) == (sk_big.n_sites, 4, 8) and bool(torch.isfinite(torch.view_as_real(y_big)).all()),
+              "apply output wrong")
+        check(math.isfinite(F_r) and F_r < 0 and np.isfinite(rho_r).all() and rho_r.min() >= -1e-6,
+              "Rashba free energy / LDOS wrong")
+        emit({"phase": "main", "launches": main_launches, "expected": expected, "scale": scale_big,
+              "F(T=0.01)": F_cold, "F(T=0.5)": F_warm, "F_per_site": F_cold / sk_big.n_sites,
+              "rho(0)": float(rho[mid]), "rho(|e|>=0.5) mean": float(rho[outside].mean()),
+              "rashba_F": F_r, "peak_device_GB": peak_GB})
+
+        # ------------------------------------------------------------------ 3b. kernels, main path's shapes
+        kernel_rows = {}
+        for label, system, sk in (("swave 1000x1000x1", big, sk_big), ("rashba 64x64x4", rashba, sk_r)):
+            K, N, data = 8, sk.n_sites, system.data
+            ok, err = compare(data, sk, K, seed=21)
+            check(ok, f"kernel disagrees with its plain version at {label}, K={K}: {err}")
+            t_cur, t_prev = random_vector(N, K, 31), random_vector(N, K, 32)
+            out = torch.empty_like(t_cur)
+            reps = 20 if N > 100_000 else 200
+            lib_layout, lib_fn, lib_y, lib_errors = library_spmm(data, sk, t_cur)
+            if lib_fn is not None:
+                check(torch.allclose(lib_y, ck.ell_spmm(data, sk, t_cur), atol=2e-4, rtol=2e-4),
+                      "library product disagrees with the kernel")
+            # plain, kernel, kernel, plain: both versions in turns on the one card
+            spmm_plain_a = timed_ms(lambda: ck.ell_spmm_plain(data, sk, t_cur), 5)
+            spmm_a = timed_ms(lambda: ck.ell_spmm(data, sk, t_cur), reps)
+            cheb_a = timed_ms(lambda: ck.ell_cheb_step(data, sk, t_cur, t_prev, 0.125, out=out), reps)
+            cheb_plain_a = timed_ms(lambda: ck.ell_cheb_step_plain(data, sk, t_cur, t_prev, 0.125), 5)
+            lib_ms = timed_ms(lib_fn, 5) if lib_fn is not None else None
+            cheb_b = timed_ms(lambda: ck.ell_cheb_step(data, sk, t_cur, t_prev, 0.125, out=out), reps)
+            spmm_b = timed_ms(lambda: ck.ell_spmm(data, sk, t_cur), reps)
+            spmm_plain_b = timed_ms(lambda: ck.ell_spmm_plain(data, sk, t_cur), 5)
+            del lib_fn, lib_y
+            for name, runs, plain_ms, nbytes, library in (
+                ("ell_spmm", [spmm_a, spmm_b], min(spmm_plain_a, spmm_plain_b), spmm_bytes(sk, K, 8), lib_ms),
+                ("ell_cheb_step", [cheb_a, cheb_b], cheb_plain_a, chebyshev_step_bytes(sk, K, 8), None),
+            ):
+                row = bound_row(
+                    name, label, sk, K, min(runs), plain_ms, nbytes, spmm_flops(sk, K), err[name], library,
+                    (f"torch.sparse {lib_layout} @ dense" if library is not None else
+                     ("none: " + "; ".join(lib_errors) if name == "ell_spmm" else "none")), runs,
+                )
+                kernel_rows.setdefault(name, row)  # the first shape is the main path's own
+
+        # ------------------------------------------------------------------ 5. main path, checked
+        # impl="cuda" (kernels, complex64 after the down-cast) against impl="plain"
+        # in complex128, both on the card, same scale and probes.  Moments to
+        # 2e-4 of the largest moment (float32 recursion over `order` steps);
+        # free energy to 1e-4 relative (a float32 sum over 4N entries per probe,
+        # then a short series); LDOS to 1e-3 of the curve's maximum (the series
+        # weights amplify moment errors by about the order).
+        for label, system in (
+            ("swave (48,48,1)", swave_superconductor((48, 48, 1), dtype=np.complex128)),
+            ("rashba (12,12,4)", rashba_dp_wave((12, 12, 4), dtype=np.complex128)),
+        ):
+            sk = system.skeleton
+            N = sk.n_sites
+            scale = kpm.spectral_bound(system.data, sk, impl="plain")
+            probes = kpm.rademacher_probes(N, 8, 3, np.complex128)
+            mu = {impl: kpm.moments(system.data, sk, probes, 64, scale, impl=impl).double().cpu().numpy()
+                  for impl in ("cuda", "plain")}
+            F = {impl: system.free_energy(0.01, method="kpm", order=128, samples=8, scale=scale, impl=impl)
+                 for impl in ("cuda", "plain")}
+            site = tuple(s // 2 for s in sk.shape)
+            ld = {impl: system.ldos(site, energies, method="kpm", order=128, scale=scale, impl=impl)
+                  for impl in ("cuda", "plain")}
+            errs = {
+                "moments_rel_to_max": float(np.abs(mu["cuda"] - mu["plain"]).max() / np.abs(mu["plain"]).max()),
+                "free_energy_rel": abs(F["cuda"] - F["plain"]) / abs(F["plain"]),
+                "ldos_rel_to_max": float(np.abs(ld["cuda"] - ld["plain"]).max() / np.abs(ld["plain"]).max()),
+            }
+            emit({"phase": "checked", "system": label, "scale": scale, "F_cuda": F["cuda"], "F_plain": F["plain"], **errs})
+            check(errs["moments_rel_to_max"] <= 2e-4, f"{label}: moments off by {errs['moments_rel_to_max']}")
+            check(errs["free_energy_rel"] <= 1e-4, f"{label}: free energy off by {errs['free_energy_rel']}")
+            check(errs["ldos_rel_to_max"] <= 1e-3, f"{label}: LDOS off by {errs['ldos_rel_to_max']}")
+        return main_launches, kernel_rows
+
+    # ------------------------------------------------------------------ 6. other probe widths
+    def phase_widths():
+        """The forward kernels at the probe widths the entry points use beside
+        K = 8, at N = 10⁶: K = 1 (spectral bound), K = 4 (LDOS), K = 64 (LDOS map)."""
+        big = swave_superconductor((1000, 1000, 1))
+        sk = big.skeleton
+        N, flops1 = sk.n_sites, spmm_flops(sk, 1)
+        for name, K in (("ell_spmm", 1), ("ell_spmm", 8), ("ell_cheb_step", 4),
+                        ("ell_cheb_step", 8), ("ell_cheb_step", 64)):
+            t_cur, t_prev = random_vector(N, K, 41), random_vector(N, K, 42)
+            out = torch.empty_like(t_cur)
+            if name == "ell_spmm":
+                fn, nbytes = (lambda: ck.ell_spmm(big.data, sk, t_cur)), spmm_bytes(sk, K, 8)
+            else:
+                fn = lambda: ck.ell_cheb_step(big.data, sk, t_cur, t_prev, 0.125, out=out)
+                nbytes = chebyshev_step_bytes(sk, K, 8)
+            runs = [timed_ms(fn, 20), timed_ms(fn, 20)]
+            by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, K * flops1 / FP32_FLOPS_PER_S * 1e3
+            emit({"phase": "widths", "name": name, "N": N, "S": sk.n_slots, "K": K, "ms": min(runs),
+                  "runs_ms": runs, "bytes": nbytes, "bound_ms": max(by_bytes, by_ops),
+                  "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                  "achieved_GBps": nbytes / min(runs) / 1e6})
+            del t_cur, t_prev, out
+
+    # ------------------------------------------------------------------ 7. gradients on the card
+    def chebstep_on_card(sk, K, label):
+        """One ChebStep.apply through the kernels, forward and backward, on
+        non-Hermitian complex64 data, against torch.autograd through the plain
+        step in complex128: cotangents of the operator and of both vectors to
+        2e-4 of the largest entry of each, three launches in all."""
         N = sk.n_sites
-        scale = kpm.spectral_bound(system.data, sk, impl="plain")
-        probes = kpm.rademacher_probes(N, 8, 3, np.complex128)
-        mu = {impl: kpm.moments(system.data, sk, probes, 64, scale, impl=impl).double().cpu().numpy()
-              for impl in ("cuda", "plain")}
-        F = {impl: system.free_energy(0.01, method="kpm", order=128, samples=8, scale=scale, impl=impl)
-             for impl in ("cuda", "plain")}
-        site = tuple(s // 2 for s in sk.shape)
-        ld = {impl: system.ldos(site, energies, method="kpm", order=128, scale=scale, impl=impl)
-              for impl in ("cuda", "plain")}
-        errs = {
-            "moments_rel_to_max": float(np.abs(mu["cuda"] - mu["plain"]).max() / np.abs(mu["plain"]).max()),
-            "free_energy_rel": abs(F["cuda"] - F["plain"]) / abs(F["plain"]),
-            "ldos_rel_to_max": float(np.abs(ld["cuda"] - ld["plain"]).max() / np.abs(ld["plain"]).max()),
+        data = random_blocks(sk, 301)
+        t_cur, t_prev, w_next = (random_vector(N, K, 302 + i) for i in range(3))
+        w_sums = torch.linspace(0.5, -1.0, 2 * K, device=dev)
+        got_want = []
+        before = ck.launch_counts()
+        for impl, dtype in (("cuda", c64), ("plain", c128)):
+            d, a, b = (x.to(dtype).requires_grad_(True) for x in (data, t_cur, t_prev))
+            if impl == "cuda":
+                t_next, sums = ck.ChebStep.apply(d, a, b, sk, 0.11, "cuda")
+            else:
+                t_next, pp = ck.ell_cheb_step_plain(d, sk, a, b, 0.11)
+                sums = pp[0]
+            loss = (t_next * w_next.to(dtype).conj()).real.sum() + (sums * w_sums.to(sums.dtype)).sum()
+            got_want.append(torch.autograd.grad(loss, (d, a, b)))
+        torch.cuda.synchronize()
+        after = ck.launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        check(launched == {"ell_spmm": 0, "ell_cheb_step": 1, "ell_spmm_adjoint": 1, "ell_block_outer": 1},
+              f"{label}: ChebStep forward and backward launched {launched}, expected one of each step kernel")
+        errs = {}
+        for name, got, want in zip(("d_data", "d_t_cur", "d_t_prev"), *got_want):
+            errs[name + "_rel_to_max"] = float((got - want).abs().max() / want.abs().max())
+            check(errs[name + "_rel_to_max"] <= 2e-4, f"{label}: ChebStep cotangent {name} off by {errs}")
+        return errs
+
+    def phase_grad():
+        """d(Σ_m w_m Σ_k μ_m[k]) / d(data) and / d(v0) through moments_fused_ad with
+        the kernels (complex64) against torch.autograd through separate plain
+        products and inner products in complex128.  Order 64, K = 8; the error
+        is taken relative to the largest gradient entry, tolerance 2e-4 (float32
+        recursions of 32 steps forward and backward)."""
+        order, K = 64, 8
+        w = torch.linspace(1.0, 0.3, order, dtype=torch.float64, device=dev)
+        for label, system in (
+            ("swave (48,48,1)", swave_superconductor((48, 48, 1), dtype=np.complex128)),
+            ("rashba (12,12,4)", rashba_dp_wave((12, 12, 4), dtype=np.complex128)),
+        ):
+            sk = system.skeleton
+            scale = kpm.spectral_bound(system.data, sk, impl="plain")
+            v0 = torch.as_tensor(kpm.rademacher_probes(sk.n_sites, K, 3, np.complex128)).to(dev)
+            step_errs = chebstep_on_card(sk, K, label)
+            grads = {}
+            before = ck.launch_counts()
+            for impl in ("cuda", "gather"):
+                data = system.data.clone().requires_grad_(True)
+                v = v0.clone().requires_grad_(True)
+                if impl == "cuda":
+                    mu = ck.moments_fused_ad(data, sk, v, 1.0 / scale, order, impl="cuda")
+                else:
+                    mu = kpm.moments(data, sk, v, order, scale, impl="gather")
+                loss = (w * mu.double().sum(dim=1)).sum()
+                grads[impl] = torch.autograd.grad(loss, (data, v))
+            torch.cuda.synchronize()
+            after = ck.launch_counts()
+            steps = ck.sweep_launches(order)
+            launched = {k: after[k] - before[k] for k in after}
+            check(launched == {"ell_spmm": 0, "ell_cheb_step": steps, "ell_spmm_adjoint": steps,
+                               "ell_block_outer": steps},
+                  f"{label}: one gradient launched {launched}, expected {steps} of each step kernel")
+            errs = {}
+            for name, got, want in zip(("d_data", "d_v0"), grads["cuda"], grads["gather"]):
+                check(got.dtype == want.dtype == c128 and got.shape == want.shape, f"{label}: {name} has a wrong type")
+                errs[name + "_rel_to_max"] = float((got - want).abs().max() / want.abs().max())
+            emit({"phase": "grad", "system": label, "order": order, "K": K, "scale": scale,
+                  "launches_per_gradient": launched, **errs, "chebstep": step_errs, "tolerance": 2e-4})
+            for name, e in errs.items():
+                check(e <= 2e-4, f"{label}: gradient {name} off by {e}")
+
+    # ------------------------------------------------------------------ 8. solve_gap at full width
+    def phase_gap():
+        """The differentiable path: solve_gap on 512×512 at order 512 with 8 probes
+        through the kernels, a dense control on 16×16 on the card, and the four
+        kernels timed at the path's shape."""
+        shape, order, samples, steps = (512, 512, 1), 512, 8, 60
+        V, delta0 = 2.5, 0.3
+        t0 = time.perf_counter()
+        metal = normal_metal(shape)
+        torch.cuda.synchronize()
+        sk = metal.skeleton
+        N = sk.n_sites
+        check(metal.data.is_cuda and metal.data.dtype == c64, "the full-size metal is not complex64 on the card")
+        emit({"phase": "gap", "call": f"normal_metal({shape})", "wall_s": time.perf_counter() - t0,
+              "N": N, "S": sk.n_slots, "data_MB": metal.data.numel() * 8 / 1e6})
+        kw = dict(V=V, temperature=0.0, method="kpm", order=order, samples=samples)
+        per_sweep = ck.sweep_launches(order)
+
+        # One gradient alone first: its device time, its peak memory, and
+        # whether the whole solve fits the time this script may take.
+        F_total = sc.make_total_free_energy(metal, **kw)
+        x = torch.full((1,), delta0, device=dev, requires_grad=True)
+
+        def one_gradient():
+            (g,) = torch.autograd.grad(F_total(x.expand(N).to(c64)), x)
+            return g
+
+        one_gradient()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = ck.launch_counts()
+        start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0 = time.perf_counter()
+        start.record()
+        F0 = F_total(x.expand(N).to(c64))
+        mid.record()
+        (g0,) = torch.autograd.grad(F0, x)
+        end.record()
+        torch.cuda.synchronize()
+        gradient_wall = time.perf_counter() - t0
+        after = ck.launch_counts()
+        per_gradient = {k: after[k] - before[k] for k in after}
+        gradient_peak_GB = torch.cuda.max_memory_allocated() / 1e9
+        check(per_gradient == {"ell_spmm": 0, "ell_cheb_step": per_sweep, "ell_spmm_adjoint": per_sweep,
+                               "ell_block_outer": per_sweep},
+              f"one gradient launched {per_gradient}, expected {per_sweep} of each step kernel")
+        check(bool(torch.isfinite(g0).all()) and math.isfinite(float(F0.detach())), "F_total or its gradient is not finite")
+        emit({"phase": "gap", "call": "one gradient of F_total (order 512, K = 8)", "wall_s": gradient_wall,
+              "forward_device_ms": start.elapsed_time(mid), "backward_device_ms": mid.elapsed_time(end),
+              "launches_per_gradient": per_gradient, "peak_device_GB": gradient_peak_GB,
+              "F_total(0.3)": float(F0.detach()), "dF/dDelta": float(g0[0])})
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                one_gradient()
+                torch.cuda.synchronize()
+            rows = sorted(prof.key_averages(), key=lambda e: -getattr(e, "device_time_total", 0.0))[:14]
+            emit({"phase": "gap", "profile_of": "one gradient", "top_by_device_time_ms": [
+                {"name": e.key[:80], "calls": e.count, "device_ms": getattr(e, "device_time_total", 0.0) / 1e3}
+                for e in rows]})
+        short = start.elapsed_time(end) > 1000.0  # more than 1 s a gradient: take 20 steps
+        if short:
+            steps = 20
+        del F_total, F0, g0
+
+        ck.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        delta, F = sc.solve_gap(metal, uniform=True, delta0=delta0, learning_rate=0.08 / N, steps=steps, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gap_launches = ck.launch_counts()  # read right after the path
+        peak_GB = torch.cuda.max_memory_allocated() / 1e9
+        # 60 power iterations for the one-time spectral bound, one sweep forward
+        # and backward per step, and one more sweep forward for the returned F.
+        expected = {"ell_spmm": 60, "ell_cheb_step": (steps + 1) * per_sweep,
+                    "ell_spmm_adjoint": steps * per_sweep, "ell_block_outer": steps * per_sweep}
+        check(gap_launches == expected, f"solve_gap launched {gap_launches}, expected {expected}")
+        check(all(v > 0 for v in gap_launches.values()), "a kernel of the differentiable path was never launched")
+        gap_kpm = float(delta[0].real)
+        check(delta.shape == (N,) and np.isfinite(delta).all() and math.isfinite(F), "solve_gap result not finite")
+
+        t0 = time.perf_counter()
+        control, F_control = sc.solve_gap(normal_metal((16, 16, 1)), V=V, temperature=0.0, uniform=True,
+                                          delta0=delta0, steps=150, learning_rate=0.02)
+        torch.cuda.synchronize()
+        control_wall = time.perf_counter() - t0
+        gap_dense = float(control[0].real)
+        emit({"phase": "gap", "call": f"solve_gap(normal_metal({shape}), V=2.5, T=0, uniform, order=512, samples=8)",
+              "steps": steps, "wall_s": wall, "seconds_per_iteration": wall / (steps + 1),
+              "launches": gap_launches, "expected": expected, "peak_device_GB": peak_GB,
+              "delta_kpm": gap_kpm, "F_total": F, "delta_dense_16x16": gap_dense, "F_dense_16x16": F_control,
+              "dense_control_wall_s": control_wall, "abs_diff": abs(gap_kpm - gap_dense),
+              "short_run": short})
+        if short:  # the descent check: more than half the way from the start to the control
+            check(abs(gap_kpm - delta0) > 0.5 * abs(gap_dense - delta0) and
+                  (gap_kpm - delta0) * (gap_dense - delta0) > 0,
+                  f"after {steps} steps Δ = {gap_kpm} has not moved half the way from {delta0} to {gap_dense}")
+        else:
+            check(abs(gap_kpm - gap_dense) < 0.02, f"Δ_kpm = {gap_kpm} is not within 0.02 of the dense control {gap_dense}")
+            check(gap_kpm > 0.3, f"Δ_kpm = {gap_kpm} did not grow beyond its start")
+
+        # The four kernels at this path's shape: N = 262144, S = 5, K = 8.
+        K, label = samples, "metal 512x512x1"
+        data = sc.data_with_onsite_swave(metal.data, torch.full((N,), gap_kpm, device=dev, dtype=c64))
+        ok, err = compare(data, sk, K, seed=51)
+        check(ok, f"kernel disagrees with its plain version at {label}: {err}")
+        # The backward kernels at this shape on independent random blocks (not
+        # Hermitian, so a wrong transpose or conjugate shows), bare and in the
+        # fused forms the path launches: the same comparisons and tolerance as
+        # at the small shapes.
+        ok_bwd, err_bwd = compare_backward(sk, K, seed=71)
+        check(ok_bwd, f"backward kernel disagrees with its plain version at {label}: {err_bwd}")
+        err.update(err_bwd)
+        t_cur, t_prev, g = random_vector(N, K, 61), random_vector(N, K, 62), random_vector(N, K, 63)
+        out, h_out = torch.empty_like(t_cur), torch.zeros_like(data)
+        # Library yardsticks, each checked against the kernel to 2e-4 and used
+        # nowhere in the port.  Adjoint: the torch.sparse product with the
+        # conjugate transpose, built once in the same ELL layout.  Outer
+        # product: torch.sparse.sampled_addmm on the block pattern as CSR.
+        y_adj = ck.ell_spmm_adjoint(data, sk, g)
+        dagger = data[sk.device_safe_cols(dev), sk.device_mirror_index(dev)].transpose(-1, -2).conj().contiguous()
+        lib_layout, lib_fn, lib_y, lib_errors = library_spmm(dagger, sk, g)
+        if lib_fn is not None:
+            check(torch.allclose(lib_y, y_adj, atol=2e-4, rtol=2e-4), "library adjoint product disagrees with the kernel")
+        del y_adj, lib_y, dagger
+        h = ck.ell_block_outer(g, sk, t_cur, 0.25)
+        sddmm_form, sddmm_fn, h_lib, sddmm_errors = library_sddmm(sk, g, t_cur, 0.25, h)
+        if sddmm_fn is not None:
+            err["ell_block_outer_vs_library"] = float((h_lib - h).abs().max())
+            check(torch.allclose(h_lib, h, atol=2e-4, rtol=2e-4),
+                  f"library sampled product disagrees with the kernel: {err}")
+        del h, h_lib
+        # The backward kernels in the form the path launches them (G formed and
+        # -G written by the outer kernel, accumulating; the adjoint with its
+        # epilogue of one added vector and two axpy terms), and bare.
+        shift = torch.linspace(0.5, 1.5, K, device=dev) * 1e-3
+        neg, add = torch.empty_like(t_cur), random_vector(N, K, 64)
+        fns = {
+            "ell_spmm": lambda: ck.ell_spmm(data, sk, t_cur),
+            "ell_cheb_step": lambda: ck.ell_cheb_step(data, sk, t_cur, t_prev, 0.125, out=out),
+            "ell_spmm_adjoint": lambda: ck.ell_spmm_adjoint(  # written over `add`, as the sweep does
+                data, sk, g, alpha=-0.25, add=add, axpy=((shift, t_cur), (shift, t_prev)), out=add),
+            "ell_block_outer": lambda: ck.ell_block_outer(
+                g, sk, t_cur, 0.25, out=h_out, accumulate=True, shift=shift, neg_out=neg),
+            "ell_spmm_adjoint bare": lambda: ck.ell_spmm_adjoint(data, sk, g),
+            "ell_block_outer bare": lambda: ck.ell_block_outer(g, sk, t_cur, 0.25, out=h_out),
         }
-        emit({"phase": "checked", "system": label, "scale": scale, "F_cuda": F["cuda"], "F_plain": F["plain"], **errs})
-        check(errs["moments_rel_to_max"] <= 2e-4, f"{label}: moments off by {errs['moments_rel_to_max']}")
-        check(errs["free_energy_rel"] <= 1e-4, f"{label}: free energy off by {errs['free_energy_rel']}")
-        check(errs["ldos_rel_to_max"] <= 1e-3, f"{label}: LDOS off by {errs['ldos_rel_to_max']}")
+        plain = {
+            "ell_spmm": lambda: ck.ell_spmm_plain(data, sk, t_cur),
+            "ell_cheb_step": lambda: ck.ell_cheb_step_plain(data, sk, t_cur, t_prev, 0.125),
+            "ell_spmm_adjoint": lambda: ck.ell_spmm_adjoint_plain(data, sk, g),
+            "ell_block_outer": lambda: ck.ell_block_outer_plain(g, sk, t_cur, 0.25),
+        }
+        first = {name: timed_ms(fn, 50) for name, fn in fns.items()}  # kernel, plain, library, kernel
+        plain_ms = {name: timed_ms(fn, 5) for name, fn in plain.items()}
+        lib_ms = timed_ms(lib_fn, 5) if lib_fn is not None else None
+        sddmm_ms = timed_ms(sddmm_fn, 5) if sddmm_fn is not None else None
+        second = {name: timed_ms(fn, 50) for name, fn in fns.items()}
+        vec, op = N * 4 * K * 8, data.numel() * 8
+        # Bytes: every input once, every output once.  Adjoint on the path:
+        # operator, -G, add, t_cur, t_next in, one vector out.  Outer on the
+        # path: g and t in, -G out, the operator cotangent read and written.
+        nbytes = {"ell_spmm": spmm_bytes(sk, K, 8), "ell_cheb_step": chebyshev_step_bytes(sk, K, 8),
+                  "ell_spmm_adjoint": op + 5 * vec, "ell_block_outer": 3 * vec + 2 * op,
+                  "ell_spmm_adjoint bare": spmm_bytes(sk, K, 8), "ell_block_outer bare": 2 * vec + op}
+        rows = {}
+        for name in fns:
+            base = name.split(" ")[0]
+            library, library_ms = "none", None
+            if base == "ell_spmm_adjoint":
+                library_ms = lib_ms
+                library = (f"torch.sparse {lib_layout} @ dense with the conjugate transpose (the product alone)"
+                           if lib_ms is not None else "none: " + "; ".join(lib_errors))
+            elif base == "ell_block_outer":
+                library_ms = sddmm_ms
+                library = (f"torch.sparse.sampled_addmm on the CSR block pattern, beta = 1, {sddmm_form} "
+                           "(the accumulating product alone)"
+                           if sddmm_ms is not None else "none: " + "; ".join(sddmm_errors))
+            rows[name] = bound_row(name, label, sk, K, min(first[name], second[name]), plain_ms[base],
+                                   nbytes[name], spmm_flops(sk, K), err[base], library_ms, library,
+                                   [first[name], second[name]])
+        kernel_ms = sum(rows[k]["ms"] for k in ("ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer")) * per_sweep
+        emit({"phase": "gap", "one_gradient_split_ms": {
+            "ell_cheb_step": rows["ell_cheb_step"]["ms"] * per_sweep,
+            "ell_spmm_adjoint": rows["ell_spmm_adjoint"]["ms"] * per_sweep,
+            "ell_block_outer": rows["ell_block_outer"]["ms"] * per_sweep,
+            "kernels_total": kernel_ms, "launches_each": per_sweep}})
+        return gap_launches, rows
+
+    # ------------------------------------------------------------------ 9. one d-wave gradient
+    def phase_dwave():
+        """One gradient of the d-wave objective on (64,64,1) at order 1024 (below
+        that the KPM minimiser is biased low for nodal gaps): kernels in
+        complex64 against the plain three-term recursion in complex128, same
+        probes and scale.  Tolerance 1e-3 of the largest gradient entry and
+        1e-5 relative on F: float32 recursions of 512 steps forward and back."""
+        shape, order, samples = (64, 64, 1), 1024, 8
+        metal = normal_metal(shape, dtype=np.complex128)
+        N = metal.skeleton.n_sites
+        field = 0.2 + 0.05 * np.random.default_rng(9).normal(size=N)
+        kw = dict(V=2.5, temperature=0.0, method="kpm", order=order, samples=samples, pairing="dwave")
+        sk = metal.skeleton
+        headroom = torch.full((N,), 2.0, device=dev, dtype=c128)  # delta_max of make_total_free_energy
+        scale = kpm.spectral_bound(
+            sc.data_with_bond_singlet(metal.data, headroom, sk, sc.bond_structure_dwave(sk)), sk, impl="plain"
+        )
+        out = {}
+        before = ck.launch_counts()
+        for impl in ("plain", "cuda"):  # both objectives on the same scale and probes
+            t0 = time.perf_counter()
+            F_total = sc.make_total_free_energy(metal, impl=impl, scale=scale, **kw)
+            x = torch.as_tensor(field, device=dev).requires_grad_(True)
+            F = F_total(x.to(c128))
+            (g,) = torch.autograd.grad(F, x)
+            torch.cuda.synchronize()
+            out[impl] = (float(F.detach()), g, time.perf_counter() - t0)
+        after = ck.launch_counts()
+        (F_p, g_p, s_p), (F_c, g_c, s_c) = out["plain"], out["cuda"]
+        steps = ck.sweep_launches(order)
+        check(after["ell_spmm_adjoint"] - before["ell_spmm_adjoint"] == steps
+              and after["ell_block_outer"] - before["ell_block_outer"] == steps,
+              "the d-wave gradient did not go through the backward kernels")
+        errs = {"F_rel": abs(F_c - F_p) / abs(F_p),
+                "grad_rel_to_max": float((g_c - g_p).abs().max() / g_p.abs().max())}
+        emit({"phase": "dwave", "shape": shape, "order": order, "samples": samples, "scale": scale,
+              "F_cuda": F_c, "F_plain": F_p, "grad_max": float(g_p.abs().max()), **errs,
+              "wall_s_cuda": s_c, "wall_s_plain": s_p})
+        check(errs["F_rel"] <= 1e-5, f"d-wave F off by {errs['F_rel']}")
+        check(errs["grad_rel_to_max"] <= 1e-3, f"d-wave gradient off by {errs['grad_rel_to_max']}")
+
+    results = {}
+    if "main" in phases:
+        results["main"] = phase_main()
+    if "widths" in phases:
+        phase_widths()
+    if "grad" in phases:
+        phase_grad()
+    if "gap" in phases:
+        results["gap"] = phase_gap()
+    if "dwave" in phases:
+        phase_dwave()
+
+    def write_log():
+        if log_path:
+            os.makedirs(os.path.dirname(os.path.abspath(log_path)), exist_ok=True)
+            with open(log_path, "w") as f:
+                f.write("\n".join(_LOG) + "\n")
+
+    if set(phases) != set(all_phases):
+        write_log()
+        return 0
+    (main_launches, main_rows), (gap_launches, gap_rows) = results["main"], results["gap"]
 
     # ------------------------------------------------------------------ result
+    # Each kernel with the numbers of the path it belongs to: the forward
+    # kernels at the KPM path's shape (N = 10⁶), the backward kernels at the
+    # differentiable path's (N = 262144); `launches` adds the two paths' reads.
     replaces = {
         "ell_spmm": "bodge_tpu/ops/pallas_spmm.py:440",  # also :985 (plane layout)
         "ell_cheb_step": "bodge_tpu/ops/pallas_spmm.py:468",  # also :1081 (plane layout)
+        "ell_spmm_adjoint": "bodge_tpu/ops/pallas_spmm.py:1397",  # the VJP's vector cotangent
+        "ell_block_outer": "bodge_tpu/ops/pallas_spmm.py:1397",  # the VJP's operator cotangent
     }
-    kernels = [{
-        "name": name, "route": "cuda", "source": "bodge_tpu_torch/csrc/ell_spmm.cu",
-        "replaces": replaces[name], "launches": main_launches[name],
-        "max_abs_err": kernel_rows[name]["max_abs_err"], "ms": kernel_rows[name]["ms"],
-        "plain_ms": kernel_rows[name]["plain_ms"], "bound_ms": kernel_rows[name]["bound_ms"],
-        "bound_by": kernel_rows[name]["bound_by"], "library_ms": kernel_rows[name]["library_ms"],
-    } for name in ck.KERNELS]
+    sources = dict.fromkeys(ck.KERNELS, "bodge_tpu_torch/csrc/ell_spmm.cu")
+    sources["ell_block_outer"] = "bodge_tpu_torch/csrc/ell_block_outer.cu"
+    kernels = []
+    for name in ck.KERNELS:
+        row = main_rows[name] if name in main_rows else gap_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
+            "launches": main_launches[name] + gap_launches[name],
+            "launches_by_path": {"kpm_observables": main_launches[name], "solve_gap": gap_launches[name]},
+            "shape": row["shape"], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
     print(smi, flush=True)
     emit({"kernels": kernels})
-    if log_path:
-        os.makedirs(os.path.dirname(os.path.abspath(log_path)), exist_ok=True)
-        with open(log_path, "w") as f:
-            f.write("\n".join(_LOG) + "\n")
+    write_log()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -12,6 +12,11 @@ import bodge_tpu
 import bodge_tpu_torch
 from bodge_tpu.ops import blocksparse as jbs
 from bodge_tpu_torch.ops import blocksparse as tbs
+import torch
+
+# One intra-op thread: the suite runs several workers side by side, and idle
+# OpenMP threads of a multi-threaded torch would spin against them.
+torch.set_num_threads(1)
 
 
 def _same_skeleton(a, b):
@@ -120,6 +125,7 @@ def test_import_leaves_jax_out():
         "import bodge_tpu_torch, chip_smoke\n"
         "import bodge_tpu_torch.models.systems, bodge_tpu_torch.utils.convert\n"
         "import bodge_tpu_torch.ops.cuda_spmm, bodge_tpu_torch.ops.chebyshev\n"
+        "import bodge_tpu_torch.ops.dense, bodge_tpu_torch.models.selfconsistency\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'jaxlib' or m == 'bodge_tpu' or m.startswith('bodge_tpu.')]\n"
         "assert not bad, bad\n"

@@ -20,6 +20,10 @@ from bodge_tpu_torch.ops import cuda_spmm as tk
 from bodge_tpu_torch.ops import spmm as tspmm
 from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy
 
+# One intra-op thread: the suite runs several workers side by side, and idle
+# OpenMP threads of a multi-threaded torch would spin against them.
+torch.set_num_threads(1)
+
 
 def random_blocks(shape, pbc, seed=0):
     """Random complex blocks on every structural slot of the cubic skeleton;
@@ -210,4 +214,6 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="shape"):
         tk._check_call(data[:, :2], sk, v)
     assert tk._check_call(data, sk, v) == (12, sk.n_slots, 2)
-    assert tk.launch_counts() == {"ell_spmm": 0, "ell_cheb_step": 0}
+    assert tk.launch_counts() == {
+        "ell_spmm": 0, "ell_cheb_step": 0, "ell_spmm_adjoint": 0, "ell_block_outer": 0,
+    }
