@@ -27,9 +27,12 @@ dtype is complex64 on the card and complex128 on the CPU.
 The dense solvers (``diagonalize``, ``eigenvalues``, ``free_energy`` with
 ``method="dense"``, ``ldos`` / ``ldos_map`` with ``method="exact"``) run
 ``torch.linalg.eigh`` on the Hamiltonian's device and share one
-eigendecomposition per assembled state.  Solvers not ported yet (banded,
-Lanczos, shift-invert, checkpoints) keep their signatures and raise
-``NotImplementedError``.
+eigendecomposition per assembled state.  ``method="banded"`` and
+``method="shift_invert"`` are host tiers (LAPACK's banded routine after an RCM
+relabelling; ARPACK with a sparse LU) on data pulled from the device once;
+``method="lanczos"`` filters a block of vectors on the device with the fused
+Chebyshev step and does the Rayleigh–Ritz algebra on the host in float64.
+``save`` / ``load`` exchange checkpoints with ``bodge_tpu``.
 """
 
 from __future__ import annotations
@@ -56,10 +59,6 @@ from .ops.blocksparse import BLOCK, Skeleton
 from .ops.spmm import spmm as _spmm
 
 HERMITICITY_TOL = 1e-6
-
-
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what}: not ported yet — see ROADMAP.md queue 1, item {item}")
 
 
 class Hamiltonian:
@@ -227,6 +226,8 @@ class Hamiltonian:
         sk = self._sk
         if isinstance(self.lattice, CubicLattice):
             coords_all = self.lattice.site_coords.astype(np.int64)
+        elif hasattr(self.lattice, "site_coords"):  # a generic lattice offering the vectorised array
+            coords_all = np.asarray(self.lattice.site_coords, dtype=np.int64)
         else:
             coords_all = np.array([c for c in self.lattice.sites()], dtype=np.int64)
         N, S = sk.cols.shape
@@ -375,7 +376,23 @@ class Hamiltonian:
     # Solvers
     # ------------------------------------------------------------------
     def _shift_invert(self, nev: int, sigma: float = 0.0, tol: float = 0.0):
-        _not_ported("shift-invert eigensolver", 2)
+        """The ``nev`` eigenpairs nearest ``sigma`` via host shift-invert
+        ARPACK (SuperLU factorization of A − σI in complex128).
+
+        σ=0 targets the lowest-|ε| BdG states directly — exact, and fast for
+        open systems whose band fits a sparse LU.  Factorization fill grows
+        with bandwidth (∝ L in 2D, ∝ L² in 3D), so beyond medium sizes use
+        the device-side ``method="lanczos"`` path, which needs no
+        factorization at all.  A host tier on purpose: the block data comes
+        off the device once, as the CSR export.
+        """
+        import scipy.sparse.linalg as spla
+
+        A = self.matrix("csr").astype(np.complex128)
+        E, X = spla.eigsh(A, k=min(nev, A.shape[0] - 1), sigma=float(sigma),
+                          which="LM", tol=tol)
+        order = np.argsort(E, kind="stable")
+        return E[order], X[:, order]
 
     def _cached_spectrum(self, vectors: bool):
         """The version-keyed cache entry ``(E, X)`` if it is current (and
@@ -412,8 +429,24 @@ class Hamiltonian:
         as a direct LAPACK call would return them.  The default
         ``"reshape"`` returns ``X[n, i, α]`` with α ∈ {e↑, e↓, h↑, h↓}
         (reference layout contract, ``bodge/hamiltonian.py:239-248``).
-        Both are NumPy arrays.  Only ``method="dense"`` is ported; the
-        banded, Lanczos and shift-invert tiers raise ``NotImplementedError``.
+        Both are NumPy arrays.
+
+        ``method="banded"`` solves the same eigenproblem through LAPACK's
+        banded Hermitian routine after a bandwidth-minimizing RCM site
+        relabeling — exact, and O(dim²·bandwidth) instead of O(dim³) for
+        open-boundary lattices (see :mod:`bodge_tpu_torch.ops.banded`).
+
+        ``method="lanczos"`` computes only the ``k`` smallest *positive*
+        eigenpairs (the states physics queries use: minigaps, gap edges,
+        bound states) by Chebyshev-filtered subspace iteration on the fused
+        Chebyshev-step kernels — O(order·nnz·k) on the device instead of an
+        O(dim³) factorization; see
+        :func:`bodge_tpu_torch.ops.lanczos.lowest_eigenstates` for the knobs
+        (``tol``, ``max_iter``, ``max_order``, ``impl``…).
+
+        ``method="shift_invert"`` computes the same k states by host ARPACK
+        with a SuperLU factorization of A − σI (``sigma=0`` default) — exact
+        while the sparse LU fits (bandwidth ∝ L in 2D).
         """
         if cuda:
             raise RuntimeError(_CUDA_FLAG_MESSAGE)
@@ -423,33 +456,61 @@ class Hamiltonian:
                     f"diagonalize(method='{method}') needs k = number of "
                     "positive eigenpairs to compute"
                 )
-            _not_ported(f"diagonalize(method='{method}')", _SOLVER_ITEM[method])
+            E_all, X_all = self._lowest(method, k, solver_kwargs)
+            pos = E_all > 0
+            return _format_eigenpairs(E_all[pos][:k], X_all[:, pos][:, :k], format)
         if solver_kwargs:
             raise TypeError(
                 f"diagonalize(method='{method}') got unexpected keywords: "
                 f"{sorted(solver_kwargs)}"
             )
         if method == "banded":
-            _not_ported("diagonalize(method='banded')", _SOLVER_ITEM[method])
-        if method != "dense":
+            hit = self._cached_spectrum(vectors=True)
+            if hit is None:
+                from .ops import banded as banded_ops
+
+                E, X = banded_ops.eigh_banded(self.host_data(), self._sk)
+                hit = self._cache_spectrum(E, X)
+            E, X = hit
+        elif method == "dense":
+            E, X = self._full_spectrum()
+        else:
             raise RuntimeError(f"diagonalize method '{method}' is not supported")
-        E, X = self._full_spectrum()
         half = E.shape[0] // 2
-        eigval = E[half:].cpu().numpy()
-        eigvec = X[:, half:].cpu().numpy()
-        if format == "raw":
-            return eigval, eigvec
-        if format == "reshape":
-            return eigval, eigvec.T.reshape(eigval.size, -1, BLOCK)
-        raise RuntimeError(f"Eigenstate format '{format}' is not yet supported.")
+        return _format_eigenpairs(E[half:].cpu().numpy(), X[:, half:].cpu().numpy(), format)
+
+    def _cache_spectrum(self, E, X):
+        """Keep a host-computed spectrum in the version-keyed cache, as
+        tensors on the Hamiltonian's device like the dense solver's."""
+        E = torch.as_tensor(E).to(self.device)
+        X = None if X is None else torch.as_tensor(X).to(self.device)
+        self._eigh_cache = (self._version, E, X)
+        return E, X
+
+    def _lowest(self, method: str, k: int, solver_kwargs: dict):
+        """Signed lowest-|ε| eigenpairs ``(E, X)`` for the two k-state tiers.
+
+        2k+2 are asked for: |ε| ties can split the ± signs unevenly, so a
+        strict 2k request occasionally yields only k−1 positive states.
+        """
+        if method == "lanczos":
+            from .ops import lanczos as lanczos_ops
+
+            return lanczos_ops.lowest_eigenstates(self._data, self._sk, 2 * k + 2, **solver_kwargs)
+        return self._shift_invert(2 * k + 2, **solver_kwargs)
 
     def eigenvalues(self, method: str = "dense", k: Optional[int] = None, **solver_kwargs):
         """Positive eigenvalues only (no eigenvectors), as a NumPy array.
 
-        Only ``method="dense"`` is ported.  The eigenvalues are cached so
+        ``method="banded"`` computes the identical spectrum via LAPACK's
+        banded routine (O(dim²·bandwidth)) on the host; ``method="lanczos"``
+        returns only the ``k`` smallest positive eigenvalues via the
+        device-side filtered subspace iteration
+        (:mod:`bodge_tpu_torch.ops.lanczos`); ``method="shift_invert"`` the
+        same via host ARPACK + SuperLU.  The full spectra are cached so
         repeated ``free_energy()`` calls on an unchanged Hamiltonian skip the
-        O(N³) solve; eigenvectors stay uncomputed until ``diagonalize()``
-        needs them.
+        solve; eigenvectors stay uncomputed until ``diagonalize()`` needs
+        them.
         """
         if method in ("lanczos", "shift_invert"):
             if k is None:
@@ -457,16 +518,19 @@ class Hamiltonian:
                     f"eigenvalues(method='{method}') needs k = number of "
                     "positive eigenvalues to compute"
                 )
-            _not_ported(f"eigenvalues(method='{method}')", _SOLVER_ITEM[method])
+            E_all, _ = self._lowest(method, k, solver_kwargs)
+            return np.asarray(E_all[E_all > 0])[:k]
         if solver_kwargs or k is not None:
             raise TypeError(f"eigenvalues(method='{method}') got unexpected keywords")
-        if method == "banded":
-            _not_ported("eigenvalues(method='banded')", _SOLVER_ITEM[method])
-        if method != "dense":
+        if method not in ("dense", "banded"):
             raise RuntimeError(f"eigenvalues method '{method}' is not supported")
         hit = self._cached_spectrum(vectors=False)
         if hit is not None:
             E = hit[0]
+        elif method == "banded":
+            from .ops import banded as banded_ops
+
+            E, _ = self._cache_spectrum(banded_ops.eigvalsh_banded(self.host_data(), self._sk), None)
         else:
             E = torch.linalg.eigvalsh(self.matrix(format="dense_torch"))
             self._eigh_cache = (self._version, E, None)
@@ -490,7 +554,8 @@ class Hamiltonian:
         free-energy integrand plus (stochastic) trace estimation —
         O(order·nnz); see :func:`bodge_tpu_torch.ops.chebyshev.free_energy_kpm`
         for the knobs.  ``method="dense"`` sums over the positive spectrum
-        of :meth:`eigenvalues`; ``"banded"`` is not ported yet.  The
+        of :meth:`eigenvalues`, ``"banded"`` over the same spectrum from the
+        banded host solver.  The
         reference's ``cuda`` flag raises: the device is chosen with
         ``Hamiltonian(..., device=)``.
         """
@@ -502,8 +567,6 @@ class Hamiltonian:
             return chebyshev.free_energy_kpm(self._data, self._sk, temperature, **kpm_kwargs)
         if method not in ("dense", "banded"):
             raise RuntimeError(f"free_energy method '{method}' is not supported")
-        if method == "banded":
-            _not_ported("free_energy(method='banded')", _SOLVER_ITEM[method])
         E = self.eigenvalues(method=method)
         return float(dense_ops.free_energy_from_spectrum(E, temperature))
 
@@ -547,13 +610,18 @@ class Hamiltonian:
     # Checkpoint / resume
     # ------------------------------------------------------------------
     def save(self, path: str) -> None:
-        """Checkpoint the assembled operator — not ported yet."""
-        _not_ported("save", 5)
+        """Checkpoint the assembled operator (skeleton + blocks) to ``path``."""
+        from .utils.serialization import save_hamiltonian
+
+        save_hamiltonian(self, path)
 
     @classmethod
-    def load(cls, path: str) -> "Hamiltonian":
-        """Restore a checkpointed Hamiltonian — not ported yet."""
-        _not_ported("load", 5)
+    def load(cls, path: str, device=None) -> "Hamiltonian":
+        """Restore a Hamiltonian checkpointed with :meth:`save` (by this
+        package or by ``bodge_tpu``) onto ``device`` (``None``: the card)."""
+        from .utils.serialization import load_hamiltonian
+
+        return load_hamiltonian(path, device=device)
 
     def ldos_map(self, sites, energies, method: str = "exact", **kwargs) -> np.ndarray:
         """LDOS at many sites at once → ``[n_sites, n_energies]``.
@@ -576,5 +644,11 @@ _CUDA_FLAG_MESSAGE = (
     "Hamiltonian(lattice, device='cuda') (the default) or device='cpu'."
 )
 
-# ROADMAP.md queue 1 item that ports each solver method.
-_SOLVER_ITEM = {"dense": 1, "banded": 2, "shift_invert": 2, "lanczos": 4}
+
+def _format_eigenpairs(eigval, eigvec, format: str):
+    """``(E, X)`` in the requested eigenstate layout (``"raw"`` / ``"reshape"``)."""
+    if format == "raw":
+        return eigval, eigvec
+    if format == "reshape":
+        return eigval, eigvec.T.reshape(eigval.size, -1, BLOCK)
+    raise RuntimeError(f"Eigenstate format '{format}' is not yet supported.")

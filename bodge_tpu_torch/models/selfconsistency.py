@@ -42,7 +42,7 @@ from ..common import jσ2
 from ..ops import blocksparse as bs
 from ..ops.blocksparse import BLOCK, Skeleton
 from ..ops.chebyshev import _KERNELS, chebyshev_coefficients, rademacher_probes, spectral_bound
-from ..ops.cuda_spmm import _resolve, moments_fused_ad
+from ..ops.cuda_spmm import moments_fused_ad, resolve_path
 from ..ops.dense import free_energy_from_spectrum
 from ..ops.spmm import spmm
 
@@ -56,20 +56,44 @@ def _real_dtype(dtype):
     return torch.empty((), dtype=dtype).real.dtype
 
 
-def data_with_onsite_swave(base_data, delta):
+def data_with_onsite_swave(base_data, delta, sk: Optional[Skeleton] = None):
     """Insert an on-site singlet pairing field Δ_i·jσ2 into ELL block data.
 
     ``delta: [N]`` complex (or real).  Differentiable in ``delta`` — the
     building block for self-consistency loops.  ``base_data`` is not
     written; the result is a new tensor.
+
+    The diagonal block is slot 0 of every row on a stencil skeleton (and
+    without ``sk``, as in the reference).  On a generic skeleton a row's
+    diagonal block sits wherever its own column sorts, so ``sk`` must be
+    given there and the field goes to that slot; the reference writes slot 0
+    on every skeleton, which on a generic lattice is a neighbour's block.
     """
     delta = torch.as_tensor(delta, device=base_data.device)
     blk = (delta[:, None, None] * _like(jσ2, base_data)).to(base_data.dtype)
     blkH = blk.transpose(-1, -2).conj()
     data = base_data.clone()
-    data[:, 0, 0:2, 2:4] = blk
-    data[:, 0, 2:4, 0:2] = blkH
+    if sk is None or sk.stencil:
+        data[:, 0, 0:2, 2:4] = blk
+        data[:, 0, 2:4, 0:2] = blkH
+    else:
+        rows, slots = _diagonal_slots(sk, base_data.device)
+        data[rows, slots, 0:2, 2:4] = blk
+        data[rows, slots, 2:4, 0:2] = blkH
     return data
+
+
+def _diagonal_slots(sk: Skeleton, device):
+    """``(rows, slots)`` index tensors of every row's diagonal block on a generic skeleton."""
+
+    def make():
+        hits = sk.cols == np.arange(sk.n_sites)[:, None]
+        if not hits.any(axis=1).all():
+            raise ValueError("On-site pairing needs every row to have a diagonal block")
+        return np.argmax(hits, axis=1).astype(np.int64)
+
+    slots = sk._device_copy("diagonal_slots", device, make)
+    return torch.arange(sk.n_sites, device=slots.device), slots
 
 
 # ---------------------------------------------------------------------------
@@ -303,12 +327,16 @@ def make_total_free_energy(
     strong coupling (BCS estimate Δ ≈ 2·bandwidth·exp(−1/(V·DOS)) above
     ~2, or V ≳ 4t), raise ``delta_max`` accordingly.
 
-    ``impl`` (``method="kpm"``): ``None`` is ``"cuda"`` for a system on the
-    card and ``"plain"`` on the CPU; ``"cuda"`` runs the moment sweep and its
-    gradient through the hand-written kernels (complex64); ``"plain"`` runs
-    the three-term recursion over the plain product in the system's own
-    precision.  ``seed`` draws the Rademacher probes with NumPy (default
-    11); ``probes=`` (``[N, 4, samples]``, columns normalised to unit
+    ``impl`` (``method="kpm"``): ``None`` is the kernels for a system on the
+    card (``"cuda"``, or ``"cuda_gather"`` on a generic lattice with a
+    feasible window plan, ``"cuda_tiled"`` under ``BODGE_PLANE_TILED=1``) and
+    ``"plain"`` on the CPU; a ``"cuda*"`` name runs the moment sweep and its
+    gradient through the hand-written kernels (complex64): that step
+    forward, the adjoint-product and block-outer-product kernels backward;
+    ``"plain"`` runs the three-term recursion over the plain product in the
+    system's own precision; ``"plain_gather"`` / ``"plain_tiled"`` the
+    kernels' formulation through their plain versions.  ``seed`` draws the
+    Rademacher probes with NumPy (default 11); ``probes=`` (``[N, 4, samples]``, columns normalised to unit
     length) and ``scale=`` replace the drawn probes and the estimated
     spectral bound.
     """
@@ -332,7 +360,7 @@ def make_total_free_energy(
     base = system.data.detach()
 
     if struct is None:
-        insert = data_with_onsite_swave
+        insert = lambda b, delta: data_with_onsite_swave(b, delta, sk)
         penalty = lambda delta: (delta.abs() ** 2).sum() / V
     else:
         insert = lambda b, delta: data_with_bond_singlet(b, delta, sk, struct)
@@ -347,7 +375,6 @@ def make_total_free_energy(
         return F_total
 
     if method == "kpm":
-        impl = _resolve(impl, base)
         rdtype = _real_dtype(base.dtype)
         # Spectral bound from a generous Δ headroom so the scale stays valid
         # across the optimization trajectory (a one-time power iteration).
@@ -377,11 +404,19 @@ def make_total_free_energy(
                 f"probes must have shape ({sk.n_sites}, {BLOCK}, samples), got {tuple(z.shape)}"
             )
 
-        if impl == "cuda":
+        # The step the sweep runs: on the card the kernels the skeleton calls
+        # for (the gather step on a generic lattice), on the CPU the plain
+        # three-term recursion; a name asks for one path and raises where it
+        # cannot run.
+        if impl is None:
+            impl = resolve_path(None, base, sk, z.shape[-1]) if base.is_cuda else "plain"
+        elif impl != "plain":
+            impl = resolve_path(impl, base, sk, z.shape[-1])
+        if impl != "plain":
 
             def F_total(delta):
                 data = insert(base, delta)
-                return _free_energy_kpm_cuda(data, sk, z, coeffs, inv) + penalty(delta)
+                return _free_energy_kpm_cuda(data, sk, z, coeffs, inv, impl) + penalty(delta)
 
             return F_total
 

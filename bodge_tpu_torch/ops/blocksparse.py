@@ -230,7 +230,23 @@ def skeleton_from_pairs(n_sites: int, rows: np.ndarray, cols: np.ndarray) -> Ske
 
 
 def skeleton_from_lattice(lattice) -> Skeleton:
-    """ELL skeleton for any :class:`Lattice` via its traversal contract."""
+    """ELL skeleton for any :class:`Lattice` via its traversal contract.
+
+    A lattice that offers the vectorised arrays of
+    :class:`~bodge_tpu_torch.lattice.CubicLattice` — ``bond_arrays()`` and
+    ``edge_arrays()`` returning ``([B, 3], [B, 3])`` coordinate pairs and
+    ``index_array(coords)`` — is read through them in a few array
+    operations; any other lattice is walked pair by pair.
+    """
+    if all(callable(getattr(lattice, name, None)) for name in ("bond_arrays", "edge_arrays", "index_array")):
+        sites = np.arange(lattice.size, dtype=np.int64)
+        rows, cols = [sites], [sites]
+        for src, dst in (lattice.bond_arrays(), lattice.edge_arrays()):
+            if len(src):
+                i, j = lattice.index_array(np.asarray(src)), lattice.index_array(np.asarray(dst))
+                rows += [i, j]
+                cols += [j, i]
+        return skeleton_from_pairs(lattice.size, np.concatenate(rows), np.concatenate(cols))
     rows, cols = [], []
     for ci, cj in lattice:
         i, j = lattice.index(ci), lattice.index(cj)

@@ -20,10 +20,13 @@ Pieces:
   (exact or stochastic Hutchinson) trace estimation.
 
 Devices and precision.  ``data`` is a ``torch`` tensor; everything runs on
-its device.  ``impl=None`` picks ``"cuda"`` (the hand-written kernels,
-complex64) for a CUDA tensor and ``"plain"`` for a CPU tensor; ``"cuda"`` on
-a CPU tensor raises; ``"plain"``, ``"stencil"`` and ``"gather"`` stay
-forceable for cross-checks and keep the tensor's own precision.  Any probe
+its device.  ``impl=None`` picks the hand-written kernels (complex64) for a
+CUDA tensor and their plain versions for a CPU tensor — the general ELL
+kernels on a stencil skeleton, the windowed gather kernels on a generic one
+(``"cuda_gather"``), the tiled step under ``BODGE_PLANE_TILED=1``
+(``"cuda_tiled"``); a ``"cuda*"`` name on a CPU tensor raises; ``"plain"``,
+``"stencil"`` and ``"gather"`` stay forceable for cross-checks and keep the
+tensor's own precision.  Any probe
 count K goes through one launch per step.  Probes are drawn with NumPy from
 an integer ``seed``.  The moments come off the device once; the
 reconstruction (damping kernels, Chebyshev series, coefficient fits) is tiny
@@ -39,8 +42,8 @@ import torch
 
 from ..common import numpy_dtype
 from .blocksparse import BLOCK, Skeleton
-from .cuda_spmm import as_kernel_operand, moments_fused
-from .spmm import default_impl, spmm
+from .cuda_spmm import StepPlan, moments_fused
+from .spmm import spmm
 
 DEFAULT_ORDER = 512
 
@@ -69,7 +72,6 @@ def spectral_bound(
     The start vector is complex normal, drawn with NumPy from ``seed`` or
     with ``torch.randn`` from ``generator`` when one is given.
     """
-    impl = default_impl(data) if impl is None else impl
     shape = (sk.n_sites, BLOCK, 1)
     if generator is not None:
         v = torch.randn(shape, dtype=torch.complex128, generator=generator,
@@ -78,9 +80,13 @@ def spectral_bound(
         rng = np.random.default_rng(seed)
         v = torch.as_tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
     v = _as_tensor(v, data)
-    if impl == "cuda":  # cast once, not in every iteration
-        data, v = as_kernel_operand(data), as_kernel_operand(v)
-    return float(_power_iteration(data, sk, v, iters, impl)) * 1.05
+    if impl in ("stencil", "gather"):
+        product = lambda w: spmm(data, sk, w, impl=impl)
+    else:  # cast (and, on a generic skeleton, relabel) once, not in every iteration
+        plan = StepPlan(sk, 1, impl, data)
+        data, v = plan.operator(data), plan.enter(v)
+        product = lambda w: plan.spmm(data, w)
+    return float(_power_iteration(product, v, iters)) * 1.05
 
 
 def rademacher_probes(N, samples, seed, dtype, default_seed=42) -> np.ndarray:
@@ -94,13 +100,13 @@ def rademacher_probes(N, samples, seed, dtype, default_seed=42) -> np.ndarray:
     return z.astype(dtype)
 
 
-def _power_iteration(data, sk: Skeleton, v, iters: int, impl: str):
-    """Last norm ‖H v‖ of ``iters`` normalised applications (a 0-d tensor;
-    nothing is moved to the host inside the loop)."""
+def _power_iteration(product, v, iters: int):
+    """Last norm ‖H v‖ of ``iters`` normalised applications of ``product`` (a
+    0-d tensor; nothing is moved to the host inside the loop)."""
     v = v / torch.linalg.norm(v)
     norm = None
     for _ in range(iters):
-        w = spmm(data, sk, v, impl=impl)
+        w = product(v)
         norm = torch.linalg.norm(w)
         v = w / norm
     return norm.real
@@ -173,20 +179,22 @@ def moments(data, sk: Skeleton, v0, order: int, scale: float, impl: Optional[str
     Returns a real ``[order, K]`` tensor on ``data``'s device.  ``v0`` may be
     a NumPy array or a tensor; it is moved to the operator's device.
 
-    ``impl``: ``None`` → ``"cuda"`` on a CUDA tensor, ``"plain"`` on a CPU
-    tensor.  Both run the fused-step recursion
-    (:func:`~bodge_tpu_torch.ops.cuda_spmm.moments_fused`), through the
-    kernel or its plain version.  ``"stencil"`` / ``"gather"`` run separate
-    SpMMs and inner products in plain PyTorch.
+    ``impl``: ``None`` → the kernels on a CUDA tensor, their plain versions
+    on a CPU tensor; on a generic skeleton with a feasible window plan the
+    gather step, else the general ELL step
+    (:func:`~bodge_tpu_torch.ops.cuda_spmm.resolve_path`).  A name of
+    :data:`~bodge_tpu_torch.ops.cuda_spmm.PATHS` (``"cuda"``,
+    ``"cuda_gather"``, ``"cuda_tiled"``, ``"plain"``, …) asks for that step
+    and raises where it cannot run.  All of these run the fused-step
+    recursion (:func:`~bodge_tpu_torch.ops.cuda_spmm.moments_fused`).
+    ``"stencil"`` / ``"gather"`` run separate SpMMs and inner products in
+    plain PyTorch.
     """
-    impl = default_impl(data) if impl is None else impl
     v0 = _as_tensor(v0, data)
     inv = 1.0 / float(scale)
-    if impl in ("cuda", "plain"):
-        return moments_fused(data, sk, v0, inv, order, impl=impl)
     if impl in ("stencil", "gather"):
         return _moments_scan(data, sk, v0, inv, order, impl)
-    raise ValueError(f"Unknown moments implementation '{impl}'")
+    return moments_fused(data, sk, v0, inv, order, impl=impl)
 
 
 def _host_moments(mu) -> np.ndarray:

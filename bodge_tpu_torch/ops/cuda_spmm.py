@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for the block-ELL operator, with their plain versions.
 
-Four kernels in ``csrc/`` (CUDA C++ for ``sm_90a``, built by ``nvcc`` at
+Kernels in ``csrc/`` (CUDA C++ for ``sm_90a``, built by ``nvcc`` at
 first use and bound through ``ctypes``, see :mod:`._build`).  Forward, in
 ``csrc/ell_spmm.cu``:
 
@@ -53,6 +53,30 @@ restatements inside ``cheb_step_pallas_ad``, ``pallas_spmm.py:1397``):
 objective fixes it once (the reference differentiates it formally and never
 uses that cotangent).
 
+The tiled step, in ``csrc/stencil_tiled.cu``:
+
+- :func:`stencil_cheb_step_tiled` — the same function as :func:`ell_cheb_step`
+  on a stencil skeleton, with a tile of the lattice and its halo staged in
+  shared memory and the neighbours found by stencil arithmetic (no ``cols``
+  read).  Replaces ``_plane_cheb_kernel_tiled`` (``pallas_spmm.py:916``) and,
+  like it, is opt-in: ``impl="cuda_tiled"``, or ``BODGE_PLANE_TILED=1`` for
+  ``impl=None`` on stencil skeletons.
+
+The kernels for generic skeletons (a window of relabelled vector rows in
+shared memory) live in :mod:`.cuda_gather`.
+
+Paths.  A sweep runs one of three steps, chosen by :func:`resolve_path`:
+``"cuda"`` (the general ELL kernels, any skeleton), ``"cuda_gather"`` (generic
+skeletons with a feasible window plan: the default there) and
+``"cuda_tiled"`` (stencil skeletons, opt-in); ``"plain"``, ``"plain_gather"``
+and ``"plain_tiled"`` are their plain PyTorch versions, the default for CPU
+tensors.  :class:`StepPlan` holds the choice for one sweep — the operator and
+the vectors in the order the step wants, the step, the product — and
+:func:`moments_fused`, :func:`moments_fused_ad` and :func:`filter_sweep` run on
+it.  Asking for a path that cannot run (``"cuda_gather"`` without a feasible
+plan, ``"cuda_tiled"`` on a generic skeleton, any ``"cuda*"`` on a CPU
+tensor) raises; nothing gives way to another path.
+
 Each wrapper counts its launches in a plain integer attribute
 (``ell_spmm.launches`` and so on; :func:`launch_counts` reads them all),
 raised where the kernel is launched and nowhere else.
@@ -61,6 +85,7 @@ raised where the kernel is launched and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import os
 from types import SimpleNamespace
 from typing import Optional, Tuple
 
@@ -68,10 +93,13 @@ import torch
 
 from . import _build
 from .blocksparse import BLOCK, Skeleton
-from .spmm import default_impl, spmm_gather
+from .spmm import default_impl, spmm_gather, spmm_stencil
 
 THREADS = 256  # threads per block in csrc/ell_spmm.cu
-KERNELS = ("ell_spmm", "ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer")
+TILED_THREADS = 512  # threads per block in csrc/stencil_tiled.cu
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+KERNELS = ("ell_spmm", "ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer",
+           "ell_gather_spmm", "ell_gather_cheb_step", "stencil_cheb_step_tiled")
 
 
 # --------------------------------------------------------------------------
@@ -82,20 +110,40 @@ def ell_spmm_plain(data, sk: Skeleton, v):
     return spmm_gather(data, sk, v)
 
 
-def ell_cheb_step_plain(data, sk: Skeleton, t_cur, t_prev, inv: float):
+def ell_cheb_step_plain(data, sk: Skeleton, t_cur, t_prev, inv: float, sums: bool = True):
     """Plain version of :func:`ell_cheb_step`.
 
     Returns ``(t_next, partials)`` with ``partials`` of shape ``[1, 2K]``:
     the per-column sums of ``Re⟨t_cur,t_cur⟩`` then ``Re⟨t_next,t_cur⟩``.
     """
-    t_next = (2.0 * inv) * spmm_gather(data, sk, t_cur)
+    return cheb_tail_plain(spmm_gather(data, sk, t_cur), t_cur, t_prev, inv, sums)
+
+
+def cheb_tail_plain(hv, t_cur, t_prev, inv: float, sums: bool = True):
+    """The recursion tail and the column sums every plain step shares:
+    ``t_next = 2·inv·hv − t_prev`` and ``partials[1, 2K]`` from ``hv = H t_cur``
+    (``None`` with ``sums=False``, for callers that drop them)."""
+    t_next = (2.0 * inv) * hv
     if t_prev is not None:
         t_next = t_next - t_prev
-    cur = torch.view_as_real(t_cur)
-    nxt = torch.view_as_real(t_next)
-    cc = (cur * cur).sum(dim=(0, 1, 3))
-    nc = (nxt * cur).sum(dim=(0, 1, 3))
+    if not sums:
+        return t_next, None
+    cc = (t_cur.real * t_cur.real + t_cur.imag * t_cur.imag).sum(dim=(0, 1))
+    nc = (t_next.real * t_cur.real + t_next.imag * t_cur.imag).sum(dim=(0, 1))
     return t_next, torch.cat([cc, nc])[None, :]
+
+
+def stencil_cheb_step_tiled_plain(data, sk: Skeleton, t_cur, t_prev, inv: float, sums: bool = True):
+    """Plain version of :func:`stencil_cheb_step_tiled`: the product by
+    ``torch.roll`` stencil arithmetic on ``sk.slots`` (no ``cols`` read), then
+    the shared tail."""
+    _require_stencil(sk)
+    return cheb_tail_plain(spmm_stencil(data, sk, t_cur), t_cur, t_prev, inv, sums)
+
+
+def _require_stencil(sk: Skeleton):
+    if not sk.stencil:
+        raise ValueError("the tiled step needs a stencil (cubic-lattice) skeleton")
 
 
 def _valid_mask(sk: Skeleton, device):
@@ -150,12 +198,18 @@ def _library():
     if _bound is None:
         _build.build_all()
         spmm, outer = _build.load("ell_spmm"), _build.load("ell_block_outer")
+        gather, tiled = _build.load("ell_gather"), _build.load("stencil_tiled")
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        ip = ctypes.POINTER(ctypes.c_int)
         signatures = {
             "ell_spmm_launch": (spmm, [p, p, p, p, ll, i, i, i, p]),
             "ell_cheb_step_launch": (spmm, [p, p, p, p, p, p, f, ll, i, i, i, p]),
             "ell_spmm_adjoint_launch": (spmm, [p, p, p, i, p, p, f, p, p, p, p, p, ll, i, i, i, p]),
             "ell_block_outer_launch": (outer, [p, p, p, p, p, p, f, i, ll, i, i, i, p]),
+            "ell_gather_spmm_launch": (gather, [p, p, p, p, ll, i, i, i, i, i, i, p]),
+            "ell_gather_cheb_step_launch": (gather, [p, p, p, p, p, p, f, ll, i, i, i, i, i, i, p]),
+            "stencil_cheb_step_tiled_launch": (
+                tiled, [p, p, p, p, p, f, i, i, i, i, i, i, i, i, i, i, ip, ip, p]),
         }
         bound = SimpleNamespace()
         for name, (lib, argtypes) in signatures.items():
@@ -298,6 +352,105 @@ def ell_cheb_step(
 ell_cheb_step.launches = 0
 
 
+def tile_plan(sk: Skeleton, K: int, tile: Optional[Tuple[int, int]] = None) -> dict:
+    """Launch plan of :func:`stencil_cheb_step_tiled`: ``{"XB", "PB", "h", "TK",
+    "threads", "n_tiles", "smem_bytes"}``.
+
+    A thread block owns ``XB`` x-rows × ``PB`` in-plane sites × ``TK`` probe
+    columns and stages ``(XB + 2) × (PB + 2h)`` window sites, ``h`` being the
+    farthest in-plane neighbour (``Lz`` where the lattice extends in y,
+    ``Lz − 1`` otherwise).  The default tile holds ``2048 / TK`` sites (four
+    passes of the block's 512 threads), ``PB`` at least 32 and at least ``2h``;
+    it shrinks until the window fits shared memory.  ``tile=(XB, PB)`` forces
+    one (for measurements) and raises if it does not fit.  Raises
+    ``ValueError`` on a generic skeleton.
+    """
+    _require_stencil(sk)
+    Lx, Ly, Lz = sk.shape
+    M = Ly * Lz
+    h = Lz if Ly > 1 else Lz - 1
+    TK = min(probe_tile(K), 8)
+
+    def smem(XB, PB):
+        return (XB + 2) * (PB + 2 * h) * (BLOCK * TK + 2) * 8
+
+    room = SMEM_LIMIT - 2 * TILED_THREADS * 4
+    if tile is not None:
+        XB, PB = (int(t) for t in tile)
+        if XB < 1 or PB < 1 or smem(XB, PB) > room:
+            raise ValueError(f"tile {tile} does not fit {room} bytes of shared memory at TK = {TK}")
+    else:
+        PB = min(M, max(32, 2 * h))
+        XB = max(1, min(Lx, 64, (2048 // TK) // PB))
+        while smem(XB, PB) > room and XB > 1:
+            XB //= 2
+        while smem(XB, PB) > room and PB > 1:
+            PB //= 2
+        if smem(XB, PB) > room:
+            raise ValueError(f"no tile of lattice {sk.shape} fits shared memory (halo {h})")
+    n_tiles = -(-Lx // XB) * -(-M // PB)
+    return {"XB": XB, "PB": PB, "h": h, "TK": TK, "threads": TILED_THREADS,
+            "n_tiles": n_tiles, "smem_bytes": smem(XB, PB)}
+
+
+def _slot_table(sk: Skeleton):
+    """``(axis[S], dir[S])`` as C int arrays: axis −1 marks the diagonal and −2
+    a slot that is padding on every row (the −1 slot of an axis of extent 2)."""
+    table = sk._device_cache.get("slot_table")
+    if table is None:
+        axes = [-1 if a < 0 else (-2 if sk.shape[a] == 2 and d == -1 else a) for a, d in sk.slots]
+        dirs = [d for _, d in sk.slots]
+        ints = ctypes.c_int * len(sk.slots)
+        table = sk._device_cache["slot_table"] = (ints(*axes), ints(*dirs))
+    return table
+
+
+def stencil_cheb_step_tiled(
+    data, sk: Skeleton, t_cur, t_prev, inv: float, *, out=None, impl: Optional[str] = None,
+    tile: Optional[Tuple[int, int]] = None,
+):
+    """The fused Chebyshev step on a stencil skeleton, tiled: ``(t_next, partials)``
+    as :func:`ell_cheb_step`, with one row of partials per lattice tile.
+
+    The kernel stages ``t_cur`` for a tile and its halo in shared memory and
+    finds the neighbours by stencil arithmetic on ``sk.shape`` and
+    ``sk.slots``; it reads no ``cols``.  ``out`` (kernel only) may be
+    ``t_prev`` itself, never ``t_cur``; ``tile=(XB, PB)`` overrides
+    :func:`tile_plan`.  Raises ``ValueError`` on a generic skeleton.  On a CPU
+    tensor, or with ``impl="plain"``, it is :func:`stencil_cheb_step_tiled_plain`.
+    """
+    _require_stencil(sk)
+    if _resolve(impl, t_cur) == "plain":
+        return stencil_cheb_step_tiled_plain(data, sk, t_cur, t_prev, inv)
+    N, S, K = _check_call(data, sk, t_cur)
+    shape = (N, BLOCK, K)
+    if t_prev is not None:
+        _check_operand("t_prev", t_prev, shape, t_cur.device)
+    if out is None:
+        out = torch.empty_like(t_cur)
+    else:
+        _check_operand("out", out, shape, t_cur.device)
+    if out.untyped_storage().data_ptr() == t_cur.untyped_storage().data_ptr():
+        raise ValueError("out must not share memory with t_cur (other thread blocks stage it)")
+    plan = tile_plan(sk, K, tile)
+    axes, dirs = _slot_table(sk)
+    partials = torch.empty((plan["n_tiles"], 2 * K), dtype=torch.float32, device=t_cur.device)
+    Lx, Ly, Lz = sk.shape
+    lib = _library()
+    with torch.cuda.device(t_cur.device):
+        err = lib.stencil_cheb_step_tiled_launch(
+            data.data_ptr(), t_cur.data_ptr(), _ptr(t_prev), out.data_ptr(), partials.data_ptr(),
+            float(inv), Lx, Ly, Lz, S, K, plan["TK"], plan["XB"], plan["PB"], plan["h"],
+            plan["threads"], axes, dirs, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "stencil_cheb_step_tiled")
+    stencil_cheb_step_tiled.launches += 1
+    return out, partials
+
+
+stencil_cheb_step_tiled.launches = 0
+
+
 def _check_column_weights(name: str, c, K: int, device):
     if not isinstance(c, torch.Tensor) or c.dtype != torch.float32 or tuple(c.shape) != (K,):
         raise TypeError(f"{name} must be a float32 tensor of shape ({K},) for the CUDA kernel")
@@ -422,17 +575,141 @@ def ell_block_outer(
 
 ell_block_outer.launches = 0
 
-_WRAPPERS = (ell_spmm, ell_cheb_step, ell_spmm_adjoint, ell_block_outer)
+
+def _wrappers():
+    from .cuda_gather import ell_gather_cheb_step, ell_gather_spmm
+
+    return (ell_spmm, ell_cheb_step, ell_spmm_adjoint, ell_block_outer,
+            ell_gather_spmm, ell_gather_cheb_step, stencil_cheb_step_tiled)
 
 
 def launch_counts() -> dict:
-    """``{kernel name: launches so far}`` for every kernel of this module."""
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    """``{kernel name: launches so far}`` for every kernel of the port, in the
+    order of :data:`KERNELS`."""
+    return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
+    for fn in _wrappers():
         fn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Paths: which step a sweep runs.
+# --------------------------------------------------------------------------
+PATHS = {
+    "cuda": ("cuda", "ell"), "cuda_gather": ("cuda", "gather"), "cuda_tiled": ("cuda", "tiled"),
+    "plain": ("plain", "ell"), "plain_gather": ("plain", "gather"), "plain_tiled": ("plain", "tiled"),
+}
+
+
+def use_tiled_step() -> bool:
+    """The opt-in knob of the tiled step (``BODGE_PLANE_TILED=1``), as in the reference."""
+    return os.environ.get("BODGE_PLANE_TILED") == "1"
+
+
+def resolve_path(impl: Optional[str], tensor, sk: Skeleton, K: int) -> str:
+    """The name in :data:`PATHS` a sweep over ``tensor`` on ``sk`` runs.
+
+    ``None`` chooses by what can be observed: the device of ``tensor``
+    (kernels on the card, plain versions on the CPU), and the skeleton — a
+    generic skeleton with a feasible window plan takes the gather step, a
+    stencil skeleton the general ELL step, or the tiled one under
+    ``BODGE_PLANE_TILED=1``; a generic skeleton without a plan takes the
+    general ELL step.  A name is honoured or raises.
+    """
+    if impl is None:
+        backend = default_impl(tensor)
+        if sk.stencil:
+            kind = "tiled" if use_tiled_step() else "ell"
+        else:
+            from .cuda_gather import plan_gather
+
+            kind = "gather" if plan_gather(sk, K) is not None else "ell"
+        return backend if kind == "ell" else f"{backend}_{kind}"
+    if impl not in PATHS:
+        raise ValueError(f"Unknown kernel implementation '{impl}' (expected one of {sorted(PATHS)})")
+    backend, kind = PATHS[impl]
+    if backend == "cuda" and not tensor.is_cuda:
+        raise RuntimeError(
+            f"impl='{impl}' needs tensors on a CUDA device; this one lies on the CPU "
+            "(use the plain version, or move the operator with device='cuda')"
+        )
+    if kind == "tiled":
+        _require_stencil(sk)
+    if kind == "gather":
+        from .cuda_gather import plan_gather
+
+        if plan_gather(sk, K) is None:
+            raise ValueError(
+                f"impl='{impl}': no feasible gather plan for this skeleton at K = {K} "
+                "(the window of relabelled rows does not fit shared memory)"
+            )
+    return impl
+
+
+class StepPlan:
+    """The step one sweep runs, and the order it runs in.
+
+    ``StepPlan(sk, K, impl, like)`` resolves the path for a sweep of ``K``
+    probe columns over tensors like ``like`` (:func:`resolve_path`).
+    :meth:`operator` and :meth:`enter` bring block data and vectors into the
+    form the step takes — complex64 for the kernels, relabelled rows for the
+    gather step — and :meth:`leave` brings a vector back; both are
+    differentiable.  :meth:`step` and :meth:`spmm` then work on those.
+    ``plan.sk`` is the skeleton in the sweep's order (the relabelled one on
+    the gather path), which the backward kernels take, and ``plan.backend``
+    (``"cuda"`` / ``"plain"``) the ``impl`` they run with.
+    """
+
+    def __init__(self, sk: Skeleton, K: int, impl: Optional[str], like):
+        self.impl = resolve_path(impl, like, sk, K)
+        self.backend, self.kind = PATHS[self.impl]
+        self.layout = None
+        self.sk = sk
+        if self.kind == "gather":
+            from . import cuda_gather as cg
+
+            self.layout = cg.plan_gather(sk, K)
+            self.sk = self.layout.sk
+            self._step, self._plain_step, self._product = (
+                cg.ell_gather_cheb_step, cg.ell_gather_cheb_step_plain, cg.ell_gather_spmm)
+        elif self.kind == "tiled":  # a step only: its product is the general ELL kernel's
+            self._step, self._plain_step, self._product = (
+                stencil_cheb_step_tiled, stencil_cheb_step_tiled_plain, ell_spmm)
+        else:
+            self._step, self._plain_step, self._product = ell_cheb_step, ell_cheb_step_plain, ell_spmm
+        self._where = self.sk if self.layout is None else self.layout  # what the step's wrapper takes
+
+    def _form(self, x):
+        if self.backend == "cuda":
+            x = as_kernel_operand(x)
+        return x if self.layout is None else self.layout.relabel(x)
+
+    def operator(self, data):
+        """Block data ``[N, S, 4, 4]`` in the sweep's form."""
+        return self._form(data)
+
+    def enter(self, v):
+        """A vector ``[N, 4, K]`` in the sweep's form."""
+        return self._form(v)
+
+    def leave(self, y):
+        """A vector of the sweep back in the original site order."""
+        return y if self.layout is None else self.layout.restore(y)
+
+    def step(self, data, t_cur, t_prev, inv: float, out=None, sums: bool = True):
+        """One fused Chebyshev step ``(t_next, partials)`` on operands in the
+        sweep's form.  ``sums=False`` tells a plain version to skip the column
+        sums (``partials`` is then ``None``); the kernels form them in the same
+        pass either way."""
+        if self.backend == "plain":
+            return self._plain_step(data, self._where, t_cur, t_prev, inv, sums)
+        return self._step(data, self._where, t_cur, t_prev, inv, out=out, impl="cuda")
+
+    def spmm(self, data, v):
+        """``H v`` on operands in the sweep's form."""
+        return self._product(data, self._where, v, impl=self.backend)
 
 
 # --------------------------------------------------------------------------
@@ -522,29 +799,34 @@ class MomentSweep(torch.autograd.Function):
 
     ``MomentSweep.apply(data, v0, sk, inv, order, impl)`` returns the stacked
     column sums ``[1 + steps, 2K]`` of the half-scaled first step and the
-    ``steps = ceil((order−2)/2)`` full steps.  The same launches as a loop
-    over :class:`ChebStep`, but the backward pass walks the steps itself: the
-    operator cotangent is accumulated in place in one ``[N, S, 4, 4]`` buffer
-    (``accumulate`` of :func:`ell_block_outer`) and each vector's cotangent
-    is completed inside the adjoint kernel's epilogue, so a step costs two
-    launches and no elementwise pass.  Every ``t_m`` is kept from forward to
-    backward (``2 + steps`` vectors).
+    ``steps = ceil((order−2)/2)`` full steps.  ``impl`` is ``None`` /
+    ``"cuda"`` / ``"plain"`` (the general ELL step) or a :class:`StepPlan`,
+    whose step then runs forward — the gather or the tiled one — on ``data``
+    and ``v0`` already in the plan's form, with ``sk = plan.sk``; the
+    backward pass is the same two kernels on that skeleton either way.  The
+    same launches as a loop over :class:`ChebStep`, but the backward pass
+    walks the steps itself: the operator cotangent is accumulated in place
+    in one ``[N, S, 4, 4]`` buffer (``accumulate`` of :func:`ell_block_outer`)
+    and each vector's cotangent is completed inside the adjoint kernel's
+    epilogue, so a step costs two launches and no elementwise pass.  Every
+    ``t_m`` is kept from forward to backward (``2 + steps`` vectors).
     """
 
     @staticmethod
     def forward(ctx, data, v0, sk, inv, order, impl):
         inv = float(inv)
+        plan = impl if isinstance(impl, StepPlan) else StepPlan(sk, v0.shape[-1], _resolve(impl, v0), v0)
         steps = max(0, (order - 2 + 1) // 2)
         ts = [v0]
-        t1, pp = ell_cheb_step(data, sk, v0, None, 0.5 * inv, impl=impl)
+        t1, pp = plan.step(data, v0, None, 0.5 * inv)
         ts.append(t1)
         sums = [pp.sum(dim=0)]
         for _ in range(steps):
-            t_next, pp = ell_cheb_step(data, sk, ts[-1], ts[-2], inv, impl=impl)
+            t_next, pp = plan.step(data, ts[-1], ts[-2], inv)
             sums.append(pp.sum(dim=0))
             ts.append(t_next)
         ctx.save_for_backward(data, *ts)
-        ctx.sk, ctx.inv, ctx.impl = sk, inv, impl
+        ctx.sk, ctx.inv, ctx.impl = plan.sk, inv, plan.backend
         return torch.stack(sums)
 
     @staticmethod
@@ -588,14 +870,18 @@ def moments_fused(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optio
     kernel, a complex128 operator or probe is cast down to complex64 first,
     and from the third step on ``t_next`` overwrites the ``t_prev`` buffer,
     so three vectors exist in all (``v0`` is never written).
+
+    ``impl`` is a name of :data:`PATHS`, ``None`` (:func:`resolve_path`
+    chooses) or a :class:`StepPlan`; ``data`` and ``v0`` come in the original
+    site order and the plan brings them into its own (inner products do not
+    depend on the order, so the moments need no way back).
     """
-    impl = _resolve(impl, v0)
-    if impl == "cuda":
-        data, v0 = as_kernel_operand(data), as_kernel_operand(v0)
     K = v0.shape[-1]
+    plan = impl if isinstance(impl, StepPlan) else StepPlan(sk, K, impl, v0)
+    data, v0 = plan.operator(data), plan.enter(v0)
     inv = float(inv)
 
-    t1, pp0 = ell_cheb_step(data, sk, v0, None, 0.5 * inv, impl=impl)
+    t1, pp0 = plan.step(data, v0, None, 0.5 * inv)
     first = pp0.sum(dim=0)
     mu0, mu1 = first[:K], first[K:]
 
@@ -606,8 +892,8 @@ def moments_fused(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optio
     t_prev, t_cur = v0, t1
     sums = []
     for i in range(steps):
-        out = t_prev if (impl == "cuda" and i > 0) else None  # i == 0: t_prev is the caller's v0
-        t_next, pp = ell_cheb_step(data, sk, t_cur, t_prev, inv, out=out, impl=impl)
+        out = t_prev if (plan.backend == "cuda" and i > 0) else None  # i == 0: t_prev is the caller's v0
+        t_next, pp = plan.step(data, t_cur, t_prev, inv, out=out)
         sums.append(pp.sum(dim=0))
         t_prev, t_cur = t_cur, t_next
     sums = torch.stack(sums)  # [steps, 2K]
@@ -635,16 +921,51 @@ def moments_fused_ad(data, sk: Skeleton, v0, inv: float, order: int, *,
     overwrites a buffer here.  One gradient launches ``sweep_launches(order)``
     steps forward and as many :func:`ell_spmm_adjoint` and
     :func:`ell_block_outer` backward.  Where nothing asks for a gradient it
-    is :func:`moments_fused` with its three buffers.
+    is :func:`moments_fused` with its three buffers.  ``impl`` as in
+    :func:`moments_fused`: on a generic skeleton the forward step is the
+    gather kernel and the backward kernels see the relabelled skeleton.
     """
     if not (torch.is_grad_enabled() and (data.requires_grad or v0.requires_grad)):
         return moments_fused(data, sk, v0, inv, order, impl=impl)
-    impl = _resolve(impl, v0)
-    if impl == "cuda":
-        data, v0 = as_kernel_operand(data), as_kernel_operand(v0)
     K = v0.shape[-1]
-    sums = MomentSweep.apply(data, v0, sk, float(inv), order, impl)
+    plan = impl if isinstance(impl, StepPlan) else StepPlan(sk, K, impl, v0)
+    data, v0 = plan.operator(data), plan.enter(v0)  # the cast and the relabelling carry gradients
+    sums = MomentSweep.apply(data, v0, plan.sk, float(inv), order, plan)
     mu0, mu1 = sums[0, :K], sums[0, K:]
     if sums.shape[0] == 1:
         return torch.stack([mu0, mu1])[:order]
     return _assemble_moments(mu0, mu1, sums[1:], K)[:order]
+
+
+def filter_sweep(plan: StepPlan, data, v, coeffs, inv: float):
+    """``y = Σ_m c_m T_m(inv·H) v`` by the three-term recursion on the fused step.
+
+    ``data`` and ``v`` are in ``plan``'s form (:meth:`StepPlan.operator`,
+    :meth:`StepPlan.enter`); ``coeffs`` are host numbers.  One step launch per
+    order beyond the zeroth (``len(coeffs) − 1`` in all), three vector buffers
+    and the accumulator on the device, no host synchronisation inside, any
+    block width in one launch; a zero coefficient costs no pass.  The
+    counterpart of the reference's ``_filter_apply_packed``; the step's
+    partial sums are not used here.
+    """
+    coeffs = [float(c) for c in coeffs]
+    inv = float(inv)
+    acc = coeffs[0] * v
+    if len(coeffs) == 1:
+        return acc
+    t_cur, _ = plan.step(data, v, None, 0.5 * inv, sums=False)  # half-scaled with t_prev = 0: t1 = H̃ t0
+    if coeffs[1] != 0.0:
+        acc.add_(t_cur, alpha=coeffs[1])
+    t_prev = v
+    for m, c in enumerate(coeffs[2:]):
+        out = t_prev if (plan.backend == "cuda" and m > 0) else None  # m == 0: t_prev is the caller's v
+        t_next, _ = plan.step(data, t_cur, t_prev, inv, out=out, sums=False)
+        if c != 0.0:
+            acc.add_(t_next, alpha=c)
+        t_prev, t_cur = t_cur, t_next
+    return acc
+
+
+def filter_launches(order: int) -> int:
+    """Fused-step launches of one :func:`filter_sweep` with ``order`` coefficients."""
+    return max(0, order - 1)

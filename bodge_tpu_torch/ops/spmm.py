@@ -15,11 +15,14 @@ live on one device:
   product; the plain version of the CUDA kernel.
 
 - ``impl="cuda"`` — the hand-written kernel of
-  :mod:`bodge_tpu_torch.ops.cuda_spmm` (complex64, CUDA tensors only).
+  :mod:`bodge_tpu_torch.ops.cuda_spmm` (complex64, CUDA tensors only);
+  ``impl="cuda_gather"`` — the windowed kernel of
+  :mod:`bodge_tpu_torch.ops.cuda_gather` for generic skeletons.
 
 All treat ``v`` as ``[N, 4, K]`` (K right-hand sides).  :func:`spmm` picks
-the kernel for a CUDA tensor and the plain version for a CPU tensor; the
-other implementations stay forceable for cross-checks.
+a kernel for a CUDA tensor (the windowed one on a generic skeleton with a
+feasible plan) and the plain version for a CPU tensor; the other
+implementations stay forceable for cross-checks.
 """
 
 from __future__ import annotations
@@ -41,7 +44,10 @@ def spmm_gather(data, sk: Skeleton, v):
     gathered = v[sk.device_safe_cols(v.device)]  # [N, S, 4, K]
     if sk.has_padding:
         data = data * sk.device_valid(v.device)[..., None, None]
-    return torch.einsum("nsab,nsbk->nak", data, gathered)
+    # One batched product per row over the joint (slot, orbital) index: the
+    # sum Σ_s Σ_b data[n,s,a,b] · gathered[n,s,b,k] as [4, 4S] @ [4S, K].
+    N, S = sk.cols.shape
+    return torch.bmm(data.transpose(1, 2).reshape(N, BLOCK, S * BLOCK), gathered.reshape(N, S * BLOCK, -1))
 
 
 def spmm_stencil(data, sk: Skeleton, v):
@@ -67,8 +73,8 @@ def spmm_stencil(data, sk: Skeleton, v):
     # r to site r+ê, so its contribution needs v shifted by −1 along `axis`
     # (bringing v[r+ê] to position r); wrap-around is the periodic link.
     for s, (axis, d) in enumerate(sk.slots):
-        if axis < 0:
-            continue
+        if axis < 0 or (sk.shape[axis] == 2 and d == -1):
+            continue  # the diagonal (done above); the padding slot of an extent-2 axis
         shifted = torch.roll(v3, shifts=-d, dims=axis)
         y = y + torch.einsum("xyzab,xyzbk->xyzak", d3[..., s, :, :], shifted)
 
@@ -83,26 +89,27 @@ def default_impl(tensor) -> str:
 def spmm(data, sk: Skeleton, v, *, impl: Optional[str] = None):
     """Dispatch SpMM by implementation name.
 
-    ``None`` → ``"cuda"`` for CUDA tensors and ``"plain"`` for CPU tensors;
-    ``"cuda"`` on a CPU tensor raises.  ``"plain"`` and ``"gather"`` are the
-    gather product, ``"stencil"`` the roll formulation (gather on generic
-    skeletons).
+    ``None`` and the names of :data:`bodge_tpu_torch.ops.cuda_spmm.PATHS`
+    (``"cuda"``, ``"cuda_gather"``, ``"plain_gather"``, …) go through
+    :class:`~bodge_tpu_torch.ops.cuda_spmm.StepPlan`: kernels for CUDA
+    tensors, plain versions for CPU tensors, the windowed product on generic
+    skeletons (operands relabelled for the call and the result brought
+    back); a ``"cuda*"`` name on a CPU tensor raises.  ``"plain"`` and
+    ``"gather"`` are the gather product, ``"stencil"`` the roll formulation
+    (gather on generic skeletons).
     """
-    if impl is None:
-        impl = default_impl(v)
-    if impl == "cuda":
-        from .cuda_spmm import as_kernel_operand, ell_spmm
-
-        # The kernel is complex64 only; wider input is cast down and back.
-        y = ell_spmm(as_kernel_operand(data), sk, as_kernel_operand(v), impl="cuda")
-        return y.to(v.dtype)
-    if impl == "stencil":
-        if not sk.stencil:
-            return spmm_gather(data, sk, v)
-        return spmm_stencil(data, sk, v)
-    if impl in ("gather", "plain"):
+    if impl in ("gather", "plain") or (impl == "stencil" and not sk.stencil):
         return spmm_gather(data, sk, v)
-    raise ValueError(f"Unknown SpMM implementation '{impl}'")
+    if impl == "stencil":
+        return spmm_stencil(data, sk, v)
+    from .cuda_spmm import StepPlan
+
+    plan = StepPlan(sk, v.shape[-1], impl, v)  # raises on an unknown name
+    if plan.impl == "plain":
+        return spmm_gather(data, sk, v)
+    # The kernels are complex64 only; wider input is cast down and back.
+    y = plan.leave(plan.spmm(plan.operator(data), plan.enter(v)))
+    return y.to(v.dtype)
 
 
 def spmm_bytes(sk: Skeleton, K: int, itemsize: int) -> int:

@@ -7,7 +7,11 @@ and ``trans_slot`` — and returns a :class:`~bodge_tpu_torch.hamiltonian.Hamilt
 holding the same blocks on the requested device.  :func:`to_numpy` is the
 way back.  :func:`tensor_from_numpy` carries a pairing field, a probe block or
 a structure array the same way, so that two implementations evaluate the
-same ``F_total(Δ)``.
+same ``F_total(Δ)``.  A ``.npz`` checkpoint another implementation saved is
+read by ``Hamiltonian.load`` (one format, see
+:mod:`bodge_tpu_torch.utils.serialization`), and
+:func:`gather_layout_from_numpy` takes its site relabelling (``rank``,
+``bwb``) so that both run the windowed product on the same order.
 """
 
 from __future__ import annotations
@@ -50,6 +54,16 @@ def hamiltonian_from_numpy(
     )
     system._version += 1
     return system
+
+
+def gather_layout_from_numpy(sk, rank, bwb: int, K: int):
+    """A :class:`~bodge_tpu_torch.ops.cuda_gather.GatherLayout` for ``sk`` on a
+    relabelling handed over as NumPy — ``rank[i]`` the new index of site
+    ``i`` and ``bwb`` the block bandwidth, e.g. the ``rank`` / ``bwb`` of a
+    ``bodge_tpu`` ``GatherLayout`` — or ``None`` when no window fits."""
+    from ..ops.cuda_gather import layout_from_rank
+
+    return layout_from_rank(sk, np.asarray(rank), int(bwb), int(K))
 
 
 def tensor_from_numpy(array, *, device, dtype=None, requires_grad: bool = False):

@@ -6,20 +6,26 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``bodge_tpu_torch/csrc`` into ``build/``,
-holds each kernel against its plain PyTorch version on the card, drives two
+holds each kernel against its plain PyTorch version on the card, drives five
 paths through the normal entry points at full size — the KPM observables
 (assemble → block SpMM → fused Chebyshev step → free energy / LDOS / LDOS map
-/ DOS / apply, on 1000×1000 sites) and the differentiable path (``solve_gap``
+/ DOS / apply, on 1000×1000 sites), the differentiable path (``solve_gap``
 on 512×512 sites at order 512: the fused step forward, the adjoint-product
-and block-outer-product kernels backward, with a dense control on the card) —
-checks them against complex128 at small sizes, and exits non-zero if any
+and block-outer-product kernels backward, with a dense control on the card),
+a generic lattice (a user-defined sheet with a hole, about 2.5·10⁵ sites,
+assembled, saved, loaded and evaluated through the windowed gather kernels),
+the tiled step (``impl="cuda_tiled"`` at 1000×1000 and 64×64×4) and the
+lowest-states solver (``diagonalize(method="lanczos")`` at 32×32 against three
+exact solvers; at 100×100 with magnetic impurities against shift-invert, and
+with a uniform Zeeman field, bounded, against ``eigvalsh`` on the card)
+— checks them against complex128 at small sizes, and exits non-zero if any
 phase fails.  Every line of output is one JSON object except the
 ``nvidia-smi`` lines; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it fails at once.  ``--quick`` stops after the small
 kernel checks (for a first look at a new kernel) and prints no result line;
-``--phases main,widths,grad,gap,dwave`` runs only the named phases (and
-prints no result line unless all ran); ``--profile`` adds a
+``--phases main,widths,grad,gap,dwave,generic,tiled,lowest`` runs only the
+named phases (and prints no result line unless all ran); ``--profile`` adds a
 ``torch.profiler`` table of one gradient to the ``gap`` phase; ``--log PATH``
 also writes the JSON records of the run to ``PATH``.
 
@@ -30,7 +36,14 @@ bounds, library yardstick), and the path checked against complex128;
 use; ``grad``: gradients through the kernels against autograd through the
 plain complex128 product; ``gap``: ``solve_gap`` at full width (launch
 counters read here), its dense control, and all four kernels at its shape;
-``dwave``: one d-wave gradient at order 1024.
+``dwave``: one d-wave gradient at order 1024; ``generic``: the generic-lattice
+path (launch counters read here), the gather kernels at its shape beside the
+general kernels in natural and relabelled order, one gradient against
+complex128; ``tiled``: ``free_energy(impl="cuda_tiled")`` against the untiled
+call (launch counters read here) and the tiled step timed at N = 10⁶;
+``lowest``: the lowest-states solver (launch counters read here), and its
+kernels against their plain versions on each run's operator at the block
+widths the run took.
 """
 
 from __future__ import annotations
@@ -41,9 +54,12 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+# The bounded lowest-states run on the uniform 100×100 lattice (phase `lowest`).
+UNIFORM_MAX_ITER, UNIFORM_MAX_ORDER = 12, 16384  # about a minute on one H100; 8 / 8192 leaves the eigenvalues 3.7e-3 off
 
 _LOG = []
 
@@ -79,7 +95,7 @@ def main(argv) -> int:
     quick = "--quick" in argv
     profile = "--profile" in argv
     log_path = argv[argv.index("--log") + 1] if "--log" in argv else None
-    all_phases = ("main", "widths", "grad", "gap", "dwave")
+    all_phases = ("main", "widths", "grad", "gap", "dwave", "generic", "tiled", "lowest")
     phases = tuple(argv[argv.index("--phases") + 1].split(",")) if "--phases" in argv else all_phases
     if not set(phases) <= set(all_phases):
         print(f"chip_smoke: unknown phase in {phases} (known: {all_phases})", file=sys.stderr)
@@ -93,18 +109,28 @@ def main(argv) -> int:
 
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from bodge_tpu_torch import CubicLattice, Hamiltonian, jσ2, σ0, σ2, σ3
+    from bodge_tpu_torch import CubicLattice, Hamiltonian, Lattice, jσ2, σ0, σ2, σ3
     from bodge_tpu_torch.models import selfconsistency as sc
     from bodge_tpu_torch.models.systems import rashba_dp_wave, swave_superconductor
     from bodge_tpu_torch.ops import _build
     from bodge_tpu_torch.ops import blocksparse as bs
     from bodge_tpu_torch.ops import chebyshev as kpm
+    from bodge_tpu_torch.ops import cuda_gather as cg
     from bodge_tpu_torch.ops import cuda_spmm as ck
+    from bodge_tpu_torch.ops import lanczos as lz
     from bodge_tpu_torch.ops.blocksparse import BLOCK
     from bodge_tpu_torch.ops.spmm import chebyshev_step_bytes, spmm_bytes, spmm_flops
 
     dev = torch.device("cuda")
     c64, c128 = torch.complex64, torch.complex128
+
+    def counts(**launched) -> dict:
+        """Launch counts of every kernel, zero where not named."""
+        return {**dict.fromkeys(ck.KERNELS, 0), **launched}
+
+    def launched_since(before: dict) -> dict:
+        after = ck.launch_counts()
+        return {k: after[k] - before[k] for k in after}
 
     def timed_ms(fn, reps: int) -> float:
         """Mean device time of ``fn`` over ``reps`` launches (CUDA events), after a warm-up."""
@@ -141,8 +167,9 @@ def main(argv) -> int:
           "nvcc": _build.find_nvcc(), "ptxas": ptxas})
 
     # ------------------------------------------------------------------ 3a. kernels, small shapes
-    def random_system(shape, seed):
-        """Random Hermitian 2x2 spin blocks on every slot, periodic wrap blocks included."""
+    def random_system(shape, seed, pbc=True):
+        """Random Hermitian 2x2 spin blocks on every slot: periodic wrap blocks
+        included, or (``pbc=False``) zero as on an open lattice."""
         system = Hamiltonian(CubicLattice(shape), dtype=np.complex64, device=dev)
         rng = np.random.default_rng(seed)
         σ1 = np.array([[0, 1], [1, 0]])
@@ -151,11 +178,14 @@ def main(argv) -> int:
             c = rng.normal(size=(4, n, 1, 1))
             return c[0] * σ0 + c[1] * σ1 + c[2] * σ2 + c[3] * σ3
 
+        def bond(ci, cj):
+            return 1.0 if pbc else (np.abs(ci - cj).max(axis=1) == 1)[:, None, None]
+
         system.assemble(
             onsite=lambda ci: herm2(len(ci)),
             pairing_onsite=lambda ci: herm2(len(ci)) @ jσ2,
-            hopping=lambda ci, cj: herm2(len(ci)),
-            pairing=lambda ci, cj: herm2(len(ci)),
+            hopping=lambda ci, cj: herm2(len(ci)) * bond(ci, cj),
+            pairing=lambda ci, cj: herm2(len(ci)) * bond(ci, cj),
             check=False,
         )
         return system.data, system.skeleton
@@ -287,6 +317,124 @@ def main(argv) -> int:
                         "adjoint_outer": "atol=rtol=2e-4 vs complex64 plain, non-Hermitian data, "
                                          "accumulate off and on, second launch bit-equal"},
           "max_abs_err": small_err, "launches": ck.launch_counts()})
+
+    # ------------------------------------------------------------------ 3a'. the gather and the tiled kernels, small shapes
+    # Same tolerances as above.  Each kernel against its plain version (2e-4;
+    # partial sums 1e-4 of the largest against complex128) and against the
+    # general ELL kernel on the same operands (2e-4); a second launch must
+    # repeat bit for bit; `out` may be the t_prev buffer.
+    def step_agrees(step, plain_step, general_step, t_cur, t_prev, inv=0.125):
+        """``step(t_prev, out)`` and friends are closures over the operator."""
+        t_next, pp = step(t_prev, None)
+        torch.cuda.synchronize()
+        want, _ = plain_step(t_cur, t_prev, c64)
+        _, pp_want = plain_step(t_cur, t_prev, c128)
+        general, pp_general = general_step(t_prev)
+        first, _ = step(None, None)
+        first_want, _ = plain_step(t_cur, None, c64)
+        again, pp_again = step(t_prev.clone(), None)
+        buf = t_prev.clone()
+        aliased, pp_alias = step(buf, buf)
+        torch.cuda.synchronize()
+        sums, sums_want = pp.double().sum(dim=0), pp_want[0]
+        rel = float((sums - sums_want).abs().max() / sums_want.abs().max())
+        close = lambda a, b: torch.allclose(a, b, atol=2e-4, rtol=2e-4)
+        ok = (close(t_next, want) and close(t_next, general) and close(first, first_want) and rel <= 1e-4
+              and bool((sums - pp_general.double().sum(dim=0)).abs().max() <= 1e-4 * sums_want.abs().max())
+              and torch.equal(again, t_next) and torch.equal(pp_again, pp)
+              and torch.equal(aliased, t_next) and torch.equal(pp_alias, pp) and aliased.data_ptr() == buf.data_ptr())
+        return ok, float((t_next - want).abs().max()), rel
+
+    def compare_gather(sk, gl, data, K, seed):
+        """``data`` in the original order; everything else in relabelled order."""
+        N = sk.n_sites
+        d = gl.relabel(data).contiguous()
+        t_cur, t_prev = random_vector(N, K, seed), random_vector(N, K, seed + 1)
+        y = cg.ell_gather_spmm(d, gl, t_cur)
+        y_again = cg.ell_gather_spmm(d, gl, t_cur)
+        torch.cuda.synchronize()
+        y_want = cg.ell_gather_spmm_plain(d, gl, t_cur)
+        y_general = ck.ell_spmm(d, gl.sk, t_cur)
+        y_natural = gl.relabel(ck.ell_spmm(data, sk, gl.restore(t_cur)))  # the same product in the original order
+        close = lambda a, b: torch.allclose(a, b, atol=2e-4, rtol=2e-4)
+        ok_step, err_step, rel = step_agrees(
+            lambda prev, out: cg.ell_gather_cheb_step(d, gl, t_cur, prev, 0.125, out=out),
+            lambda cur, prev, dt: cg.ell_gather_cheb_step_plain(d.to(dt), gl, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
+            lambda prev: ck.ell_cheb_step(d, gl.sk, t_cur, prev, 0.125), t_cur, t_prev)
+        ok = close(y, y_want) and close(y, y_general) and close(y, y_natural) and torch.equal(y, y_again) and ok_step
+        return ok, {"ell_gather_spmm": float((y - y_want).abs().max()), "ell_gather_cheb_step": err_step,
+                    "gather_partials_rel": rel}
+
+    def compare_tiled(data, sk, K, seed, tile=None):
+        N = sk.n_sites
+        t_cur, t_prev = random_vector(N, K, seed), random_vector(N, K, seed + 1)
+        ok, err, rel = step_agrees(
+            lambda prev, out: ck.stencil_cheb_step_tiled(data, sk, t_cur, prev, 0.125, out=out, tile=tile),
+            lambda cur, prev, dt: ck.stencil_cheb_step_tiled_plain(data.to(dt), sk, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
+            lambda prev: ck.ell_cheb_step(data, sk, t_cur, prev, 0.125), t_cur, t_prev)
+        return ok, {"stencil_cheb_step_tiled": err, "tiled_partials_rel": rel}
+
+    def ring_skeleton(n):
+        i = np.arange(n)
+        j = (i + 1) % n
+        return bs.skeleton_from_pairs(n, np.concatenate([i, i, j]), np.concatenate([i, j, i]))
+
+    ck.reset_launch_counts()
+    gather_cases = [("ring(300)", ring_skeleton(300)),
+                    ("generic 10x40", bs.skeleton_from_lattice(CubicLattice((10, 40, 1)))),
+                    ("generic 12x9", bs.skeleton_from_lattice(CubicLattice((12, 9, 1)))),
+                    (f"pairs(23, S={sk_pairs.n_slots})", sk_pairs)]
+    gather_err = {"ell_gather_spmm": 0.0, "ell_gather_cheb_step": 0.0, "gather_partials_rel": 0.0}
+    # A window of 40-48 KB passes the 48 KB a block gets without the opt-in only
+    # together with the step's 8 KB reduction tree: T = 160 on the ring is one.
+    near_48k = False
+    for name, sk in gather_cases:
+        data = random_blocks(sk, 400)  # not Hermitian, padding slots filled with garbage
+        worst = dict.fromkeys(gather_err, 0.0)
+        plans = {}
+        for K in probe_counts:
+            for tile in (None, 32, 160):
+                gl = cg.plan_gather(sk, K, tile)
+                check(gl is not None, f"no gather plan for {name} at K={K}")
+                near_48k = near_48k or 40 * 1024 < gl.smem_bytes <= 48 * 1024
+                ok, err = compare_gather(sk, gl, data, K, seed=500 + K)
+                check(ok, f"gather kernel disagrees on {name}, K={K}, T={gl.T}: {err}")
+                worst = {k: max(worst[k], err[k]) for k in worst}
+                plans[f"K={K},tile={tile}"] = [gl.T, gl.TK, gl.threads]
+        gather_err = {k: max(gather_err[k], worst[k]) for k in worst}
+        emit({"phase": "kernels", "shape": name, "S": sk.n_slots, "K": probe_counts, "bwb": gl.bwb,
+              "padding_slots": bool((sk.cols < 0).any()), "plans_T_TK_threads": plans, "max_abs_err": worst})
+    check(near_48k, "no gather case with a window of 40-48 KB")
+    tiled_err = {"stencil_cheb_step_tiled": 0.0, "tiled_partials_rel": 0.0}
+    sk = bs.skeleton((5, 6, 4))  # the same for the tiled step: a (5, 16) tile stages 7 × 24 window sites
+    for K in (8, 33):
+        check(40 * 1024 < ck.tile_plan(sk, K, tile=(5, 16))["smem_bytes"] <= 48 * 1024, "tile (5, 16) is not 40-48 KB")
+        ok, err = compare_tiled(random_blocks(sk, 650), sk, K, seed=750 + K, tile=(5, 16))
+        check(ok, f"tiled kernel disagrees on (5, 6, 4) with a 40-48 KB window, K={K}: {err}")
+    for i, shape in enumerate(shapes):
+        sk = bs.skeleton(shape)
+        worst = dict.fromkeys(tiled_err, 0.0)
+        variants = (("periodic", random_blocks(sk, 600 + i)),  # every slot random, padding slots garbage
+                    ("open", random_system(shape, seed=i, pbc=False)[0]))
+        for label, data in variants:
+            for K in probe_counts:
+                for tile in (None, (2, 3)):  # the planned tile (one block here) and a small one (many, ragged)
+                    ok, err = compare_tiled(data, sk, K, seed=700 + K, tile=tile)
+                    check(ok, f"tiled kernel disagrees on {shape} {label}, K={K}, tile={tile}: {err}")
+                    worst = {k: max(worst[k], err[k]) for k in worst}
+        tiled_err = {k: max(tiled_err[k], worst[k]) for k in worst}
+        emit({"phase": "kernels", "shape": str(shape), "S": sk.n_slots, "K": probe_counts,
+              "boundaries": ["periodic", "open"], "tiles": ["planned", [2, 3]], "max_abs_err": worst})
+    try:
+        ck.stencil_cheb_step_tiled(data_pairs, sk_pairs, random_vector(23, 4, 1), None, 0.1)
+        fail("the tiled step accepted a generic skeleton")
+    except ValueError:
+        pass
+    emit({"phase": "kernels", "held": ["ell_gather_spmm", "ell_gather_cheb_step", "stencil_cheb_step_tiled"],
+          "gather_shapes": len(gather_cases), "tiled_shapes": len(shapes),
+          "tolerance": {"against_plain_and_general": "atol=rtol=2e-4 vs complex64 plain and vs ell_spmm / ell_cheb_step",
+                        "partials": "1e-4 of the largest sum vs complex128 plain", "repeat": "second launch bit-equal"},
+          "max_abs_err": {**gather_err, **tiled_err}, "launches": ck.launch_counts()})
     if quick:
         return 0
 
@@ -586,7 +734,7 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         after = ck.launch_counts()
         launched = {k: after[k] - before[k] for k in after}
-        check(launched == {"ell_spmm": 0, "ell_cheb_step": 1, "ell_spmm_adjoint": 1, "ell_block_outer": 1},
+        check(launched == counts(ell_cheb_step=1, ell_spmm_adjoint=1, ell_block_outer=1),
               f"{label}: ChebStep forward and backward launched {launched}, expected one of each step kernel")
         errs = {}
         for name, got, want in zip(("d_data", "d_t_cur", "d_t_prev"), *got_want):
@@ -625,8 +773,7 @@ def main(argv) -> int:
             after = ck.launch_counts()
             steps = ck.sweep_launches(order)
             launched = {k: after[k] - before[k] for k in after}
-            check(launched == {"ell_spmm": 0, "ell_cheb_step": steps, "ell_spmm_adjoint": steps,
-                               "ell_block_outer": steps},
+            check(launched == counts(ell_cheb_step=steps, ell_spmm_adjoint=steps, ell_block_outer=steps),
                   f"{label}: one gradient launched {launched}, expected {steps} of each step kernel")
             errs = {}
             for name, got, want in zip(("d_data", "d_v0"), grads["cuda"], grads["gather"]):
@@ -680,8 +827,8 @@ def main(argv) -> int:
         after = ck.launch_counts()
         per_gradient = {k: after[k] - before[k] for k in after}
         gradient_peak_GB = torch.cuda.max_memory_allocated() / 1e9
-        check(per_gradient == {"ell_spmm": 0, "ell_cheb_step": per_sweep, "ell_spmm_adjoint": per_sweep,
-                               "ell_block_outer": per_sweep},
+        check(per_gradient == counts(ell_cheb_step=per_sweep, ell_spmm_adjoint=per_sweep,
+                                     ell_block_outer=per_sweep),
               f"one gradient launched {per_gradient}, expected {per_sweep} of each step kernel")
         check(bool(torch.isfinite(g0).all()) and math.isfinite(float(F0.detach())), "F_total or its gradient is not finite")
         emit({"phase": "gap", "call": "one gradient of F_total (order 512, K = 8)", "wall_s": gradient_wall,
@@ -714,10 +861,11 @@ def main(argv) -> int:
         peak_GB = torch.cuda.max_memory_allocated() / 1e9
         # 60 power iterations for the one-time spectral bound, one sweep forward
         # and backward per step, and one more sweep forward for the returned F.
-        expected = {"ell_spmm": 60, "ell_cheb_step": (steps + 1) * per_sweep,
-                    "ell_spmm_adjoint": steps * per_sweep, "ell_block_outer": steps * per_sweep}
+        expected = counts(ell_spmm=60, ell_cheb_step=(steps + 1) * per_sweep,
+                          ell_spmm_adjoint=steps * per_sweep, ell_block_outer=steps * per_sweep)
         check(gap_launches == expected, f"solve_gap launched {gap_launches}, expected {expected}")
-        check(all(v > 0 for v in gap_launches.values()), "a kernel of the differentiable path was never launched")
+        check(all(gap_launches[k] > 0 for k in ("ell_spmm", "ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer")),
+              "a kernel of the differentiable path was never launched")
         gap_kpm = float(delta[0].real)
         check(delta.shape == (N,) and np.isfinite(delta).all() and math.isfinite(F), "solve_gap result not finite")
 
@@ -870,6 +1018,605 @@ def main(argv) -> int:
         check(errs["F_rel"] <= 1e-5, f"d-wave F off by {errs['F_rel']}")
         check(errs["grad_rel_to_max"] <= 1e-3, f"d-wave gradient off by {errs['grad_rel_to_max']}")
 
+
+    # ------------------------------------------------------------------ 10. a generic lattice at full size
+    class HoleSheet(Lattice):
+        """An Lx×Ly square sheet, open boundaries, with a circular hole: a lattice
+        no stencil describes.  What remains is numbered row by row: with
+        ``major="y"`` along x within a row of constant y (neighbours in y lie Lx
+        apart), with ``major="x"`` along y (neighbours in x lie Ly apart).
+        Beside the scalar traversal contract it offers the vectorised arrays
+        (``site_coords``, ``bond_arrays``, ``edge_arrays``, ``index_array``)."""
+
+        def __init__(self, Lx, Ly, radius, major="y"):
+            super().__init__((Lx, Ly, 1))
+            x, y = np.meshgrid(np.arange(Lx), np.arange(Ly), indexing="ij")
+            keep = (x - Lx / 2) ** 2 + (y - Ly / 2) ** 2 > radius**2
+            if major == "y":
+                x, y, keep = x.T, y.T, keep.T
+            xs, ys = x[keep], y[keep]
+            self.site_coords = np.stack([xs, ys, np.zeros(len(xs), dtype=np.int64)], axis=1)
+            self.size = len(xs)
+            self._number = np.full((Lx, Ly), -1, dtype=np.int64)
+            self._number[xs, ys] = np.arange(self.size)
+
+        def index(self, coord):
+            x, y, z = coord
+            if not (0 <= x < self.shape[0] and 0 <= y < self.shape[1]) or z or self._number[x, y] < 0:
+                raise ValueError(f"Coordinate {coord} is not a site")
+            return int(self._number[x, y])
+
+        def index_array(self, coords):
+            coords = np.asarray(coords)
+            idx = self._number[coords[..., 0], coords[..., 1]]
+            if (idx < 0).any():
+                raise ValueError("Coordinate is not a site")
+            return idx
+
+        def sites(self):
+            for c in self.site_coords:
+                yield (int(c[0]), int(c[1]), 0)
+
+        def bond_arrays(self):
+            src, dst = [], []
+            for axis in (1, 0):
+                hi = self.site_coords.copy()
+                hi[:, axis] += 1
+                inside = hi[:, axis] < self.shape[axis]
+                inside[inside] = self._number[hi[inside, 0], hi[inside, 1]] >= 0
+                lo, hi = self.site_coords[inside], hi[inside]
+                src += [lo, hi]
+                dst += [hi, lo]
+            return np.concatenate(src), np.concatenate(dst)
+
+        def edge_arrays(self):
+            empty = np.zeros((0, 3), dtype=np.int64)
+            return empty, empty
+
+        def bonds(self):
+            for a, b in zip(*self.bond_arrays()):
+                yield (int(a[0]), int(a[1]), 0), (int(b[0]), int(b[1]), 0)
+
+        def edges(self):
+            return iter(())
+
+    class ScalarOnly:
+        """A lattice seen through its scalar traversal contract alone."""
+
+        def __init__(self, lattice):
+            self._lattice, self.size = lattice, lattice.size
+
+        def index(self, coord):
+            return self._lattice.index(coord)
+
+        def __iter__(self):
+            return iter(self._lattice)
+
+    def swave_on(lattice, dtype=None, delta=0.3, mu=0.5):
+        system = Hamiltonian(lattice, dtype=dtype, device=dev)
+        system.assemble(
+            onsite=lambda ci: -mu * σ0,
+            pairing_onsite=lambda ci: delta * jσ2,
+            hopping=lambda ci, cj: -1.0 * σ0,  # the generic skeleton holds bonds only
+        )
+        return system
+
+    def phase_generic():
+        """The generic-lattice path: a sheet with a hole through skeleton_from_lattice,
+        the façade's assembly, save, load (FrozenLattice), the KPM entry points and
+        one gradient, all through the windowed gather kernels; those kernels at the
+        path's shape beside the general kernels in natural and relabelled order."""
+        import tempfile
+
+        energies = np.linspace(-1.0, 1.0, 41)
+        t0 = time.perf_counter()
+        lattice = HoleSheet(1024, 256, 60)
+        t_lattice = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sk_loop = bs.skeleton_from_lattice(ScalarOnly(lattice))  # the general case: a Python loop over the pairs
+        t_loop = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        system = swave_on(lattice)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        sk = system.skeleton
+        N, S = sk.cols.shape
+        check(not sk.stencil and np.array_equal(sk.cols, sk_loop.cols)
+              and np.array_equal(sk.trans_slot, sk_loop.trans_slot),
+              "the vectorised skeleton differs from the one the pair loop builds")
+        check(system.data.is_cuda and system.data.dtype == c64, "the generic system is not complex64 on the card")
+        emit({"phase": "generic", "call": "HoleSheet(1024, 256, 60) -> Hamiltonian -> assemble", "N": N, "S": S,
+              "data_MB": system.data.numel() * 8 / 1e6, "lattice_s": t_lattice,
+              "skeleton_from_lattice_pair_loop_s": t_loop, "hamiltonian_and_assemble_s": t_build,
+              "hermiticity_error": system._hermiticity_error(), "padding_slots": int((sk.cols < 0).sum())})
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "sheet.npz")
+            t0 = time.perf_counter()
+            system.save(path)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            frozen = Hamiltonian.load(path)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            file_MB = os.path.getsize(path) / 1e6
+        sk = frozen.skeleton
+        check(type(frozen.lattice).__name__ == "FrozenLattice" and frozen.data.is_cuda
+              and torch.equal(frozen.data, system.data) and np.array_equal(sk.cols, system.skeleton.cols),
+              "the checkpoint did not come back as it went")
+        emit({"phase": "generic", "call": "save -> load", "save_s": t_save, "load_s": t_load, "file_MB": file_MB})
+        del system
+
+        t0 = time.perf_counter()
+        gl = cg.plan_gather(sk, 8)
+        t_plan = time.perf_counter() - t0
+        check(gl is not None, "no gather plan for the sheet")
+        rows_nat, slots_nat = np.nonzero(sk.cols >= 0)
+        natural_bwb = int(np.abs(sk.cols[rows_nat, slots_nat] - rows_nat).max())
+        emit({"phase": "generic", "call": "plan_gather(K=8): RCM relabelling and launch plan", "wall_s": t_plan,
+              "natural_bwb": natural_bwb, "relabelled": bool((gl.rank != np.arange(N)).any()), "bwb": gl.bwb, "T": gl.T,
+              "TK": gl.TK, "threads": gl.threads, "window_sites": gl.window, "smem_bytes": gl.smem_bytes,
+              "n_tiles": gl.n_tiles})
+
+        expected = counts()
+
+        def call(label, fn, order, K, bound_iters=0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = ck.sweep_launches(order) if order else 0
+            expected["ell_gather_cheb_step"] += steps
+            expected["ell_gather_spmm"] += bound_iters
+            emit({"phase": "generic", "call": label, "wall_s": wall, "K": K, "gather_cheb_launches": steps,
+                  "gather_spmm_launches": bound_iters})
+            return out
+
+        ITERS = 60
+        ck.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        site = int(lattice.index((200, 128, 0)))
+        scale = call("spectral_bound", lambda: kpm.spectral_bound(frozen.data, sk), 0, 1, ITERS)
+        F_cold = call("free_energy(T=0.01, kpm, order=256, samples=8)",
+                      lambda: frozen.free_energy(0.01, method="kpm", order=256, samples=8), 256, 8, ITERS)
+        F_warm = call("free_energy(T=0.5, kpm, order=256, samples=8, scale=)",
+                      lambda: frozen.free_energy(0.5, method="kpm", order=256, samples=8, scale=scale), 256, 8)
+        rho = call("ldos(flat index, order=512)",
+                   lambda: frozen.ldos(site, energies, method="kpm", order=512, scale=scale), 512, 4)
+        rho_map = call("ldos_map(4 flat indices, order=512)",
+                       lambda: frozen.ldos_map([site, site + 1000, site + 5000, 17], energies, method="kpm",
+                                               order=512, scale=scale), 512, 16)
+        dos = call("dos(order=256, samples=8)",
+                   lambda: frozen.dos(energies, order=256, samples=8, scale=scale), 256, 8)
+        v = random_vector(N, 8, 7)
+        y = call("apply(K=8)", lambda: frozen.apply(v), 0, 8, 1)
+        generic_launches = ck.launch_counts()  # read right after the path
+        peak_GB = torch.cuda.max_memory_allocated() / 1e9
+        mid, outside = len(energies) // 2, np.abs(energies) >= 0.5
+        check(generic_launches == expected, f"launch counters {generic_launches} != expected {expected}")
+        check(generic_launches["ell_gather_spmm"] > 0 and generic_launches["ell_gather_cheb_step"] > 0
+              and generic_launches["ell_spmm"] == 0 and generic_launches["ell_cheb_step"] == 0,
+              "the generic path did not go through the gather kernels alone")
+        check(math.isfinite(F_cold) and F_warm < F_cold < 0, "F not finite or not falling with T")
+        check(rho.shape == (41,) and np.isfinite(rho).all() and rho.min() >= -1e-6
+              and rho[mid] < 0.1 * rho[outside].mean(), "LDOS on the sheet shows no s-wave gap")
+        check(rho_map.shape == (4, 41) and np.isfinite(rho_map).all(), "LDOS map wrong")
+        check(dos.shape == (41,) and np.isfinite(dos).all() and dos[mid] < 0.1 * dos[outside].mean(), "DOS shows no gap")
+        check(torch.allclose(y, ck.ell_spmm(frozen.data, sk, v), atol=2e-4, rtol=2e-4),
+              "apply through the gather kernel disagrees with the general kernel")
+        emit({"phase": "generic", "launches": generic_launches, "expected": expected, "scale": scale,
+              "F(T=0.01)": F_cold, "F(T=0.5)": F_warm, "F_per_site": F_cold / N, "rho(0)": float(rho[mid]),
+              "rho(|e|>=0.5) mean": float(rho[outside].mean()), "peak_device_GB": peak_GB})
+
+        # One gradient of F_total at full size: gather step forward, the adjoint
+        # and block-outer kernels backward on the relabelled skeleton.
+        order, samples = 256, 8
+        per_sweep = ck.sweep_launches(order)
+        F_total = sc.make_total_free_energy(frozen, V=2.5, temperature=0.0, method="kpm", order=order,
+                                            samples=samples, scale=scale * 1.3)
+        x = torch.full((1,), 0.3, device=dev, requires_grad=True)
+        before = ck.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        F0 = F_total(x.expand(N).to(c64))
+        (g0,) = torch.autograd.grad(F0, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_gradient = launched_since(before)
+        check(per_gradient == counts(ell_gather_cheb_step=per_sweep, ell_spmm_adjoint=per_sweep,
+                                     ell_block_outer=per_sweep),
+              f"one gradient on the generic lattice launched {per_gradient}")
+        check(bool(torch.isfinite(g0).all()) and math.isfinite(float(F0.detach())), "F_total on the sheet is not finite")
+        emit({"phase": "generic", "call": "one gradient of F_total (order 256, K = 8)", "wall_s": wall,
+              "launches_per_gradient": per_gradient, "F_total(0.3)": float(F0.detach()), "dF/dDelta": float(g0[0])})
+        del F_total, F0, g0
+
+        # The same gradient at a small size against torch.autograd through the
+        # plain three-term recursion in complex128, same probes and scale: 2e-4
+        # of the largest entry (float32 recursions of 32 steps forward and back).
+        small = swave_on(HoleSheet(48, 24, 5), dtype=np.complex128, delta=0.0)
+        n = small.skeleton.n_sites
+        field = 0.3 + 0.05 * np.random.default_rng(9).normal(size=n)
+        kw = dict(V=2.5, temperature=0.0, method="kpm", order=64, samples=8, scale=8.0, seed=4)
+        got = {}
+        before = ck.launch_counts()
+        for impl in ("cuda_gather", "plain"):
+            F_small = sc.make_total_free_energy(small, impl=impl, **kw)
+            xs = torch.as_tensor(field, device=dev).requires_grad_(True)
+            Fs = F_small(xs.to(c128))
+            got[impl] = (float(Fs.detach()), torch.autograd.grad(Fs, xs)[0])
+        small_launched = launched_since(before)
+        steps = ck.sweep_launches(64)
+        check(small_launched == counts(ell_gather_cheb_step=steps, ell_spmm_adjoint=steps, ell_block_outer=steps),
+              f"the small gradient launched {small_launched}")
+        errs = {"F_rel": abs(got["cuda_gather"][0] - got["plain"][0]) / abs(got["plain"][0]),
+                "grad_rel_to_max": float((got["cuda_gather"][1] - got["plain"][1]).abs().max()
+                                         / got["plain"][1].abs().max())}
+        emit({"phase": "generic", "check": "gradient through gather-forward / adjoint+outer-backward vs complex128 "
+              "autograd of the plain recursion", "lattice": "HoleSheet(48, 24, 5)", "N": n, "order": 64, "K": 8,
+              **errs, "tolerance": 2e-4})
+        check(errs["grad_rel_to_max"] <= 2e-4 and errs["F_rel"] <= 1e-5, f"gradient on the generic lattice off: {errs}")
+
+        # The kernels at the path's shape, K = 8: gather against general, natural
+        # against relabelled order, the tile sizes, the library yardstick.
+        K, label = 8, "sheet 1024x256 with a hole, numbered along x"
+        data_nat = frozen.data
+        data_rel = gl.relabel(data_nat).contiguous()
+        ok, err = compare_gather(sk, gl, data_nat, K, seed=81)
+        check(ok, f"gather kernel disagrees at {label}: {err}")
+        for K_path in (1, 4, 16):  # the other widths the path above ran: the bound, ldos, ldos_map
+            ok, err_k = compare_gather(sk, cg.plan_gather(sk, K_path), data_nat, K_path, seed=84 + K_path)
+            check(ok, f"gather kernel disagrees at {label}, K={K_path}: {err_k}")
+            emit({"phase": "generic", "held": label, "K": K_path, "max_abs_err": err_k,
+                  "tolerance": "atol=rtol=2e-4 vs complex64 plain; sums 1e-4 vs complex128 plain"})
+        t_cur, t_prev = random_vector(N, K, 82), random_vector(N, K, 83)
+        out = torch.empty_like(t_cur)
+        lib_layout, lib_fn, lib_y, lib_errors = library_spmm(data_rel, gl.sk, t_cur)
+        if lib_fn is not None:
+            check(torch.allclose(lib_y, cg.ell_gather_spmm(data_rel, gl, t_cur), atol=2e-4, rtol=2e-4),
+                  "library product disagrees with the gather kernel")
+        fns = {
+            "ell_gather_spmm": lambda: cg.ell_gather_spmm(data_rel, gl, t_cur),
+            "ell_gather_cheb_step": lambda: cg.ell_gather_cheb_step(data_rel, gl, t_cur, t_prev, 0.125, out=out),
+            "ell_spmm natural": lambda: ck.ell_spmm(data_nat, sk, t_cur),
+            "ell_cheb_step natural": lambda: ck.ell_cheb_step(data_nat, sk, t_cur, t_prev, 0.125, out=out),
+            "ell_spmm relabelled": lambda: ck.ell_spmm(data_rel, gl.sk, t_cur),
+            "ell_cheb_step relabelled": lambda: ck.ell_cheb_step(data_rel, gl.sk, t_cur, t_prev, 0.125, out=out),
+        }
+        first = {name: timed_ms(fn, 50) for name, fn in fns.items()}  # kernel, plain, library, kernel
+        plain_ms = {"ell_gather_spmm": timed_ms(lambda: cg.ell_gather_spmm_plain(data_rel, gl, t_cur), 5),
+                    "ell_gather_cheb_step": timed_ms(
+                        lambda: cg.ell_gather_cheb_step_plain(data_rel, gl, t_cur, t_prev, 0.125), 5)}
+        lib_ms = timed_ms(lib_fn, 5) if lib_fn is not None else None
+        second = {name: timed_ms(fn, 50) for name, fn in fns.items()}
+        del lib_fn, lib_y
+        rel_bytes = N * S * 4  # the int32 offsets, read in place of cols
+        rows = {}
+        for name, nbytes, library in (("ell_gather_spmm", spmm_bytes(sk, K, 8) + rel_bytes, lib_ms),
+                                      ("ell_gather_cheb_step", chebyshev_step_bytes(sk, K, 8) + rel_bytes, None)):
+            rows[name] = bound_row(
+                name, label, sk, K, min(first[name], second[name]), plain_ms[name], nbytes, spmm_flops(sk, K),
+                err[name], library,
+                (f"torch.sparse {lib_layout} @ dense on the relabelled operator" if library is not None else
+                 ("none: " + "; ".join(lib_errors) if name == "ell_gather_spmm" else "none")),
+                [first[name], second[name]])
+        emit({"phase": "generic", "comparison": "gather against general kernels, natural against relabelled order",
+              "N": N, "S": S, "K": K, "natural_bwb": natural_bwb, "bwb": gl.bwb, "T": gl.T, "TK": gl.TK,
+              "threads": gl.threads, "ms": {name: min(first[name], second[name]) for name in fns},
+              "runs_ms": {name: [first[name], second[name]] for name in fns}})
+        del data_rel, t_cur, t_prev, out, fns
+
+        # The same sheet numbered along y: its natural band is one row of 256
+        # sites, no relabelling beats it, and the window fits at TK = 8.  The
+        # tile sizes T are measured here.
+        sheet_x = HoleSheet(1024, 256, 60, major="x")
+        sk_x = bs.skeleton_from_lattice(sheet_x)
+        gl_x = cg.plan_gather(sk_x, K)
+        check(gl_x is not None and gl_x.TK == 8 and not (gl_x.rank != np.arange(sk_x.n_sites)).any(),
+              f"expected the natural order and TK = 8 on the sheet numbered along y: {gl_x}")
+        data_x = random_blocks(sk_x, 85)
+        ok, err_x = compare_gather(sk_x, gl_x, data_x, K, seed=86)
+        check(ok, f"gather kernel disagrees on the sheet numbered along y: {err_x}")
+        tx, px = random_vector(sk_x.n_sites, K, 87), random_vector(sk_x.n_sites, K, 88)
+        ox = torch.empty_like(tx)
+        variants = {"ell_cheb_step": lambda: ck.ell_cheb_step(data_x, sk_x, tx, px, 0.125, out=ox),
+                    "ell_gather_cheb_step planned": lambda: cg.ell_gather_cheb_step(data_x, gl_x, tx, px, 0.125, out=ox)}
+        for tile in (32, 64, 128, 256):
+            gl_t = cg.plan_gather(sk_x, K, tile)
+            if gl_t is not None:
+                variants[f"ell_gather_cheb_step T={tile} TK={gl_t.TK} threads={gl_t.threads}"] = (
+                    lambda gl_t=gl_t: cg.ell_gather_cheb_step(data_x, gl_t, tx, px, 0.125, out=ox))
+        runs_x = {name: [timed_ms(fn, 50)] for name, fn in variants.items()}
+        for name, fn in variants.items():
+            runs_x[name].append(timed_ms(fn, 50))
+        emit({"phase": "generic", "case": "HoleSheet(1024, 256, 60) numbered along y", "N": sk_x.n_sites, "K": K,
+              "bwb": gl_x.bwb, "T": gl_x.T, "TK": gl_x.TK, "threads": gl_x.threads, "smem_bytes": gl_x.smem_bytes,
+              "max_abs_err": err_x, "ms": {name: min(r) for name, r in runs_x.items()}, "runs_ms": runs_x})
+        del data_x, tx, px, ox, variants
+
+        # A 512-wide sheet: the band no longer fits a TK = 8 window, the plan falls to TK = 4.
+        wide = HoleSheet(512, 512, 40, major="x")
+        sk_w = bs.skeleton_from_lattice(wide)
+        gl_w = cg.plan_gather(sk_w, 8)
+        check(gl_w is not None and gl_w.TK == 4, f"expected the 512-wide plan to fall to TK = 4: {gl_w}")
+        data_w = random_blocks(sk_w, 91)
+        ok, err_w = compare_gather(sk_w, gl_w, data_w, 8, seed=92)
+        check(ok, f"gather kernel disagrees on the 512-wide sheet: {err_w}")
+        d_w = gl_w.relabel(data_w).contiguous()
+        tw, pw = random_vector(sk_w.n_sites, 8, 93), random_vector(sk_w.n_sites, 8, 94)
+        ow = torch.empty_like(tw)
+        emit({"phase": "generic", "case": "HoleSheet(512, 512, 40)", "N": sk_w.n_sites, "bwb": gl_w.bwb,
+              "T": gl_w.T, "TK": gl_w.TK, "threads": gl_w.threads, "smem_bytes": gl_w.smem_bytes, "max_abs_err": err_w,
+              "ell_gather_cheb_step_ms": timed_ms(lambda: cg.ell_gather_cheb_step(d_w, gl_w, tw, pw, 0.125, out=ow), 50),
+              "ell_cheb_step_relabelled_ms": timed_ms(lambda: ck.ell_cheb_step(d_w, gl_w.sk, tw, pw, 0.125, out=ow), 50)})
+        return generic_launches, rows
+
+    # ------------------------------------------------------------------ 11. the tiled step
+    def phase_tiled():
+        """free_energy through the tiled step against the untiled call, and the
+        tiled kernel at N = 10⁶ beside ell_cheb_step."""
+        tiled_launches = counts()
+        rows = {}
+        for label, system in (("swave 1000x1000x1", swave_superconductor((1000, 1000, 1))),
+                              ("rashba 64x64x4", rashba_dp_wave((64, 64, 4)))):
+            sk = system.skeleton
+            N = sk.n_sites
+            scale = kpm.spectral_bound(system.data, sk)
+            kw = dict(method="kpm", order=256, samples=8, scale=scale)
+            F_untiled = system.free_energy(0.01, **kw)
+            ck.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            F_tiled = system.free_energy(0.01, impl="cuda_tiled", **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = ck.launch_counts()  # read right after the path
+            check(launched == counts(stencil_cheb_step_tiled=128),
+                  f"{label}: free_energy(impl='cuda_tiled') launched {launched}")
+            rel = abs(F_tiled - F_untiled) / abs(F_untiled)
+            rho_t = system.ldos(tuple(e // 2 for e in sk.shape), [0.0, 0.6], method="kpm", order=128,
+                                scale=scale, impl="cuda_tiled")
+            rho_u = system.ldos(tuple(e // 2 for e in sk.shape), [0.0, 0.6], method="kpm", order=128, scale=scale)
+            emit({"phase": "tiled", "call": f"{label}: free_energy(order=256, samples=8, impl='cuda_tiled')",
+                  "wall_s": wall, "F_tiled": F_tiled, "F_untiled": F_untiled, "F_rel": rel,
+                  "ldos_abs_diff": float(np.abs(rho_t - rho_u).max()), "launches": launched,
+                  "tile_plan": ck.tile_plan(sk, 8)})
+            check(rel <= 1e-5, f"{label}: F through the tiled step differs from the untiled call by {rel}")
+            check(np.abs(rho_t - rho_u).max() <= 1e-3 * np.abs(rho_u).max(), f"{label}: tiled LDOS differs")
+            tiled_launches = {k: tiled_launches[k] + launched[k] for k in launched}
+            for K in ((8, 1, 64) if N > 100_000 else (8,)):
+                ok, err = compare_tiled(system.data, sk, K, seed=95)
+                check(ok, f"tiled kernel disagrees with its plain version at {label}, K={K}: {err}")
+                t_cur, t_prev = random_vector(N, K, 96), random_vector(N, K, 97)
+                out = torch.empty_like(t_cur)
+                reps = 20 if N > 100_000 else 200
+                tiled = lambda: ck.stencil_cheb_step_tiled(system.data, sk, t_cur, t_prev, 0.125, out=out)
+                untiled = lambda: ck.ell_cheb_step(system.data, sk, t_cur, t_prev, 0.125, out=out)
+                runs = [timed_ms(tiled, reps)]
+                untiled_runs = [timed_ms(untiled, reps)]
+                plain = timed_ms(lambda: ck.stencil_cheb_step_tiled_plain(system.data, sk, t_cur, t_prev, 0.125), 3)
+                untiled_runs.append(timed_ms(untiled, reps))
+                runs.append(timed_ms(tiled, reps))
+                row = bound_row("stencil_cheb_step_tiled", label, sk, K, min(runs), plain,
+                                chebyshev_step_bytes(sk, K, 8), spmm_flops(sk, K),
+                                err["stencil_cheb_step_tiled"], None, "none", runs)
+                emit({"phase": "tiled", "shape": label, "K": K, "stencil_cheb_step_tiled_ms": min(runs),
+                      "ell_cheb_step_ms": min(untiled_runs), "ratio": min(runs) / min(untiled_runs)})
+                if K == 8:
+                    rows.setdefault("stencil_cheb_step_tiled", row)  # the first shape is N = 10⁶
+                del t_cur, t_prev, out
+            del system
+        return tiled_launches, rows
+
+    # ------------------------------------------------------------------ 12. lowest states
+    def phase_lowest():
+        """diagonalize(method="lanczos") at 32×32 against eigvalsh on the card, the
+        banded and the shift-invert solvers, and once more through the tiled step;
+        at 100×100 (dim 40 000) with magnetic impurities against shift-invert and
+        with a uniform Zeeman field, bounded, against eigvalsh on the card.  After
+        each run the kernels it launched are held against their plain versions on
+        its own operator at the block widths its history reports."""
+
+        def held_at_widths(label, system, widths, tiled):
+            """The solver's kernels on ``system``'s operator at the widths the
+            filter ran (and K = 1, the spectral bound's product): ell_spmm and
+            ell_cheb_step, and with ``tiled`` stencil_cheb_step_tiled, against
+            their plain versions with the small shapes' tolerances."""
+            worst = {}
+            for K in sorted({1, *widths}):
+                ok, err = compare(system.data, system.skeleton, K, seed=900 + K)
+                check(ok, f"{label}: kernel disagrees with its plain version at K={K}: {err}")
+                if tiled:
+                    ok, err_t = compare_tiled(system.data, system.skeleton, K, seed=950 + K)
+                    check(ok, f"{label}: tiled kernel disagrees with its plain version at K={K}: {err_t}")
+                    err.update(err_t)
+                worst = {n: max(worst.get(n, 0.0), v) for n, v in err.items()}
+            emit({"phase": "lowest", "held": label, "N": system.skeleton.n_sites, "K": sorted({1, *widths}),
+                  "tolerance": "atol=rtol=2e-4 vs complex64 plain; sums 1e-4 vs complex128 plain",
+                  "max_abs_err": worst})
+
+        def modulated(shape, pot):
+            """s-wave lattice (Δ = 0.2, μ = 0.5, periodic) with a weak incommensurate
+            on-site potential that splits the gap-edge shell."""
+            system = Hamiltonian(CubicLattice(shape), device=dev)
+
+            def onsite(ci):
+                w = (-0.5 + pot * np.cos(2.39996 * ci[:, 0] + 1.1 * ci[:, 1]))[:, None, None]
+                return w * σ0
+
+            system.assemble(onsite=onsite, hopping=lambda ci, cj: -1.0 * σ0, pairing_onsite=lambda ci: 0.2 * jσ2)
+            return system
+
+        k = 4
+        lowest_launches = counts()
+        small = modulated((32, 32, 1), 0.08)
+        E_exact = torch.linalg.eigvalsh(small.matrix("dense_torch").to(c128))
+        want = E_exact[E_exact > 0][:k].cpu().numpy()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        E_l, X_l = small.diagonalize(method="lanczos", k=k, format="raw")
+        wall = time.perf_counter() - t0
+        launched = ck.launch_counts()  # read right after the path
+        lowest_launches = {n: lowest_launches[n] + launched[n] for n in launched}
+        E_b = small.eigenvalues(method="banded")[:k]
+        E_s = small.eigenvalues(method="shift_invert", k=k)
+        errs = {"vs_eigvalsh": float(np.abs(E_l - want).max()), "vs_banded": float(np.abs(E_l - E_b).max()),
+                "vs_shift_invert": float(np.abs(E_l - E_s).max()),
+                "banded_vs_eigvalsh": float(np.abs(E_b - want).max())}
+        H = small.matrix("dense")
+        emit({"phase": "lowest", "call": "32x32: diagonalize(method='lanczos', k=4)", "wall_s": wall, "E": E_l.tolist(),
+              "residual_max": float(np.abs(H @ X_l - X_l * E_l).max()), **errs,
+              "launches": {n: v for n, v in launched.items() if v}, "tolerance": 1e-6})
+        check(launched["ell_cheb_step"] > 0 and launched["ell_spmm"] == 60
+              and launched["stencil_cheb_step_tiled"] == 0, f"32x32 lanczos launched {launched}")
+        check(max(errs.values()) <= 1e-6, f"32x32 lowest states disagree: {errs}")
+        untiled_steps = launched["ell_cheb_step"]
+
+        # Once more with the opt-in knob: the tiled step driven by its real caller.
+        os.environ["BODGE_PLANE_TILED"] = "1"
+        try:
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            # The call eigenvalues(method="lanczos", k=k) makes, with its record.
+            E_all, _, info = lz.lowest_eigenstates(small.data, small.skeleton, 2 * k + 2, full_output=True)
+            wall = time.perf_counter() - t0
+            launched = ck.launch_counts()
+        finally:
+            del os.environ["BODGE_PLANE_TILED"]
+        E_t = E_all[E_all > 0][:k]
+        lowest_launches = {n: lowest_launches[n] + launched[n] for n in launched}
+        emit({"phase": "lowest", "call": "32x32 with BODGE_PLANE_TILED=1", "wall_s": wall,
+              "iterations": info["iterations"], "converged": bool(info["converged"]),
+              "orders": [h[1] for h in info["history"]], "blocks": [h[4] for h in info["history"]],
+              "vs_eigvalsh": float(np.abs(E_t - want).max()), "launches": {n: v for n, v in launched.items() if v}})
+        check(launched["stencil_cheb_step_tiled"] == sum(h[1] - 1 for h in info["history"])
+              and launched["ell_cheb_step"] == 0,
+              f"the knob did not send the filter through the tiled step: {launched}")
+        check(np.abs(E_t - want).max() <= 1e-6, "32x32 lowest states through the tiled step disagree")
+        # Same seed, same adaptation: the untiled run above took these orders and widths too.
+        check(untiled_steps == launched["stencil_cheb_step_tiled"],
+              f"the untiled run took {untiled_steps} steps, the tiled one {launched['stencil_cheb_step_tiled']}")
+        held_at_widths("32x32 modulated s-wave", small, {h[4] for h in info["history"]}, tiled=True)
+        del small, H
+
+        # The 100×100 s-wave lattice (dim 40 000, open boundaries, Δ = 0.3, μ = 0.5)
+        # with a local Zeeman field on six sites: magnetic impurities, each binding
+        # one pair of states inside the gap, which is what a lowest-states query is
+        # for.  (With a uniform Zeeman field the lowest states are the gap edge's
+        # dense cluster, on which ARPACK's shift-invert itself does not finish:
+        # that lattice follows below, with eigvalsh on the card as its comparator.)
+        def with_impurities(L, couplings):
+            system = Hamiltonian(CubicLattice((L, L, 1)), device=dev)
+            spots = np.random.default_rng(5).integers(L // 8, L - L // 8, size=(len(couplings), 2))
+
+            def onsite(ci):
+                m = np.zeros(len(ci))
+                for (x, y), j in zip(spots, couplings):
+                    m[(ci[:, 0] == x) & (ci[:, 1] == y)] = j
+                return -0.5 * σ0 - m[:, None, None] * σ3
+
+            system.assemble(
+                onsite=onsite, pairing_onsite=lambda ci: 0.3 * jσ2,
+                hopping=lambda ci, cj: np.where((np.abs(ci - cj).max(axis=1) == 1)[:, None, None], -1.0 * σ0, 0),
+            )
+            return system
+
+        big = with_impurities(100, [1.2, 1.5, 1.8, 2.2, 2.7, 3.3])
+        sk = big.skeleton
+        t0 = time.perf_counter()
+        E_si = big.eigenvalues(method="shift_invert", k=k)
+        wall_si = time.perf_counter() - t0
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        E_all, X_all, info = lz.lowest_eigenstates(big.data, sk, 2 * k + 2, full_output=True,
+                                                   max_iter=10, max_order=8192)
+        wall = time.perf_counter() - t0
+        launched = ck.launch_counts()  # read right after the path
+        lowest_launches = {n: lowest_launches[n] + launched[n] for n in launched}
+        E_big = E_all[E_all > 0][:k]
+        derived = sum(h[1] - 1 for h in info["history"])
+        diff = float(np.abs(E_big - E_si).max())
+        limit = 1e-6 if info["converged"] else 1e-4
+        emit({"phase": "lowest", "call": "100x100 + six magnetic impurities: lowest_eigenstates(nev=10, max_iter=10, max_order=8192)",
+              "dim": 4 * sk.n_sites, "wall_s": wall, "shift_invert_wall_s": wall_si, "iterations": info["iterations"],
+              "final_order": info["history"][-1][1], "final_block": info["history"][-1][4],
+              "orders": [h[1] for h in info["history"]], "blocks": [h[4] for h in info["history"]],
+              "converged": bool(info["converged"]), "residual_max_rel": float(np.max(info["residuals"])),
+              "E": E_big.tolist(), "E_shift_invert": E_si.tolist(), "abs_diff_vs_shift_invert": diff, "limit": limit,
+              "step_launches": launched["ell_cheb_step"], "derived_from_history": derived,
+              "seconds": info["seconds"], "host_share": info["seconds"]["host"] / wall,
+              "filter_share": info["seconds"]["filter"] / wall})
+        check(launched == counts(ell_cheb_step=derived, ell_spmm=60), f"100x100 launched {launched}, derived {derived}")
+        check(len(E_big) == k and diff <= limit,
+              f"100x100 lowest states differ from shift-invert by {diff} (converged={info['converged']})")
+        held_at_widths("100x100 + six magnetic impurities", big, {h[4] for h in info["history"]}, tiled=False)
+        del big, X_all
+
+        # The 100×100 s-wave lattice with a uniform Zeeman field (t = 1, μ = −3,
+        # m = 0.05, Δ = 0.10, open boundaries): here the lowest states are the gap
+        # edge's cluster, so the run is bounded and may end unconverged.  Exact
+        # comparator: eigvalsh of the dense matrix on the card, in float64 where
+        # the matrix is real (it is: σ0, σ3 and jσ2 are), else complex128, and
+        # sector by sector where the orbitals (e↑, h↓) and (e↓, h↑) do not couple
+        # (checked on the matrix; cuSOLVER's syevd refuses dim 40 000 in one piece,
+        # CUSOLVER_STATUS_INVALID_VALUE); the closed form √(ξ² + Δ²) − m over the
+        # open lattice's sine modes beside it.
+        L, mu, m, delta = 100, -3.0, 0.05, 0.10
+        uniform = swave_superconductor((L, L, 1), mu=mu, delta=-delta, zeeman=(0.0, 0.0, m))
+        sk = uniform.skeleton
+        dense = uniform.matrix("dense_torch")
+        dense = dense.real.double() if float(dense.imag.abs().max()) == 0.0 else dense.to(c128)
+        exact_dtype = str(dense.dtype)
+        by_orbital = dense.view(sk.n_sites, BLOCK, sk.n_sites, BLOCK)
+        sectors = ([0, 3], [1, 2])
+        check(float(by_orbital[:, sectors[0]][:, :, :, sectors[1]].abs().max()) == 0.0,
+              "uniform 100x100: the (e↑, h↓) and (e↓, h↑) sectors couple")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        E_exact = torch.cat([
+            torch.linalg.eigvalsh(by_orbital[:, a][:, :, :, a].reshape(2 * sk.n_sites, 2 * sk.n_sites))
+            for a in sectors]).sort().values
+        torch.cuda.synchronize()
+        wall_exact = time.perf_counter() - t0
+        del dense, by_orbital
+        want = E_exact[E_exact > 0][:k].cpu().numpy()
+        cluster = int(((E_exact > 0) & (E_exact < float(want[0]) + 1e-3)).sum())
+        q = np.pi * np.arange(1, L + 1) / (L + 1)
+        xi = (-2.0 * (np.cos(q)[:, None] + np.cos(q)[None, :]) - mu).ravel()
+        closed = np.sort(np.sqrt(xi**2 + delta**2) - m)[:k]
+        check(np.abs(want - closed).max() <= 1e-6, f"eigvalsh on the card differs from the closed form: {want} / {closed}")
+        bounds = dict(max_iter=UNIFORM_MAX_ITER, max_order=UNIFORM_MAX_ORDER)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # "not stabilized": reported below as converged=false
+            E_all, X_all, info = lz.lowest_eigenstates(uniform.data, sk, 2 * k + 2, full_output=True, **bounds)
+        wall = time.perf_counter() - t0
+        launched = ck.launch_counts()  # read right after the path
+        lowest_launches = {n: lowest_launches[n] + launched[n] for n in launched}
+        E_uni = E_all[E_all > 0][:k]
+        derived = sum(h[1] - 1 for h in info["history"])
+        check(len(E_uni) == k, f"uniform 100x100: {len(E_uni)} positive states of {k}")
+        diff = float(np.abs(E_uni - want).max())
+        limit = 1e-6 if info["converged"] else 1e-4
+        emit({"phase": "lowest", "call": f"100x100 s-wave + uniform Zeeman: lowest_eigenstates(nev=10, {bounds})",
+              "dim": 4 * sk.n_sites, "wall_s": wall, "eigvalsh_on_card_wall_s": wall_exact, "eigvalsh_dtype": exact_dtype, "eigvalsh_sectors": 2,
+              "iterations": info["iterations"], "final_order": info["history"][-1][1],
+              "final_block": info["history"][-1][4], "orders": [h[1] for h in info["history"]],
+              "blocks": [h[4] for h in info["history"]], "converged": bool(info["converged"]),
+              "residual_max_rel": float(np.max(info["residuals"])), "E": E_uni.tolist(), "E_eigvalsh": want.tolist(),
+              "abs_diff_vs_eigvalsh": diff, "limit": limit, "eigvalsh_vs_closed_form": float(np.abs(want - closed).max()),
+              "positive_states_within_1e-3_of_the_lowest": cluster,
+              "step_launches": launched["ell_cheb_step"], "derived_from_history": derived,
+              "seconds": info["seconds"], "host_share": info["seconds"]["host"] / wall,
+              "filter_share": info["seconds"]["filter"] / wall})
+        check(launched == counts(ell_cheb_step=derived, ell_spmm=60),
+              f"uniform 100x100 launched {launched}, derived {derived}")
+        check(diff <= limit, f"uniform 100x100 lowest states differ from eigvalsh by {diff} (converged={info['converged']})")
+        held_at_widths("100x100 s-wave + uniform Zeeman", uniform, {h[4] for h in info["history"]}, tiled=False)
+        return lowest_launches, {}
+
     results = {}
     if "main" in phases:
         results["main"] = phase_main()
@@ -881,6 +1628,9 @@ def main(argv) -> int:
         results["gap"] = phase_gap()
     if "dwave" in phases:
         phase_dwave()
+    for name, phase in (("generic", phase_generic), ("tiled", phase_tiled), ("lowest", phase_lowest)):
+        if name in phases:
+            results[name] = phase()
 
     def write_log():
         if log_path:
@@ -891,31 +1641,38 @@ def main(argv) -> int:
     if set(phases) != set(all_phases):
         write_log()
         return 0
-    (main_launches, main_rows), (gap_launches, gap_rows) = results["main"], results["gap"]
-
     # ------------------------------------------------------------------ result
-    # Each kernel with the numbers of the path it belongs to: the forward
-    # kernels at the KPM path's shape (N = 10⁶), the backward kernels at the
-    # differentiable path's (N = 262144); `launches` adds the two paths' reads.
+    # Each kernel with the numbers of the path it belongs to: the general
+    # forward kernels at the KPM path's shape (N = 10⁶), the backward kernels at
+    # the differentiable path's (N = 262144), the gather kernels at the generic
+    # sheet's, the tiled step at N = 10⁶; `launches` adds the five paths' reads.
     replaces = {
         "ell_spmm": "bodge_tpu/ops/pallas_spmm.py:440",  # also :985 (plane layout)
         "ell_cheb_step": "bodge_tpu/ops/pallas_spmm.py:468",  # also :1081 (plane layout)
         "ell_spmm_adjoint": "bodge_tpu/ops/pallas_spmm.py:1397",  # the VJP's vector cotangent
         "ell_block_outer": "bodge_tpu/ops/pallas_spmm.py:1397",  # the VJP's operator cotangent
+        "ell_gather_spmm": "bodge_tpu/ops/pallas_gather.py:261",
+        "ell_gather_cheb_step": "bodge_tpu/ops/pallas_gather.py:261",  # under the scan at :364
+        "stencil_cheb_step_tiled": "bodge_tpu/ops/pallas_spmm.py:916",
     }
     sources = dict.fromkeys(ck.KERNELS, "bodge_tpu_torch/csrc/ell_spmm.cu")
     sources["ell_block_outer"] = "bodge_tpu_torch/csrc/ell_block_outer.cu"
+    sources["ell_gather_spmm"] = sources["ell_gather_cheb_step"] = "bodge_tpu_torch/csrc/ell_gather.cu"
+    sources["stencil_cheb_step_tiled"] = "bodge_tpu_torch/csrc/stencil_tiled.cu"
+    paths = {"kpm_observables": "main", "solve_gap": "gap", "generic_lattice": "generic",
+             "tiled_step": "tiled", "lowest_states": "lowest"}
     kernels = []
     for name in ck.KERNELS:
-        row = main_rows[name] if name in main_rows else gap_rows[name]
+        row = next(results[p][1][name] for p in ("main", "gap", "generic", "tiled") if name in results[p][1])
+        by_path = {label: results[p][0][name] for label, p in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
-            "launches": main_launches[name] + gap_launches[name],
-            "launches_by_path": {"kpm_observables": main_launches[name], "solve_gap": gap_launches[name]},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "shape": row["shape"], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+        check(sum(by_path.values()) > 0, f"{name} was launched on none of the driven paths")
     print(smi, flush=True)
     emit({"kernels": kernels})
     write_log()

@@ -29,6 +29,8 @@ from bodge_tpu_torch.ops import cuda_spmm as ck
 # OpenMP threads of a multi-threaded torch would spin against them.
 torch.set_num_threads(1)
 
+from tests.test_torch_banded import single_blas_thread  # noqa: E402,F401  (autouse: one BLAS thread per test)
+
 C128 = torch.complex128
 
 
@@ -332,7 +334,7 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
     N, S = sk.cols.shape
     data, v = _random((N, S, 4, 4), 30), _random((N, 4, 2), 31)
     before = ck.launch_counts()
-    assert set(before) == set(ck.KERNELS) and len(ck.KERNELS) == 4
+    assert set(before) == set(ck.KERNELS) and len(ck.KERNELS) == 7
     for call in (
         lambda: ck.ell_spmm_adjoint(data, sk, v, impl="cuda"),
         lambda: ck.ell_block_outer(v, sk, v, impl="cuda"),

@@ -22,6 +22,8 @@ from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy
 # OpenMP threads of a multi-threaded torch would spin against them.
 torch.set_num_threads(1)
 
+from tests.test_torch_banded import single_blas_thread  # noqa: E402,F401  (autouse: one BLAS thread per test)
+
 TOL = 1e-9
 
 RECIPES = [

@@ -23,6 +23,8 @@ from bodge_tpu_torch.utils.convert import tensor_from_numpy
 # OpenMP threads of a multi-threaded torch would spin against them.
 torch.set_num_threads(1)
 
+from tests.test_torch_banded import single_blas_thread  # noqa: E402,F401  (autouse: one BLAS thread per test)
+
 CHANNELS = [None, "dwave", ("pwave", "e_z * p_x")]
 SHAPE = (8, 6, 1)
 

@@ -216,4 +216,5 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     assert tk._check_call(data, sk, v) == (12, sk.n_slots, 2)
     assert tk.launch_counts() == {
         "ell_spmm": 0, "ell_cheb_step": 0, "ell_spmm_adjoint": 0, "ell_block_outer": 0,
+        "ell_gather_spmm": 0, "ell_gather_cheb_step": 0, "stencil_cheb_step_tiled": 0,
     }
