@@ -36,6 +36,15 @@
 // Mapping: 256 threads = TK lanes x TN = 256/TK sites, TK a power of two
 // <= 32 chosen by the caller (the smallest that covers min(K, 32)); a lane
 // takes columns kk, kk+TK, ...  grid = ceil(N/TN).  All offsets are 64-bit.
+//
+// Halo form (ell_block_outer_halo): the same function on one x-slab of a
+// row-sharded lattice, the operator cotangent of the halo kernels
+// _plane_stencil_kernel_halo / _plane_cheb_kernel_halo
+// (bodge_tpu/ops/pallas_spmm.py:1430, :1449).  The slab's column table holds
+// local indices: [0, N) reads t, [-P, 0) the plane tm before the slab and
+// [N, N + P) the plane tp after it (the forward step's halo planes of t,
+// kept for this); a column below -P is padding.  Bound: as above, plus the
+// two planes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,9 +90,10 @@ __device__ __forceinline__ void load_G(float2 (&gv)[BLK], const float2* g, const
   }
 }
 
-template <int TK>
+template <int TK, bool HALO>
 __global__ void __launch_bounds__(THREADS)
 block_outer_kernel(const float2* __restrict__ g, const float2* __restrict__ t,
+                   const float2* __restrict__ tm, const float2* __restrict__ tp, int P,
                    const float* __restrict__ shift, float2* __restrict__ neg_out,
                    const int* __restrict__ cols, float* hbar, float alpha, int accumulate,
                    long long N, int S, int K) {
@@ -106,14 +116,18 @@ block_outer_kernel(const float2* __restrict__ g, const float2* __restrict__ t,
   }
 
   for (int s = 0; s < S; ++s) {
-    const int col = row ? __ldg(cols + (size_t)n * S + s) : -1;
+    const int pad = HALO ? -P : 0;  // columns below this are padding
+    const int col = row ? __ldg(cols + (size_t)n * S + s) : pad - 1;
     float acc[BLOCK_FLOATS];
 #pragma unroll
     for (int i = 0; i < BLOCK_FLOATS; ++i) acc[i] = 0.f;
 
-    if (col >= 0) {
+    if (col >= pad) {
+      const float2* tcol = (HALO && col < 0)    ? tm + (size_t)(col + P) * BLK * K
+                           : (HALO && col >= N) ? tp + (size_t)(col - N) * BLK * K
+                                                : t + (size_t)col * BLK * K;
       for (int k = kk; k < K; k += TK) {
-        const float2* trow = t + (size_t)col * BLK * K + k;
+        const float2* trow = tcol + k;
         float2 gv[BLK], tv[BLK];
         load_G(gv, g, t, shift, (size_t)n * BLK * K + k, K, k);
 #pragma unroll
@@ -159,15 +173,32 @@ block_outer_kernel(const float2* __restrict__ g, const float2* __restrict__ t,
   }
 }
 
-template <int TK>
-int launch(const void* g, const void* t, const void* shift, void* neg_out, const void* cols,
-           void* hbar, float alpha, int accumulate, long long N, int S, int K, cudaStream_t stream) {
+template <int TK, bool HALO>
+int launch(const void* g, const void* t, const void* tm, const void* tp, int P, const void* shift,
+           void* neg_out, const void* cols, void* hbar, float alpha, int accumulate, long long N,
+           int S, int K, cudaStream_t stream) {
   constexpr int TN = THREADS / TK;
   const unsigned blocks = (unsigned)((N + TN - 1) / TN);
-  block_outer_kernel<TK><<<blocks, THREADS, 0, stream>>>(
-      (const float2*)g, (const float2*)t, (const float*)shift, (float2*)neg_out, (const int*)cols,
-      (float*)hbar, alpha, accumulate, N, S, K);
+  block_outer_kernel<TK, HALO><<<blocks, THREADS, 0, stream>>>(
+      (const float2*)g, (const float2*)t, (const float2*)tm, (const float2*)tp, P,
+      (const float*)shift, (float2*)neg_out, (const int*)cols, (float*)hbar, alpha, accumulate,
+      N, S, K);
   return (int)cudaGetLastError();
+}
+
+template <bool HALO>
+int dispatch(const void* g, const void* t, const void* tm, const void* tp, int P,
+             const void* shift, void* neg_out, const void* cols, void* hbar, float alpha,
+             int accumulate, long long N, int S, int K, int TK, cudaStream_t st) {
+  switch (TK) {
+    case 1: return launch<1, HALO>(g, t, tm, tp, P, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K, st);
+    case 2: return launch<2, HALO>(g, t, tm, tp, P, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K, st);
+    case 4: return launch<4, HALO>(g, t, tm, tp, P, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K, st);
+    case 8: return launch<8, HALO>(g, t, tm, tp, P, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K, st);
+    case 16: return launch<16, HALO>(g, t, tm, tp, P, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K, st);
+    case 32: return launch<32, HALO>(g, t, tm, tp, P, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -181,14 +212,21 @@ extern "C" int ell_block_outer_launch(const void* g, const void* t, const void* 
                                       int TK, void* stream) {
   if (N < 0 || S < 1 || K < 1 || (g == nullptr && shift == nullptr)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (TK) {
-    case 1: return launch<1>(g, t, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K, st);
-    case 2: return launch<2>(g, t, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K, st);
-    case 4: return launch<4>(g, t, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K, st);
-    case 8: return launch<8>(g, t, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K, st);
-    case 16: return launch<16>(g, t, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K, st);
-    case 32: return launch<32>(g, t, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(g, t, nullptr, nullptr, 0, shift, neg_out, cols, hbar, alpha, accumulate,
+                         N, S, K, TK, (cudaStream_t)stream);
+}
+
+// The halo form: N is the slab's row count, P the sites of a plane, tm and tp
+// the planes of t before and after the slab ([P, 4, K], not null).
+extern "C" int ell_block_outer_halo_launch(const void* g, const void* t, const void* tm,
+                                           const void* tp, const void* shift, void* neg_out,
+                                           const void* cols, void* hbar, float alpha,
+                                           int accumulate, long long N, int P, int S, int K,
+                                           int TK, void* stream) {
+  if (N < 0 || P < 1 || S < 1 || K < 1 || (g == nullptr && shift == nullptr) || tm == nullptr ||
+      tp == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  return dispatch<true>(g, t, tm, tp, P, shift, neg_out, cols, hbar, alpha, accumulate, N, S, K,
+                        TK, (cudaStream_t)stream);
 }

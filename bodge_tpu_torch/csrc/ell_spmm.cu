@@ -59,6 +59,23 @@
 // MAY alias t_prev: each thread reads its own t_prev entries before it
 // writes the same entries of t_next, and no other thread touches them.
 // t_prev may be null, meaning zero (the first step of the recursion).
+//
+// Halo forms (template flag HALO): ell_spmm_halo, ell_cheb_step_halo and
+// ell_spmm_adjoint_halo compute the same functions on one x-slab of a
+// row-sharded lattice.  They replace _plane_stencil_kernel_halo and
+// _plane_cheb_kernel_halo (bodge_tpu/ops/pallas_spmm.py:1163, :1219) and the
+// vector cotangent of their VJPs (:1430, :1449).  The slab holds n_local rows;
+// its column table holds local indices: a column in [0, n_local) reads the
+// slab, one in [-P, 0) the plane `hm` before it and one in [n_local,
+// n_local + P) the plane `hp` after it (P sites a plane, each plane its own
+// buffer, as the ring exchange delivers it: the slab is never copied); a
+// column below -P is padding.  The adjoint also reads the blocks of rows in
+// those two planes, `dm` and `dp` [P, S, 4, 4], for the mirror blocks of the
+// slab's boundary rows.  The forward forms take a row range [row0, row1) of
+// the slab, so that the rows that read no halo can run while the halo
+// planes travel, and the boundary rows after; partials then hold one row per
+// thread block of the range.  The bound is the same as above, plus the two
+// halo planes read once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,22 +102,57 @@ __device__ __forceinline__ void cfma(float2& acc, float dre, float dim, const fl
   acc.y = fmaf(dre, v.y, fmaf(dim, v.x, acc.y));
 }
 
-template <bool CHEB, bool ADJ>
+// The halo planes of a slab and the rows it computes.  Without HALO, P = 0,
+// the planes are null and the rows are [0, N).
+struct Halo {
+  const float2* vm;  // vector plane before the slab, [P, 4, K]
+  const float2* vp;  // vector plane after the slab
+  const float4* dm;  // operator rows of the plane before (adjoint only), [P, S, 4, 4]
+  const float4* dp;  // operator rows of the plane after
+  int P;
+  long long row0, row1;
+};
+
+// Row `col` of a [rows, 4, K] vector, or of the halo plane that holds it.
+template <bool HALO>
+__device__ __forceinline__ const float2* vec_row(const float2* v, const Halo& h, int col,
+                                                 long long N, int K) {
+  if (HALO) {
+    if (col < 0) return h.vm + (size_t)(col + h.P) * BLK * K;
+    if (col >= N) return h.vp + (size_t)(col - N) * BLK * K;
+  }
+  return v + (size_t)col * BLK * K;
+}
+
+// Block (col, slot) of the operator, or of the halo rows that hold it.
+template <bool HALO>
+__device__ __forceinline__ const float4* blk_at(const float4* data, const Halo& h, int col,
+                                                int slot, long long N, int S) {
+  if (HALO) {
+    if (col < 0) return h.dm + ((size_t)(col + h.P) * S + slot) * BLK_FLOAT4;
+    if (col >= N) return h.dp + ((size_t)(col - N) * S + slot) * BLK_FLOAT4;
+  }
+  return data + ((size_t)col * S + slot) * BLK_FLOAT4;
+}
+
+template <bool CHEB, bool ADJ, bool HALO>
 __global__ void __launch_bounds__(THREADS)
 ell_kernel(const float4* __restrict__ data, const int* __restrict__ cols,
            const int* __restrict__ mirror, int mirror_per_row,
            const float2* __restrict__ t_cur, const float2* t_prev, float2* t_next,
-           float* __restrict__ partials, float two_inv, Epilogue ep,
+           float* __restrict__ partials, float two_inv, Epilogue ep, Halo halo,
            long long N, int S, int K, int TK) {
   const int tid = threadIdx.x;
   const int kk = tid & (TK - 1);
   const int nn = tid / TK;
   const int TN = THREADS / TK;
-  const long long n = (long long)blockIdx.x * TN + nn;
+  const long long n = (HALO ? halo.row0 : 0) + (long long)blockIdx.x * TN + nn;
+  const long long end = HALO ? halo.row1 : N;
   const int k = blockIdx.y * TK + kk;
+  const int pad = HALO ? -halo.P : 0;  // columns below this are padding
 
   float cc = 0.f, nc = 0.f;
-  if (n < N && k < K) {
+  if (n < end && k < K) {
     float2 acc[BLK];
 #pragma unroll
     for (int a = 0; a < BLK; ++a) acc[a] = make_float2(0.f, 0.f);
@@ -109,8 +161,8 @@ ell_kernel(const float4* __restrict__ data, const int* __restrict__ cols,
     const float4* drow = data + (size_t)n * S * BLK_FLOAT4;
     for (int s = 0; s < S; ++s) {
       const int col = __ldg(crow + s);
-      if (col < 0) continue;  // padding slot
-      const float2* vrow = t_cur + (size_t)col * BLK * K + k;
+      if (col < pad) continue;  // padding slot
+      const float2* vrow = vec_row<HALO>(t_cur, halo, col, N, K) + k;
       float2 vb[BLK];
 #pragma unroll
       for (int b = 0; b < BLK; ++b) vb[b] = __ldg(vrow + (size_t)b * K);
@@ -118,7 +170,7 @@ ell_kernel(const float4* __restrict__ data, const int* __restrict__ cols,
         // The mirror block lives in row `col`; row b of it feeds column b of
         // its conjugate transpose: acc[a] += conj(blk[b][a]) * v[b].
         const int ms = __ldg(mirror + (mirror_per_row ? (size_t)n * S + s : (size_t)s));
-        const float4* blk = data + ((size_t)col * S + ms) * BLK_FLOAT4;
+        const float4* blk = blk_at<HALO>(data, halo, col, ms, N, S);
 #pragma unroll
         for (int b = 0; b < BLK; ++b) {
           const float4 d01 = __ldg(blk + 2 * b);      // entries (b,0), (b,1)
@@ -207,9 +259,15 @@ bool bad_tile(int TK) { return TK < 1 || TK > 32 || (TK & (TK - 1)) != 0; }
 
 constexpr Epilogue NO_EPILOGUE = {1.f, nullptr, nullptr, nullptr, nullptr, nullptr};
 
-dim3 grid_for(long long N, int K, int TK) {
+dim3 grid_for(long long rows, int K, int TK) {
   const int TN = THREADS / TK;
-  return dim3((unsigned)((N + TN - 1) / TN), (unsigned)((K + TK - 1) / TK), 1);
+  return dim3((unsigned)((rows + TN - 1) / TN), (unsigned)((K + TK - 1) / TK), 1);
+}
+
+Halo whole(long long N) { return Halo{nullptr, nullptr, nullptr, nullptr, 0, 0, N}; }
+
+bool bad_range(long long N, long long row0, long long row1) {
+  return row0 < 0 || row1 < row0 || row1 > N;
 }
 
 }  // namespace
@@ -221,9 +279,9 @@ extern "C" int ell_spmm_launch(const void* data, const void* cols, const void* v
                                long long N, int S, int K, int TK, void* stream) {
   if (bad_tile(TK) || N < 0 || S < 1 || K < 1) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  ell_kernel<false, false><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
+  ell_kernel<false, false, false><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
       (const float4*)data, (const int*)cols, nullptr, 0, (const float2*)v, nullptr, (float2*)y,
-      nullptr, 0.f, NO_EPILOGUE, N, S, K, TK);
+      nullptr, 0.f, NO_EPILOGUE, whole(N), N, S, K, TK);
   return (int)cudaGetLastError();
 }
 
@@ -240,9 +298,9 @@ extern "C" int ell_spmm_adjoint_launch(const void* data, const void* cols, const
   if (N == 0) return 0;
   const Epilogue ep = {alpha, (const float2*)add, (const float2*)x1, (const float*)c1,
                        (const float2*)x2, (const float*)c2};
-  ell_kernel<false, true><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
+  ell_kernel<false, true, false><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
       (const float4*)data, (const int*)cols, (const int*)mirror, mirror_per_row,
-      (const float2*)v, nullptr, (float2*)y, nullptr, 0.f, ep, N, S, K, TK);
+      (const float2*)v, nullptr, (float2*)y, nullptr, 0.f, ep, whole(N), N, S, K, TK);
   return (int)cudaGetLastError();
 }
 
@@ -252,8 +310,67 @@ extern "C" int ell_cheb_step_launch(const void* data, const void* cols, const vo
                                     void* stream) {
   if (bad_tile(TK) || N < 0 || S < 1 || K < 1) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  ell_kernel<true, false><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
+  ell_kernel<true, false, false><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
       (const float4*)data, (const int*)cols, nullptr, 0, (const float2*)t_cur, (const float2*)t_prev,
-      (float2*)t_next, (float*)partials, 2.0f * inv, NO_EPILOGUE, N, S, K, TK);
+      (float2*)t_next, (float*)partials, 2.0f * inv, NO_EPILOGUE, whole(N), N, S, K, TK);
+  return (int)cudaGetLastError();
+}
+
+// The halo forms.  N is the slab's row count n_local, P the sites of a plane;
+// rows [row0, row1) of y / t_next are written (partials: one row per thread
+// block of the range).  hm and hp are the vector planes before and after the
+// slab, [P, 4, K]; for the adjoint, dm and dp the operator rows of those
+// planes, [P, S, 4, 4].  None of them may be null, and none may be written.
+
+extern "C" int ell_spmm_halo_launch(const void* data, const void* cols, const void* v,
+                                    const void* hm, const void* hp, void* y, long long N, int P,
+                                    long long row0, long long row1, int S, int K, int TK,
+                                    void* stream) {
+  if (bad_tile(TK) || N < 0 || P < 1 || S < 1 || K < 1 || bad_range(N, row0, row1) ||
+      hm == nullptr || hp == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (row1 == row0) return 0;
+  const Halo halo = {(const float2*)hm, (const float2*)hp, nullptr, nullptr, P, row0, row1};
+  ell_kernel<false, false, true><<<grid_for(row1 - row0, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)data, (const int*)cols, nullptr, 0, (const float2*)v, nullptr, (float2*)y,
+      nullptr, 0.f, NO_EPILOGUE, halo, N, S, K, TK);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ell_cheb_step_halo_launch(const void* data, const void* cols, const void* t_cur,
+                                         const void* hm, const void* hp, const void* t_prev,
+                                         void* t_next, void* partials, float inv, long long N,
+                                         int P, long long row0, long long row1, int S, int K,
+                                         int TK, void* stream) {
+  if (bad_tile(TK) || N < 0 || P < 1 || S < 1 || K < 1 || bad_range(N, row0, row1) ||
+      hm == nullptr || hp == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (row1 == row0) return 0;
+  const Halo halo = {(const float2*)hm, (const float2*)hp, nullptr, nullptr, P, row0, row1};
+  ell_kernel<true, false, true><<<grid_for(row1 - row0, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)data, (const int*)cols, nullptr, 0, (const float2*)t_cur, (const float2*)t_prev,
+      (float2*)t_next, (float*)partials, 2.0f * inv, NO_EPILOGUE, halo, N, S, K, TK);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ell_spmm_adjoint_halo_launch(const void* data, const void* dm, const void* dp,
+                                            const void* cols, const void* mirror, const void* v,
+                                            const void* vm, const void* vp, void* y, float alpha,
+                                            const void* add, const void* x1, const void* c1,
+                                            const void* x2, const void* c2, long long N, int P,
+                                            int S, int K, int TK, void* stream) {
+  if (bad_tile(TK) || N < 0 || P < 1 || S < 1 || K < 1 || mirror == nullptr || vm == nullptr ||
+      vp == nullptr || dm == nullptr || dp == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if ((x1 == nullptr) != (c1 == nullptr) || (x2 == nullptr) != (c2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  const Epilogue ep = {alpha, (const float2*)add, (const float2*)x1, (const float*)c1,
+                       (const float2*)x2, (const float*)c2};
+  const Halo halo = {(const float2*)vm, (const float2*)vp, (const float4*)dm, (const float4*)dp,
+                     P, 0, N};
+  ell_kernel<false, true, true><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)data, (const int*)cols, (const int*)mirror, 0, (const float2*)v, nullptr,
+      (float2*)y, nullptr, 0.f, ep, halo, N, S, K, TK);
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,9 @@ purpose: ``key=`` is ``seed=`` (an integer; probes are drawn with NumPy);
 ``probes=`` and ``scale=`` let a caller hand over the very probes and
 Chebyshev scale another implementation used; the Chebyshev scale gets no
 gradient (it is fixed once per objective in the reference too); the
-row-sharded objective (``impl="pallas_sharded"``) is not ported yet.
+row-sharded objective is ``impl="cuda_sharded"`` (the reference's
+``"pallas_sharded"``) or ``"plain_sharded"``, and it inserts the field into
+each rank's slab of the natural ELL data (no packed insert).
 """
 
 from __future__ import annotations
@@ -165,23 +167,31 @@ def _bond_mask(sk: Skeleton) -> np.ndarray:
     return mask
 
 
-def bond_field(delta_site, sk: Skeleton, struct=None):
+def bond_field(delta_site, sk: Skeleton, struct=None, rows=None):
     """Directed bond amplitudes ``m: [N, S]`` from a per-site field.
 
     ``m(i→j) = (δ_i + δ_j)/2`` on genuine bonds, zero on wrap links,
     padding, and slots whose ``struct`` entry vanishes.  Symmetric in
     (i, j), so the inserted operator is Hermitian.  Differentiable; the
-    result lies on ``delta_site``'s device (the CPU for a NumPy array)."""
+    result lies on ``delta_site``'s device (the CPU for a NumPy array).
+    ``rows`` (global row indices) gives those rows only, from the whole
+    field: a slab's rows and its neighbour planes' in the row-sharded
+    objective."""
     mask = _bond_mask(sk)
     if struct is not None:
         active = (np.abs(np.asarray(struct)).sum(axis=(1, 2)) > 0).astype(float)
         mask = mask * active[None, :]
     d = torch.as_tensor(delta_site)
-    m = 0.5 * (d[:, None] + d[sk.device_safe_cols(d.device)])
+    cols, own = sk.device_safe_cols(d.device), d
+    if rows is not None:
+        mask = mask[np.asarray(rows)]
+        rows = torch.as_tensor(np.asarray(rows), device=d.device)
+        cols, own = cols[rows], d[rows]
+    m = 0.5 * (own[:, None] + d[cols])
     return m * torch.as_tensor(mask).to(device=d.device, dtype=_real_dtype(m.dtype))
 
 
-def data_with_bond_singlet(base_data, delta_site, sk: Skeleton, struct):
+def data_with_bond_singlet(base_data, delta_site, sk: Skeleton, struct, rows=None):
     """Insert a bond-singlet pairing field into ELL block data.
 
     ``delta_site: [N]`` is a per-site amplitude; the pairing block on bond
@@ -189,12 +199,14 @@ def data_with_bond_singlet(base_data, delta_site, sk: Skeleton, struct):
     partner ``struct[trans_slot[s]]†`` filled automatically.  ALL pairing
     sub-blocks are overwritten (on-site pairing included — pass a struct
     with a slot-0 entry to combine).  Differentiable in ``delta_site``.
+    With ``rows`` (global row indices), ``base_data`` holds those rows only
+    and ``delta_site`` is the whole field.
     """
     struct = np.asarray(struct)
     struct_t = _like(struct, base_data)
     structH = _like(np.conj(np.swapaxes(struct[np.asarray(sk.trans_slot)], -1, -2)), base_data)
     delta_site = torch.as_tensor(delta_site, device=base_data.device)
-    m = bond_field(delta_site, sk, struct).to(base_data.dtype)
+    m = bond_field(delta_site, sk, struct, rows).to(base_data.dtype)
     data = base_data.clone()
     data[:, :, 0:2, 2:4] = m[:, :, None, None] * struct_t[None]
     data[:, :, 2:4, 0:2] = m[:, :, None, None] * structH[None]
@@ -327,6 +339,14 @@ def make_total_free_energy(
     strong coupling (BCS estimate Δ ≈ 2·bandwidth·exp(−1/(V·DOS)) above
     ~2, or V ≳ 4t), raise ``delta_max`` accordingly.
 
+    ``impl="cuda_sharded"`` (``method="kpm"``) is the row-sharded objective
+    over the ranks of ``mesh`` (default :func:`~bodge_tpu_torch.parallel.make_row_mesh`
+    on the system's device): every rank inserts the field into its slab and
+    its neighbour planes, the moment sweep runs on the halo kernels forward
+    and backward, the moment sums and the field's gradient are summed over
+    the ranks, and ``overlap`` selects the interior/boundary split;
+    ``"plain_sharded"`` is the same through the kernels' plain versions.
+
     ``impl`` (``method="kpm"``): ``None`` is the kernels for a system on the
     card (``"cuda"``, or ``"cuda_gather"`` on a generic lattice with a
     feasible window plan, ``"cuda_tiled"`` under ``BODGE_PLANE_TILED=1``) and
@@ -344,17 +364,17 @@ def make_total_free_energy(
     T = float(temperature)
     struct = _resolve_pairing(pairing, sk)
 
-    if method == "kpm" and impl == "pallas_sharded":
-        raise NotImplementedError(
-            "make_total_free_energy(impl='pallas_sharded'): the row-sharded objective "
-            "is not ported yet — see ROADMAP.md queue 1, item 6"
+    if method == "kpm" and impl in SHARDED:
+        return _make_total_free_energy_sharded(
+            system, V, T, order, samples, seed, mesh=mesh, overlap=overlap, delta_max=delta_max,
+            struct=struct, probes=probes, scale=scale, backend=SHARDED[impl],
         )
     if mesh is not None or overlap is not None:
         # Silently dropping these would let a user believe their solve ran
         # on a custom mesh / with the overlap split.
         raise ValueError(
             "mesh= and overlap= apply only to method='kpm', "
-            "impl='pallas_sharded'"
+            "impl='cuda_sharded' or 'plain_sharded'"
         )
 
     base = system.data.detach()
@@ -427,6 +447,77 @@ def make_total_free_energy(
         return F_total
 
     raise ValueError(f"Unknown method '{method}'")
+
+
+SHARDED = {"cuda_sharded": "cuda", "plain_sharded": "plain"}  # impl → the backend of the halo kernels
+
+
+def _make_total_free_energy_sharded(system, V: float, T: float, order: int, samples: int, seed, *,
+                                    mesh, overlap, delta_max: float, struct, probes, scale, backend: str):
+    """``F_total(Δ)`` of :func:`make_total_free_energy` over a row mesh: the
+    reference's ``_make_total_free_energy_pallas_sharded``.
+
+    Every rank holds the whole field Δ.  It inserts Δ into the rows of its
+    slab and of the planes before and after it (bond fields at the slab's
+    edge read Δ of the neighbour's rows), sweeps the slab through
+    :func:`~bodge_tpu_torch.parallel.cuda_sharded.moments_sharded_ad` and
+    evaluates F from the moment sums of all ranks, so every rank returns the
+    same F.  The gradient of the sweep term with respect to Δ is summed over
+    the ranks (:class:`~bodge_tpu_torch.parallel.sharded.Replicated`); the
+    condensation term is taken on the whole field and counted once.  Every
+    rank must evaluate the objective and its gradient, in step."""
+    from ..parallel.cuda_sharded import _require_rows_only, moments_sharded_ad, spectral_bound_sharded
+    from ..parallel.sharded import Replicated, RowSharding, make_row_mesh
+
+    sk = system.skeleton
+    if not sk.stencil:
+        raise ValueError("the row-sharded objective needs a cubic lattice (a stencil skeleton)")
+    rs = RowSharding(sk, make_row_mesh(devices=system.device) if mesh is None else mesh)
+    _require_rows_only(rs)
+    N, P, n_local = sk.n_sites, rs.slab.plane, rs.slab.n_local
+    before, after = rs.halo_rows()
+    rows = np.concatenate([before, np.arange(N)[rs.slab.rows], after])
+    dev = rs.device
+    base = system.data.detach()[torch.as_tensor(rows, device=system.data.device)].to(dev)
+
+    if struct is None:
+        insert = lambda b, delta: data_with_onsite_swave(b, delta[torch.as_tensor(rows, device=dev)])
+        penalty = lambda delta: (delta.abs() ** 2).sum() / V
+    else:
+        insert = lambda b, delta: data_with_bond_singlet(b, delta, sk, struct, rows)
+        penalty = lambda delta: _bond_penalty(bond_field(delta, sk, struct), struct, V)
+
+    def slabs(data_ext):
+        """``(slab, dm, dp)`` of the inserted rows."""
+        return data_ext[P:P + n_local], data_ext[:P], data_ext[P + n_local:]
+
+    if scale is None:
+        headroom = torch.full((N,), float(delta_max), dtype=base.dtype, device=dev)
+        scale = spectral_bound_sharded(rs, slabs(insert(base, headroom))[0], impl=backend)
+    scale = float(scale)
+    if T == 0:
+        g = lambda E: -np.abs(E) / 2
+    else:
+        g = lambda E: -np.abs(E) / 2 - T * np.log1p(np.exp(-np.abs(E) / T))
+    coeffs = chebyshev_coefficients(lambda x: g(scale * x), order) * _KERNELS["jackson"](order)
+    coeffs = torch.as_tensor(coeffs).to(device=dev, dtype=_real_dtype(base.dtype))
+    if probes is None:
+        z = rademacher_probes(N, samples, seed, np.float64, default_seed=11)
+        probes = z / np.sqrt(N * BLOCK)
+    z = _like(probes, base)
+    if z.shape[:2] != (N, BLOCK) or z.dim() != 3:
+        raise ValueError(f"probes must have shape ({N}, {BLOCK}, samples), got {tuple(z.shape)}")
+    z_l = rs.shard_vector(z)
+    K = z_l.shape[-1]
+
+    def F_total(delta):
+        delta = torch.as_tensor(delta, device=dev)
+        slab, dm, dp = slabs(insert(base, Replicated.apply(delta, rs)))
+        mu = moments_sharded_ad(rs, slab, z_l, 1.0 / scale, order, dm, dp, overlap=overlap, impl=backend)
+        F = 0.5 * torch.dot(coeffs.to(mu.dtype), mu.sum(dim=1)) / K * (N * BLOCK)
+        return F + penalty(delta)
+
+    return F_total
 
 
 def solve_gap(

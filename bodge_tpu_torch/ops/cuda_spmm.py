@@ -65,6 +65,28 @@ The tiled step, in ``csrc/stencil_tiled.cu``:
 The kernels for generic skeletons (a window of relabelled vector rows in
 shared memory) live in :mod:`.cuda_gather`.
 
+Halo forms, for one x-slab of a row-sharded lattice (:class:`HaloSlab`;
+the exchange that fills the halo planes lives in
+:mod:`bodge_tpu_torch.parallel`).  Template flags of the two kernel bodies
+above, in the same sources:
+
+- :func:`ell_spmm_halo` and :func:`ell_cheb_step_halo` — the product and the
+  fused step on a slab, the planes before and after it given as separate
+  buffers ``hm`` / ``hp``, over a range of the slab's rows (the interior and
+  boundary launches of the overlap split).  They replace
+  ``_plane_stencil_kernel_halo`` and ``_plane_cheb_kernel_halo``
+  (``pallas_spmm.py:1163``, ``:1219``).
+- :func:`ell_spmm_adjoint_halo` and :func:`ell_block_outer_halo` — their
+  backward pass (the reference's XLA VJPs ``plane_spmm_halo_ad`` and
+  ``plane_cheb_step_halo_ad``, ``:1430``, ``:1449``): the adjoint gathers the
+  cotangent's halo planes, exchanged in the forward direction, and reads
+  the mirror blocks of the neighbour planes' rows (``dm`` / ``dp``); the
+  outer product reads the forward step's halo planes.  No scatter back, no
+  atomics.
+
+:class:`ShardedMomentSweep` is the differentiable moment sweep over them,
+one exchange per step forward and one per step backward.
+
 Paths.  A sweep runs one of three steps, chosen by :func:`resolve_path`:
 ``"cuda"`` (the general ELL kernels, any skeleton), ``"cuda_gather"`` (generic
 skeletons with a feasible window plan: the default there) and
@@ -86,9 +108,11 @@ from __future__ import annotations
 
 import ctypes
 import os
+from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -99,7 +123,9 @@ THREADS = 256  # threads per block in csrc/ell_spmm.cu
 TILED_THREADS = 512  # threads per block in csrc/stencil_tiled.cu
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
 KERNELS = ("ell_spmm", "ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer",
-           "ell_gather_spmm", "ell_gather_cheb_step", "stencil_cheb_step_tiled")
+           "ell_gather_spmm", "ell_gather_cheb_step", "stencil_cheb_step_tiled",
+           "ell_spmm_halo", "ell_cheb_step_halo", "ell_spmm_adjoint_halo", "ell_block_outer_halo")
+PAD_COLUMN = -(2 ** 31)  # padding in a slab's column table (below every halo index)
 
 
 # --------------------------------------------------------------------------
@@ -202,6 +228,10 @@ def _library():
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         ip = ctypes.POINTER(ctypes.c_int)
         signatures = {
+            "ell_spmm_halo_launch": (spmm, [p, p, p, p, p, p, ll, i, ll, ll, i, i, i, p]),
+            "ell_cheb_step_halo_launch": (spmm, [p] * 8 + [f, ll, i, ll, ll, i, i, i, p]),
+            "ell_spmm_adjoint_halo_launch": (spmm, [p] * 9 + [f] + [p] * 5 + [ll, i, i, i, i, p]),
+            "ell_block_outer_halo_launch": (outer, [p] * 8 + [f, i, ll, i, i, i, i, p]),
             "ell_spmm_launch": (spmm, [p, p, p, p, ll, i, i, i, p]),
             "ell_cheb_step_launch": (spmm, [p, p, p, p, p, p, f, ll, i, i, i, p]),
             "ell_spmm_adjoint_launch": (spmm, [p, p, p, i, p, p, f, p, p, p, p, p, ll, i, i, i, p]),
@@ -576,11 +606,379 @@ def ell_block_outer(
 ell_block_outer.launches = 0
 
 
+# --------------------------------------------------------------------------
+# Halo forms: one x-slab of a row-sharded lattice.
+# --------------------------------------------------------------------------
+@dataclass(frozen=True, eq=False)
+class HaloSlab:
+    """The x-planes ``[x0, x0 + planes)`` of a stencil skeleton ``sk`` as one
+    slab with local indices, the form the halo kernels take.
+
+    ``cols`` ``[n_local, S]`` int32: a column in ``[0, n_local)`` is a row of
+    the slab, one in ``[−P, 0)`` a site of the plane before it (``hm``), one in
+    ``[n_local, n_local + P)`` a site of the plane after it (``hp``), and
+    :data:`PAD_COLUMN` is padding; ``P = Ly·Lz``.  Which plane a link reads is
+    decided by its slot, not by its target: the ``−x`` link of the slab's
+    first plane reads ``hm`` and the ``+x`` link of its last plane ``hp``,
+    whatever planes the ring delivers there (on one rank, the slab's own last
+    and first planes), as in the reference.  Built by :func:`halo_slab`, once
+    per slab; the device copies are kept.
+    """
+
+    sk: Skeleton
+    x0: int
+    planes: int
+    cols: np.ndarray
+    _device_cache: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def plane(self) -> int:
+        """Sites of one x-plane (``P``)."""
+        return self.sk.shape[1] * self.sk.shape[2]
+
+    @property
+    def n_local(self) -> int:
+        return self.planes * self.plane
+
+    @property
+    def rows(self) -> slice:
+        """The slab's rows of the whole lattice."""
+        return slice(self.x0 * self.plane, (self.x0 + self.planes) * self.plane)
+
+    @property
+    def has_padding(self) -> bool:
+        return bool((self.cols == PAD_COLUMN).any())
+
+    def _copy(self, name, device, make):
+        key = (name, str(torch.device(device)))
+        if key not in self._device_cache:
+            self._device_cache[key] = torch.as_tensor(make()).to(device)
+        return self._device_cache[key]
+
+    def device_cols(self, device):
+        """``cols`` as a contiguous int32 tensor on ``device`` (what the kernels read)."""
+        return self._copy("cols", device, lambda: np.ascontiguousarray(self.cols))
+
+    def device_ext_index(self, device):
+        """int64 gather indices into ``cat([hm, slab, hp])`` (padding → 0), for the plain versions."""
+        return self._copy("ext", device, lambda: np.where(self.cols == PAD_COLUMN, 0, self.cols + self.plane))
+
+    def device_valid(self, device):
+        return self._copy("valid", device, lambda: self.cols != PAD_COLUMN)
+
+    def device_mirror_index(self, device):
+        return self._copy("mirror", device,
+                          lambda: np.broadcast_to(self.sk.trans_slot, self.cols.shape).astype(np.int64))
+
+
+def halo_slab(sk: Skeleton, x0: int, planes: int) -> HaloSlab:
+    """The slab of x-planes ``[x0, x0 + planes)`` of the stencil skeleton ``sk``."""
+    _require_stencil(sk)
+    Lx, Ly, Lz = sk.shape
+    if not (0 <= x0 and planes >= 1 and x0 + planes <= Lx):
+        raise ValueError(f"planes [{x0}, {x0 + planes}) do not lie in a lattice of {Lx} x-planes")
+    P = Ly * Lz
+    n_local = planes * P
+    glob = sk.cols[x0 * P:(x0 + planes) * P].astype(np.int64)
+    local = glob - x0 * P
+    plane = np.arange(n_local) // P
+    for s, (axis, d) in enumerate(sk.slots):
+        if axis != 0:
+            continue
+        edge = plane == (planes - 1 if d > 0 else 0)
+        local[edge, s] = glob[edge, s] % P + (n_local if d > 0 else -P)
+    local[glob < 0] = PAD_COLUMN
+    real = local[local != PAD_COLUMN]
+    assert real.size == 0 or (real.min() >= -P and real.max() < n_local + P)
+    return HaloSlab(sk, int(x0), int(planes), local.astype(np.int32))
+
+
+def _extended(slab: HaloSlab, hm, v, hp):
+    """``cat([hm, v, hp])``, what the slab's gather indices address; an absent
+    plane (for rows that read none) is zeros."""
+    if hm is None or hp is None:
+        zeros = v.new_zeros((slab.plane, *v.shape[1:]))
+        hm, hp = (zeros if hm is None else hm), (zeros if hp is None else hp)
+    return torch.cat([hm, v, hp])
+
+
+def ell_spmm_halo_plain(data, slab: HaloSlab, v, hm, hp, rows=None):
+    """Plain version of :func:`ell_spmm_halo`: ``y`` for the rows ``rows``
+    (``(row0, row1)``, default all), by a gather from ``cat([hm, v, hp])``."""
+    r0, r1 = (0, slab.n_local) if rows is None else rows
+    idx = slab.device_ext_index(v.device)[r0:r1]
+    gathered = _extended(slab, hm, v, hp)[idx]  # [R, S, 4, K]
+    d = data[r0:r1]
+    if slab.has_padding:
+        d = d * slab.device_valid(v.device)[r0:r1, :, None, None]
+    R, S = idx.shape
+    return torch.bmm(d.transpose(1, 2).reshape(R, BLOCK, S * BLOCK), gathered.reshape(R, S * BLOCK, -1))
+
+
+def ell_cheb_step_halo_plain(data, slab: HaloSlab, t_cur, hm, hp, t_prev, inv: float, rows=None,
+                             sums: bool = True):
+    """Plain version of :func:`ell_cheb_step_halo`: ``(t_next, partials[1, 2K])``
+    for the rows ``rows`` (``t_next`` holds those rows only)."""
+    r0, r1 = (0, slab.n_local) if rows is None else rows
+    hv = ell_spmm_halo_plain(data, slab, t_cur, hm, hp, (r0, r1))
+    return cheb_tail_plain(hv, t_cur[r0:r1], None if t_prev is None else t_prev[r0:r1], inv, sums)
+
+
+def ell_spmm_adjoint_halo_plain(data, slab: HaloSlab, v, vm, vp, dm, dp, alpha: float = 1.0,
+                                add=None, axpy=()):
+    """Plain version of :func:`ell_spmm_adjoint_halo`: :func:`ell_spmm_adjoint_plain`
+    on ``cat([dm, data, dp])`` and ``cat([vm, v, vp])`` through the slab's table."""
+    return ell_spmm_adjoint_plain(_extended(slab, dm, data, dp), _SlabGather(slab), _extended(slab, vm, v, vp),
+                                  alpha, add, axpy)
+
+
+def ell_block_outer_halo_plain(g, slab: HaloSlab, t, tm, tp, alpha: float = 1.0, out=None,
+                               accumulate=False, shift=None, neg_out=None):
+    """Plain version of :func:`ell_block_outer_halo`: ``G = g + shift ⊙ t`` on
+    the slab's rows, ``t`` gathered from ``cat([tm, t, tp])``."""
+    G = g
+    if shift is not None:
+        G = shift.to(t.dtype) * t if g is None else g + shift.to(t.dtype) * t
+    if neg_out is not None:
+        neg_out.copy_(-G)
+    return ell_block_outer_plain(G, _SlabGather(slab), _extended(slab, tm, t, tp), alpha, out=out,
+                                 accumulate=accumulate)
+
+
+class _SlabGather:
+    """A slab seen by the plain gather functions as a skeleton over ``cat([hm, slab, hp])``."""
+
+    def __init__(self, slab: HaloSlab):
+        self.slab, self.cols, self.has_padding = slab, slab.cols, slab.has_padding
+
+    def device_safe_cols(self, device):
+        return self.slab.device_ext_index(device)
+
+    def device_mirror_index(self, device):
+        return self.slab.device_mirror_index(device)
+
+    def device_valid(self, device):
+        return self.slab.device_valid(device)
+
+
+def _check_halo(slab: HaloSlab, K: int, device, **planes):
+    for name, t in planes.items():
+        _check_operand(name, t, (slab.plane, BLOCK, K), device)
+
+
+def _row_range(slab: HaloSlab, rows, hm, hp):
+    """``(row0, row1)``; the halo planes may be absent only for rows that read none."""
+    r0, r1 = (0, slab.n_local) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= r0 <= r1 <= slab.n_local:
+        raise ValueError(f"rows {rows} do not lie in the slab's {slab.n_local} rows")
+    if (hm is None or hp is None) and not (slab.plane <= r0 and r1 <= slab.n_local - slab.plane):
+        raise ValueError("hm and hp are needed for rows of the slab's first or last plane")
+    return r0, r1
+
+
+def _distinct(out, *others):
+    own = out.untyped_storage().data_ptr()
+    return all(o is None or o.untyped_storage().data_ptr() != own for o in others)
+
+
+def ell_spmm_halo(data, slab: HaloSlab, v, hm, hp, *, rows=None, out=None,
+                  impl: Optional[str] = None):
+    """``y = H v`` on a slab: ``y[n] = Σ_s data[n,s] · w[cols[n,s]]`` with ``w``
+    the slab ``v`` ``[n_local, 4, K]`` and its neighbour planes ``hm`` / ``hp``
+    ``[P, 4, K]`` (separate buffers).  ``rows=(row0, row1)`` computes those
+    rows only, into ``out`` (required then); ``hm`` / ``hp`` may be ``None``
+    where the rows read no halo (the interior of the overlap split).
+
+    On a CUDA tensor this launches the kernel; on a CPU tensor, or with
+    ``impl="plain"``, it is :func:`ell_spmm_halo_plain`."""
+    r0, r1 = _row_range(slab, rows, hm, hp)
+    if rows is not None and out is None:
+        raise ValueError("rows= writes into a buffer of the whole slab: pass out=")
+    if _resolve(impl, v) == "plain":
+        y = ell_spmm_halo_plain(data, slab, v, hm, hp, (r0, r1))
+        if out is None:
+            return y
+        out[r0:r1] = y
+        return out
+    N, S, K = _check_call(data, slab, v)
+    _check_halo(slab, K, v.device, **{k: t for k, t in (("hm", hm), ("hp", hp)) if t is not None})
+    if out is None:
+        out = torch.empty_like(v)
+    else:
+        _check_operand("out", out, (N, BLOCK, K), v.device)
+    if not _distinct(out, v, hm, hp):
+        raise ValueError("out must not share memory with v, hm or hp (other threads read them)")
+    lib = _library()
+    with torch.cuda.device(v.device):
+        err = lib.ell_spmm_halo_launch(
+            data.data_ptr(), slab.device_cols(v.device).data_ptr(), v.data_ptr(),
+            (hm if hm is not None else v).data_ptr(), (hp if hp is not None else v).data_ptr(),
+            out.data_ptr(), N, slab.plane, r0, r1, S, K, probe_tile(K),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "ell_spmm_halo")
+    ell_spmm_halo.launches += 1
+    return out
+
+
+ell_spmm_halo.launches = 0
+
+
+def ell_cheb_step_halo(data, slab: HaloSlab, t_cur, hm, hp, t_prev, inv: float, *, rows=None,
+                       out=None, impl: Optional[str] = None):
+    """The fused Chebyshev step on a slab: ``(t_next, partials)`` as
+    :func:`ell_cheb_step`, with ``t_cur``'s neighbour planes ``hm`` / ``hp``
+    (separate ``[P, 4, K]`` buffers).  ``rows=(row0, row1)`` computes those
+    rows of ``t_next`` only, into ``out`` (required then), and the partials
+    of those rows; ``hm`` / ``hp`` may be ``None`` where the rows read no
+    halo.  ``out`` may be ``t_prev`` itself, never ``t_cur``, ``hm`` or ``hp``.
+
+    On a CUDA tensor this launches the kernel; on a CPU tensor, or with
+    ``impl="plain"``, it is :func:`ell_cheb_step_halo_plain`."""
+    r0, r1 = _row_range(slab, rows, hm, hp)
+    if rows is not None and out is None:
+        raise ValueError("rows= writes into a buffer of the whole slab: pass out=")
+    if _resolve(impl, t_cur) == "plain":
+        t_next, pp = ell_cheb_step_halo_plain(data, slab, t_cur, hm, hp, t_prev, inv, (r0, r1))
+        if out is None:
+            return t_next, pp
+        out[r0:r1] = t_next
+        return out, pp
+    N, S, K = _check_call(data, slab, t_cur)
+    shape = (N, BLOCK, K)
+    _check_halo(slab, K, t_cur.device, **{k: t for k, t in (("hm", hm), ("hp", hp)) if t is not None})
+    if t_prev is not None:
+        _check_operand("t_prev", t_prev, shape, t_cur.device)
+    if out is None:
+        out = torch.empty_like(t_cur)
+    else:
+        _check_operand("out", out, shape, t_cur.device)
+    if not _distinct(out, t_cur, hm, hp):
+        raise ValueError("out must not share memory with t_cur, hm or hp (other threads read them)")
+    tk = probe_tile(K)
+    n_blocks = -(-(r1 - r0) // (THREADS // tk))
+    partials = torch.empty((n_blocks, 2 * K), dtype=torch.float32, device=t_cur.device)
+    lib = _library()
+    with torch.cuda.device(t_cur.device):
+        err = lib.ell_cheb_step_halo_launch(
+            data.data_ptr(), slab.device_cols(t_cur.device).data_ptr(), t_cur.data_ptr(),
+            (hm if hm is not None else t_cur).data_ptr(), (hp if hp is not None else t_cur).data_ptr(),
+            _ptr(t_prev), out.data_ptr(), partials.data_ptr(), float(inv), N, slab.plane, r0, r1,
+            S, K, tk, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "ell_cheb_step_halo")
+    ell_cheb_step_halo.launches += 1
+    return out, partials
+
+
+ell_cheb_step_halo.launches = 0
+
+
+def ell_spmm_adjoint_halo(data, slab: HaloSlab, v, vm, vp, dm, dp, *, alpha: float = 1.0, add=None,
+                          axpy=(), out=None, impl: Optional[str] = None):
+    """``y = alpha · H† v + add + Σ_j c_j ⊙ x_j`` on a slab (see
+    :func:`ell_spmm_adjoint`): ``v``'s neighbour planes are ``vm`` / ``vp``
+    ``[P, 4, K]`` and the operator rows of those planes ``dm`` / ``dp``
+    ``[P, S, 4, 4]`` (the mirror blocks of the slab's boundary rows live
+    there).  ``out`` may be ``add`` itself, never ``v``, ``vm`` or ``vp``.
+
+    On a CUDA tensor this launches the kernel; on a CPU tensor, or with
+    ``impl="plain"``, it is :func:`ell_spmm_adjoint_halo_plain`."""
+    if len(axpy) > 2:
+        raise ValueError("at most two axpy terms fit the kernel's epilogue")
+    if _resolve(impl, v) == "plain":
+        return ell_spmm_adjoint_halo_plain(data, slab, v, vm, vp, dm, dp, alpha, add, axpy)
+    N, S, K = _check_call(data, slab, v)
+    shape = (N, BLOCK, K)
+    _check_halo(slab, K, v.device, vm=vm, vp=vp)
+    for name, d in (("dm", dm), ("dp", dp)):
+        _check_operand(name, d, (slab.plane, S, BLOCK, BLOCK), v.device)
+    if add is not None:
+        _check_operand("add", add, shape, v.device)
+    for c, x in axpy:
+        _check_column_weights("axpy weight", c, K, v.device)
+        _check_operand("axpy vector", x, shape, v.device)
+    if out is None:
+        out = torch.empty_like(v)
+    else:
+        _check_operand("out", out, shape, v.device)
+    if not _distinct(out, v, vm, vp):
+        raise ValueError("out must not share memory with v, vm or vp (other threads read them)")
+    (c1, x1), (c2, x2) = (*axpy, (None, None), (None, None))[:2]
+    mirror = slab.sk.device_trans_slot(v.device)
+    lib = _library()
+    with torch.cuda.device(v.device):
+        err = lib.ell_spmm_adjoint_halo_launch(
+            data.data_ptr(), dm.data_ptr(), dp.data_ptr(), slab.device_cols(v.device).data_ptr(),
+            mirror.data_ptr(), v.data_ptr(), vm.data_ptr(), vp.data_ptr(), out.data_ptr(),
+            float(alpha), _ptr(add), _ptr(x1), _ptr(c1), _ptr(x2), _ptr(c2), N, slab.plane, S, K,
+            probe_tile(K), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "ell_spmm_adjoint_halo")
+    ell_spmm_adjoint_halo.launches += 1
+    return out
+
+
+ell_spmm_adjoint_halo.launches = 0
+
+
+def ell_block_outer_halo(g, slab: HaloSlab, t, tm, tp, alpha: float = 1.0, *, out=None,
+                         accumulate: bool = False, shift=None, neg_out=None,
+                         impl: Optional[str] = None):
+    """``H̄[n,s] (+)= α · Σ_k G[n,a,k] · conj(w[cols[n,s],b,k])`` on a slab (see
+    :func:`ell_block_outer`), ``w`` the slab ``t`` with its neighbour planes
+    ``tm`` / ``tp`` — in the step's backward pass the forward step's halo
+    planes of ``t_cur``.  ``G = g + shift ⊙ t`` on the slab's rows.
+
+    On a CUDA tensor this launches the kernel; on a CPU tensor, or with
+    ``impl="plain"``, it is :func:`ell_block_outer_halo_plain`."""
+    if accumulate and out is None:
+        raise ValueError("accumulate=True needs the buffer to add into (out=)")
+    if g is None and shift is None:
+        raise ValueError("g and shift cannot both be absent")
+    if _resolve(impl, t) == "plain":
+        return ell_block_outer_halo_plain(g, slab, t, tm, tp, alpha, out=out, accumulate=accumulate,
+                                          shift=shift, neg_out=neg_out)
+    if not isinstance(t, torch.Tensor) or t.dim() != 3 or t.shape[1] != BLOCK:
+        raise ValueError("operand must be a tensor of shape [n_local, 4, K]")
+    N, S = slab.cols.shape
+    K = int(t.shape[2])
+    shape = (N, BLOCK, K)
+    _check_operand("t", t, shape, t.device)
+    _check_halo(slab, K, t.device, tm=tm, tp=tp)
+    if g is not None:
+        _check_operand("g", g, shape, t.device)
+    if shift is not None:
+        _check_column_weights("shift", shift, K, t.device)
+    if neg_out is not None:
+        _check_operand("neg_out", neg_out, shape, t.device)
+        if not _distinct(neg_out, t, g, tm, tp):
+            raise ValueError("neg_out must be a buffer of its own (g and t are read after it is written)")
+    if out is None:
+        out = torch.empty((N, S, BLOCK, BLOCK), dtype=t.dtype, device=t.device)
+    else:
+        _check_operand("out", out, (N, S, BLOCK, BLOCK), t.device)
+    lib = _library()
+    with torch.cuda.device(t.device):
+        err = lib.ell_block_outer_halo_launch(
+            _ptr(g), t.data_ptr(), tm.data_ptr(), tp.data_ptr(), _ptr(shift), _ptr(neg_out),
+            slab.device_cols(t.device).data_ptr(), out.data_ptr(), float(alpha), int(bool(accumulate)),
+            N, slab.plane, S, K, probe_tile(K), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "ell_block_outer_halo")
+    ell_block_outer_halo.launches += 1
+    return out
+
+
+ell_block_outer_halo.launches = 0
+
+
 def _wrappers():
     from .cuda_gather import ell_gather_cheb_step, ell_gather_spmm
 
     return (ell_spmm, ell_cheb_step, ell_spmm_adjoint, ell_block_outer,
-            ell_gather_spmm, ell_gather_cheb_step, stencil_cheb_step_tiled)
+            ell_gather_spmm, ell_gather_cheb_step, stencil_cheb_step_tiled,
+            ell_spmm_halo, ell_cheb_step_halo, ell_spmm_adjoint_halo, ell_block_outer_halo)
 
 
 def launch_counts() -> dict:
@@ -847,6 +1245,147 @@ class MomentSweep(torch.autograd.Function):
             )
             g_later, g_cur_add = g_cur, neg_G  # step 0 has no t_prev: its −G is dropped
         return (h_bar if need_data else None), (g_later if need_v0 else None), None, None, None, None
+
+
+# --------------------------------------------------------------------------
+# The sweep on one slab of a row-sharded lattice.
+# --------------------------------------------------------------------------
+def halo_cheb_step(data, slab: HaloSlab, ring, t_cur, t_prev, inv: float, *, backend: str,
+                   split: bool = False, out=None):
+    """One fused step on a slab with its halo exchange: ``(t_next, partials,
+    (hm, hp))``.  ``ring`` is the exchange (``exchange_start(t)`` /
+    ``exchange_finish(handle)``, :class:`bodge_tpu_torch.parallel.RowSharding`).
+
+    ``split`` is the interior/boundary overlap split: the exchange begins,
+    the slab's interior planes ``[1, Lxl − 1)`` (which read no halo) are
+    launched, the exchange ends and the two boundary planes are launched —
+    three launches of :func:`ell_cheb_step_halo` into one ``t_next`` buffer.
+    ``out`` may be ``t_prev``'s buffer (kernel only)."""
+    handle = ring.exchange_start(t_cur)
+    if not split:
+        hm, hp = ring.exchange_finish(handle)
+        t_next, pp = ell_cheb_step_halo(data, slab, t_cur, hm, hp, t_prev, inv, out=out, impl=backend)
+        return t_next, pp, (hm, hp)
+    P, n = slab.plane, slab.n_local
+    if out is None:
+        out = torch.empty_like(t_cur)
+    _, pp_int = ell_cheb_step_halo(data, slab, t_cur, None, None, t_prev, inv, rows=(P, n - P), out=out,
+                                   impl=backend)
+    hm, hp = ring.exchange_finish(handle)
+    _, pp_lo = ell_cheb_step_halo(data, slab, t_cur, hm, hp, t_prev, inv, rows=(0, P), out=out, impl=backend)
+    _, pp_hi = ell_cheb_step_halo(data, slab, t_cur, hm, hp, t_prev, inv, rows=(n - P, n), out=out,
+                                  impl=backend)
+    return out, torch.cat([pp_lo, pp_int, pp_hi]), (hm, hp)
+
+
+def halo_sweep(data, slab: HaloSlab, ring, v0, inv: float, order: int, *, backend: str,
+               split: bool = False, keep: bool = False):
+    """The doubled-moment sweep of :func:`moments_fused` on one slab: this
+    rank's column sums ``[1 + steps, 2K]`` (not yet summed over the ranks),
+    and, with ``keep``, every vector and every step's halo planes for the
+    backward pass (else ``t_next`` overwrites ``t_prev``'s buffer from the
+    third step on: three vectors in all)."""
+    inv = float(inv)
+    t1, pp, halos0 = halo_cheb_step(data, slab, ring, v0, None, 0.5 * inv, backend=backend, split=split)
+    sums, ts, halos = [pp.sum(dim=0)], [v0, t1], [halos0]
+    t_prev, t_cur = v0, t1
+    for i in range(max(0, (order - 2 + 1) // 2)):
+        out = t_prev if (not keep and backend == "cuda" and i > 0) else None  # i == 0: t_prev is v0
+        t_next, pp, h = halo_cheb_step(data, slab, ring, t_cur, t_prev, inv, backend=backend, split=split,
+                                       out=out)
+        sums.append(pp.sum(dim=0))
+        if keep:
+            ts.append(t_next)
+            halos.append(h)
+        t_prev, t_cur = t_cur, t_next
+    return torch.stack(sums), ts, halos
+
+
+def halo_step_backward(data, slab: HaloSlab, ring, t_cur, halos, t_next, inv: float, g_next, cc_bar,
+                       nc_bar, dm, dp, *, h_bar=None, g_cur_add=None, backend: str):
+    """Cotangents ``(H̄, t̄_cur, t̄_prev)`` of one step on a slab: the
+    equations of :func:`cheb_step_backward`.  :func:`ell_block_outer_halo`
+    forms ``G``, writes ``−G`` and accumulates ``H̄`` over the slab's rows,
+    reading the forward step's halo planes ``halos`` of ``t_cur``; ``−G``'s
+    boundary planes then go round the ring in the forward direction, and
+    :func:`ell_spmm_adjoint_halo` gathers ``H†G`` with them and the
+    neighbour planes' operator rows ``dm`` / ``dp``.  Every row of ``t̄_cur``
+    is complete on its own rank: nothing is sent back."""
+    real = torch.float32 if t_cur.dtype == torch.complex64 else torch.float64
+    if g_next is None and nc_bar is None:
+        g_next = torch.zeros_like(t_cur)
+    if g_next is not None:
+        g_next = g_next.contiguous()
+    shift = None if nc_bar is None else nc_bar.to(real).contiguous()
+    neg_G = torch.empty_like(t_cur)
+    h_bar = ell_block_outer_halo(g_next, slab, t_cur, *halos, 2.0 * inv, out=h_bar,
+                                 accumulate=h_bar is not None, shift=shift, neg_out=neg_G, impl=backend)
+    gm, gp = ring.exchange(neg_G)
+    axpy = []
+    if cc_bar is not None:
+        axpy.append(((2.0 * cc_bar).to(real).contiguous(), t_cur))
+    if shift is not None:
+        axpy.append((shift, t_next))
+    g_cur = ell_spmm_adjoint_halo(data, slab, neg_G, gm, gp, dm, dp, alpha=-2.0 * inv, add=g_cur_add,
+                                  axpy=tuple(axpy), out=g_cur_add, impl=backend)
+    return h_bar, g_cur, neg_G
+
+
+class ShardedMomentSweep(torch.autograd.Function):
+    """The sweep on one slab of a row-sharded lattice as one differentiable
+    function: the counterpart of :class:`MomentSweep` on the halo kernels.
+
+    ``ShardedMomentSweep.apply(data, v0, slab, ring, inv, order, backend,
+    split, dm, dp)`` returns this rank's column sums ``[1 + steps, 2K]``
+    (sum them over the ranks with
+    :class:`bodge_tpu_torch.parallel.sharded.RowSum`).  Forward: one exchange
+    and one :func:`ell_cheb_step_halo` step (three with ``split``) per step,
+    every vector and halo kept.  Backward: per step, one
+    :func:`ell_block_outer_halo`, one exchange of ``−G`` and one
+    :func:`ell_spmm_adjoint_halo`.  Gradients flow to ``data`` and ``v0``;
+    ``dm`` / ``dp`` (the neighbour planes' operator rows, whose gradients
+    their own ranks compute) get none.  Every rank must run the backward
+    pass, in step with the others.
+    """
+
+    @staticmethod
+    def forward(ctx, data, v0, slab, ring, inv, order, backend, split, dm, dp):
+        inv = float(inv)
+        sums, ts, halos = halo_sweep(data, slab, ring, v0, inv, order, backend=backend, split=split,
+                                     keep=True)
+        ctx.save_for_backward(data, dm, dp, *ts, *(h for pair in halos for h in pair))
+        ctx.slab, ctx.ring, ctx.inv, ctx.backend, ctx.n = slab, ring, inv, backend, len(ts)
+        return sums
+
+    @staticmethod
+    def backward(ctx, g_sums):
+        data, dm, dp, *rest = ctx.saved_tensors
+        ts, flat = rest[:ctx.n], rest[ctx.n:]
+        halos = [(flat[2 * i], flat[2 * i + 1]) for i in range(len(flat) // 2)]
+        need_data, need_v0 = ctx.needs_input_grad[:2]
+        K = ts[0].shape[-1]
+        real = torch.float32 if ts[0].dtype == torch.complex64 else torch.float64
+        cc_bar = g_sums[:, :K].to(real).contiguous()
+        nc_bar = g_sums[:, K:].to(real).contiguous()
+        h_bar = g_later = g_cur_add = None
+        for i in range(len(ts) - 2, -1, -1):
+            h_bar, g_cur, neg_G = halo_step_backward(
+                data, ctx.slab, ctx.ring, ts[i], halos[i], ts[i + 1], ctx.inv if i > 0 else 0.5 * ctx.inv,
+                g_later, cc_bar[i], nc_bar[i], dm, dp, h_bar=h_bar, g_cur_add=g_cur_add,
+                backend=ctx.backend,
+            )
+            g_later, g_cur_add = g_cur, neg_G
+        return ((h_bar if need_data else None), (g_later if need_v0 else None),
+                None, None, None, None, None, None, None, None)
+
+
+def moments_from_sums(sums, K: int, order: int):
+    """Moments ``[order, K]`` from the stacked column sums ``[1 + steps, 2K]``
+    of a sweep (the first row is the half-scaled first step's μ0, μ1)."""
+    mu0, mu1 = sums[0, :K], sums[0, K:]
+    if sums.shape[0] == 1:
+        return torch.stack([mu0, mu1])[:order]
+    return _assemble_moments(mu0, mu1, sums[1:], K)[:order]
 
 
 # --------------------------------------------------------------------------

@@ -6,7 +6,7 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``bodge_tpu_torch/csrc`` into ``build/``,
-holds each kernel against its plain PyTorch version on the card, drives five
+holds each kernel against its plain PyTorch version on the card, drives six
 paths through the normal entry points at full size — the KPM observables
 (assemble → block SpMM → fused Chebyshev step → free energy / LDOS / LDOS map
 / DOS / apply, on 1000×1000 sites), the differentiable path (``solve_gap``
@@ -17,14 +17,18 @@ assembled, saved, loaded and evaluated through the windowed gather kernels),
 the tiled step (``impl="cuda_tiled"`` at 1000×1000 and 64×64×4) and the
 lowest-states solver (``diagonalize(method="lanczos")`` at 32×32 against three
 exact solvers; at 100×100 with magnetic impurities against shift-invert, and
-with a uniform Zeeman field, bounded, against ``eigvalsh`` on the card)
+with a uniform Zeeman field, bounded, against ``eigvalsh`` on the card) and
+the row-sharded path (the halo kernels on x-slabs of the 1000×1000 operator;
+the sharded KPM entry points and ``solve_gap(impl="cuda_sharded")`` in a
+world of one over NCCL; four gloo ranks sharing the card, spawned after the
+build)
 — checks them against complex128 at small sizes, and exits non-zero if any
 phase fails.  Every line of output is one JSON object except the
 ``nvidia-smi`` lines; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it fails at once.  ``--quick`` stops after the small
 kernel checks (for a first look at a new kernel) and prints no result line;
-``--phases main,widths,grad,gap,dwave,generic,tiled,lowest`` runs only the
+``--phases main,widths,grad,gap,dwave,generic,tiled,lowest,sharded`` runs only the
 named phases (and prints no result line unless all ran); ``--profile`` adds a
 ``torch.profiler`` table of one gradient to the ``gap`` phase; ``--log PATH``
 also writes the JSON records of the run to ``PATH``.
@@ -91,11 +95,134 @@ def nvidia_smi_line() -> str:
     return out.splitlines()[0] if out else "unknown, unknown"
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_rank(rank: int, world: int, port: int, backend: str, task: dict, queue) -> None:
+    """One rank of a process group on the one card (phase ``sharded``).
+
+    With ``task["expect_refusal"]`` it checks only what ``make_row_mesh`` says
+    of the group.  Otherwise it runs the four-rank side of the comparisons:
+    the free energy at 1000×1000 (250 planes a rank), moments on the rows
+    mesh and on a 2×2 rows × probes mesh, and the value and gradient of each
+    objective in ``task["objectives"]``; rank 0 puts the results on ``queue``.
+    An exception ends the process with a non-zero exit code, which the
+    parent reads."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from bodge_tpu_torch import CubicLattice, Hamiltonian, σ0
+    from bodge_tpu_torch.models import selfconsistency as sc
+    from bodge_tpu_torch.models.systems import swave_superconductor
+    from bodge_tpu_torch.ops import cuda_spmm as ck
+    from bodge_tpu_torch.parallel import (RowSharding, free_energy_kpm_sharded_cuda, initialize_multihost,
+                                          make_row_mesh, moments_sharded_cuda)
+
+    torch.cuda.set_device(0)
+    check(initialize_multihost(f"localhost:{port}", world, rank, backend=backend), "no process group")
+    try:
+        if task.get("expect_refusal"):
+            try:
+                make_row_mesh()
+                refused = None
+            except ValueError as e:
+                refused = str(e)
+            queue.put((rank, {"refused": refused}))
+            return
+        out = {}
+        mesh = make_row_mesh()
+        big = swave_superconductor((1000, 1000, 1))
+        sk = big.skeleton
+        rs = RowSharding(sk, mesh)
+        data_l = rs.shard_data(big.data)
+        rs2 = RowSharding(sk, make_row_mesh(probe_shards=2))
+        data_2d = rs2.shard_data(big.data)
+        del big
+        torch.cuda.synchronize()
+        dist.barrier()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        F = free_energy_kpm_sharded_cuda(rs, data_l, 0.01, task["scale"], order=256, samples=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["free_energy"] = {"F": F, "wall_s": wall, "planes": rs.slab.planes, "launches": ck.launch_counts(),
+                              **rs.stats}
+        z = np.asarray(task["probes"])
+        out["mu_rows"] = moments_sharded_cuda(rs, data_l, z, 64, task["scale"]).cpu().numpy()
+        out["mu_2d"] = moments_sharded_cuda(rs2, data_2d, z, 64, task["scale"]).cpu().numpy()
+        del data_l, data_2d
+        for name, (shape, kw, field) in task["objectives"].items():
+            metal = Hamiltonian(CubicLattice(shape), device="cuda")
+            metal.assemble(onsite=lambda ci: 0.0 * σ0, check=False, hopping=lambda ci, cj: np.where(
+                (np.abs(ci - cj).max(axis=1) == 1)[:, None, None], -1.0 * σ0, 0))
+            F_total = sc.make_total_free_energy(metal, impl="cuda_sharded", mesh=mesh, **kw)
+            x = torch.as_tensor(field, device="cuda").requires_grad_(True)
+            rs.stats.update(exchanges=0, exchange_s=0.0, staging_s=0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value = F_total(x.to(torch.complex64))
+            (grad,) = torch.autograd.grad(value, x)
+            torch.cuda.synchronize()
+            out[name] = {"F": float(value.detach()), "grad": grad.cpu().numpy(),
+                         "wall_s": time.perf_counter() - t0}
+            del metal, F_total
+        if rank == 0:
+            queue.put((rank, out))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world: int, backend: str, task: dict, timeout: float) -> dict:
+    """Spawn ``world`` ranks of :func:`sharded_rank` on the one card and wait
+    for them: ``{rank: result}``.  Fails if a rank exits with a non-zero code
+    or the results do not come within ``timeout`` seconds."""
+    import queue as queue_module
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=sharded_rank, args=(r, world, port, backend, task, results))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    want = world if task.get("expect_refusal") else 1
+    got, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(got) < want:
+            try:
+                rank, out = results.get(timeout=5.0)
+                got[rank] = out
+            except queue_module.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    break
+        for proc in procs:
+            proc.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world and len(got) == want,
+          f"{world} {backend} ranks ended with exit codes {codes} and {len(got)} of {want} results")
+    return got
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
     profile = "--profile" in argv
     log_path = argv[argv.index("--log") + 1] if "--log" in argv else None
-    all_phases = ("main", "widths", "grad", "gap", "dwave", "generic", "tiled", "lowest")
+    all_phases = ("main", "widths", "grad", "gap", "dwave", "generic", "tiled", "lowest", "sharded")
     phases = tuple(argv[argv.index("--phases") + 1].split(",")) if "--phases" in argv else all_phases
     if not set(phases) <= set(all_phases):
         print(f"chip_smoke: unknown phase in {phases} (known: {all_phases})", file=sys.stderr)
@@ -435,6 +562,127 @@ def main(argv) -> int:
           "tolerance": {"against_plain_and_general": "atol=rtol=2e-4 vs complex64 plain and vs ell_spmm / ell_cheb_step",
                         "partials": "1e-4 of the largest sum vs complex128 plain", "repeat": "second launch bit-equal"},
           "max_abs_err": {**gather_err, **tiled_err}, "launches": ck.launch_counts()})
+    # ------------------------------------------------------------------ 3a''. the halo kernels, small shapes
+    # The four halo entry points on one slab of x-planes [x0, x0 + Lxl), the
+    # neighbour planes cut from the whole vector into allocations of their own.
+    # Each against its plain version (2e-4; partials 1e-4 of the largest sum
+    # against complex128) and against the rows of the whole-lattice kernel
+    # (2e-4; bit-equality is recorded), second launch bit-equal, `out` = the
+    # t_prev buffer, t_prev = 0, the interior / boundary split into one buffer
+    # (bit-equal to one launch), and the backward pair in the fused forms the
+    # sharded sweep launches.
+    def compare_halo(data, data_nh, sk, K, Lxl, seed):
+        Lx, Ly, Lz = sk.shape
+        P, N = Ly * Lz, sk.n_sites
+        planes = min(Lxl, Lx)
+        x0 = min(1, Lx - planes)
+        slab = ck.halo_slab(sk, x0, planes)
+        r, n = slab.rows, slab.n_local
+        before, after = ((x0 - 1) % Lx) * P, ((x0 + planes) % Lx) * P
+        v, t_prev, g = (random_vector(N, K, seed + i) for i in range(3))
+        cut = lambda x, start: x[start:start + P].clone()  # a separate allocation
+        own = lambda x: x[r].contiguous()
+        d_l, v_l, tp_l, g_l, dn_l = own(data), own(v), own(t_prev), own(g), own(data_nh)
+        hm, hp = cut(v, before), cut(v, after)
+        close = lambda a, b: torch.allclose(a, b, atol=2e-4, rtol=2e-4)
+        y = ck.ell_spmm_halo(d_l, slab, v_l, hm, hp)
+        y_again = ck.ell_spmm_halo(d_l, slab, v_l, hm, hp)
+        y_plain = ck.ell_spmm_halo_plain(d_l, slab, v_l, hm, hp)
+        y_whole = ck.ell_spmm(data, sk, v)[r]
+        t, pp = ck.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, tp_l, 0.125)
+        t_again, pp_again = ck.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, tp_l.clone(), 0.125)
+        buf = tp_l.clone()
+        t_alias, pp_alias = ck.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, buf, 0.125, out=buf)
+        t0_, _ = ck.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, None, 0.125)
+        torch.cuda.synchronize()
+        t_plain, _ = ck.ell_cheb_step_halo_plain(d_l, slab, v_l, hm, hp, tp_l, 0.125)
+        t0_plain, _ = ck.ell_cheb_step_halo_plain(d_l, slab, v_l, hm, hp, None, 0.125)
+        _, pp128 = ck.ell_cheb_step_halo_plain(d_l.to(c128), slab, v_l.to(c128), hm.to(c128), hp.to(c128),
+                                               tp_l.to(c128), 0.125)
+        t_whole, _ = ck.ell_cheb_step(data, sk, v, t_prev, 0.125)
+        sums, sums_want = pp.double().sum(dim=0), pp128[0]
+        rel = float((sums - sums_want).abs().max() / sums_want.abs().max())
+        ok = (close(y, y_plain) and close(y, y_whole) and torch.equal(y, y_again)
+              and close(t, t_plain) and close(t, t_whole[r]) and close(t0_, t0_plain) and rel <= 1e-4
+              and torch.equal(t_again, t) and torch.equal(pp_again, pp)
+              and torch.equal(t_alias, t) and torch.equal(pp_alias, pp) and t_alias.data_ptr() == buf.data_ptr())
+        bit_equal = torch.equal(y, y_whole) and torch.equal(t, t_whole[r])
+        if planes >= 3:  # the split: interior rows without halo planes, then the two boundary planes
+            ys, ts = torch.empty_like(v_l), tp_l.clone()
+            ck.ell_spmm_halo(d_l, slab, v_l, None, None, rows=(P, n - P), out=ys)
+            _, p_int = ck.ell_cheb_step_halo(d_l, slab, v_l, None, None, ts, 0.125, rows=(P, n - P), out=ts)
+            ck.ell_spmm_halo(d_l, slab, v_l, hm, hp, rows=(0, P), out=ys)
+            ck.ell_spmm_halo(d_l, slab, v_l, hm, hp, rows=(n - P, n), out=ys)
+            _, p_lo = ck.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, ts, 0.125, rows=(0, P), out=ts)
+            _, p_hi = ck.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, ts, 0.125, rows=(n - P, n), out=ts)
+            split_sums = torch.cat([p_lo, p_int, p_hi]).double().sum(dim=0)
+            ok = (ok and torch.equal(ys, y) and torch.equal(ts, t)
+                  and bool((split_sums - sums_want).abs().max() <= 1e-4 * sums_want.abs().max()))
+        # Backward on non-Hermitian blocks: the neighbour planes' operator rows and cotangent planes.
+        dm, dp, gm, gp = cut(data_nh, before), cut(data_nh, after), cut(g, before), cut(g, after)
+        adj = ck.ell_spmm_adjoint_halo(dn_l, slab, g_l, gm, gp, dm, dp)
+        adj_again = ck.ell_spmm_adjoint_halo(dn_l, slab, g_l, gm, gp, dm, dp)
+        adj_plain = ck.ell_spmm_adjoint_halo_plain(dn_l, slab, g_l, gm, gp, dm, dp)
+        adj_whole = ck.ell_spmm_adjoint(data_nh, sk, g)[r]
+        h = ck.ell_block_outer_halo(g_l, slab, v_l, hm, hp, 0.75)
+        h_again = ck.ell_block_outer_halo(g_l, slab, v_l, hm, hp, 0.75, out=torch.full_like(h, 7.0))
+        h_plain = ck.ell_block_outer_halo_plain(g_l, slab, v_l, hm, hp, 0.75)
+        h_whole = ck.ell_block_outer(g, sk, v, 0.75)[r]
+        shift = torch.linspace(-0.5, 1.5, K, device=dev)
+        c2 = torch.linspace(1.0, -2.0, K, device=dev)
+        start = random_blocks(sk, seed + 5)[r].contiguous()
+        neg = torch.empty_like(v_l)
+        h_fused = ck.ell_block_outer_halo(g_l, slab, v_l, hm, hp, 0.75, out=start.clone(), accumulate=True,
+                                          shift=shift, neg_out=neg)
+        x1, x2, add = own(t_prev), random_vector(n, K, seed + 6), random_vector(n, K, seed + 7)
+        abuf = add.clone()
+        adj_fused = ck.ell_spmm_adjoint_halo(dn_l, slab, g_l, gm, gp, dm, dp, alpha=-0.3, add=abuf,
+                                             axpy=((shift, x1), (c2, x2)), out=abuf)
+        torch.cuda.synchronize()
+        G = g_l + shift * v_l
+        h_fused_want = start + ck.ell_block_outer_halo_plain(G, slab, v_l, hm, hp, 0.75)
+        adj_fused_want = -0.3 * adj_plain + add + shift * x1 + c2 * x2
+        ok_bwd = (close(adj, adj_plain) and close(adj, adj_whole) and torch.equal(adj, adj_again)
+                  and close(h, h_plain) and close(h, h_whole) and torch.equal(h, h_again)
+                  and bool((h[~slab.device_valid(dev)] == 0).all())
+                  and close(neg, -G) and close(h_fused, h_fused_want)
+                  and close(adj_fused, adj_fused_want) and adj_fused.data_ptr() == abuf.data_ptr())
+        bit_equal = bit_equal and torch.equal(adj, adj_whole) and torch.equal(h, h_whole)
+        return ok and ok_bwd, bit_equal, {
+            "ell_spmm_halo": float(max((y - y_plain).abs().max(), (y - y_whole).abs().max())),
+            "ell_cheb_step_halo": float(max((t - t_plain).abs().max(), (t - t_whole[r]).abs().max())),
+            "halo_partials_rel": rel,
+            "ell_spmm_adjoint_halo": float(max((adj - adj_plain).abs().max(), (adj_fused - adj_fused_want).abs().max())),
+            "ell_block_outer_halo": float(max((h - h_plain).abs().max(), (h_fused - h_fused_want).abs().max())),
+        }
+
+    ck.reset_launch_counts()
+    halo_err = dict.fromkeys(("ell_spmm_halo", "ell_cheb_step_halo", "halo_partials_rel",
+                              "ell_spmm_adjoint_halo", "ell_block_outer_halo"), 0.0)
+    all_bit_equal = True
+    for i, shape in enumerate(shapes):
+        sk = bs.skeleton(shape)
+        worst = dict.fromkeys(halo_err, 0.0)
+        variants = (("periodic", random_blocks(sk, 800 + i)),  # every slot random, padding slots garbage
+                    ("open", random_system(shape, seed=i, pbc=False)[0]))
+        for label, data in variants:
+            for Lxl in (1, 2, 3, shape[0]):
+                for K in probe_counts:
+                    ok, same, err = compare_halo(data, random_blocks(sk, 850 + i), sk, K, Lxl, seed=900 + K)
+                    check(ok, f"halo kernel disagrees on {shape} {label}, Lxl={Lxl}, K={K}: {err}")
+                    all_bit_equal = all_bit_equal and same
+                    worst = {k: max(worst[k], err[k]) for k in worst}
+        halo_err = {k: max(halo_err[k], worst[k]) for k in worst}
+        emit({"phase": "kernels", "shape": str(shape), "S": sk.n_slots, "K": probe_counts, "Lxl": [1, 2, 3, shape[0]],
+              "boundaries": ["periodic", "open"], "max_abs_err": worst})
+    emit({"phase": "kernels", "held": ["ell_spmm_halo", "ell_cheb_step_halo", "ell_spmm_adjoint_halo",
+                                       "ell_block_outer_halo"],
+          "halo_shapes": len(shapes), "rows_of_whole_lattice_kernels_bit_equal": all_bit_equal,
+          "tolerance": {"against_plain_and_whole": "atol=rtol=2e-4 vs complex64 plain and vs the rows of "
+                                                   "ell_spmm / ell_cheb_step / ell_spmm_adjoint / ell_block_outer",
+                        "partials": "1e-4 of the largest sum vs complex128 plain",
+                        "repeat": "second launch and the three-launch split bit-equal"},
+          "max_abs_err": halo_err, "launches": ck.launch_counts()})
     if quick:
         return 0
 
@@ -523,6 +771,8 @@ def main(argv) -> int:
             except Exception as e:  # only the yardstick may be missing; the port never calls it
                 errors.append(f"{form}: {type(e).__name__}: {str(e)[:120]}")
         return None, None, None, errors
+
+    shared = {}  # results one phase hands to a later one
 
     def phase_main():
         """The first path: the KPM observables at 1000×1000, their kernels at that
@@ -867,6 +1117,7 @@ def main(argv) -> int:
         check(all(gap_launches[k] > 0 for k in ("ell_spmm", "ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer")),
               "a kernel of the differentiable path was never launched")
         gap_kpm = float(delta[0].real)
+        shared.update(gap_delta=gap_kpm, gap_steps=steps)  # phase sharded holds its solve against this one
         check(delta.shape == (N,) and np.isfinite(delta).all() and math.isfinite(F), "solve_gap result not finite")
 
         t0 = time.perf_counter()
@@ -1617,6 +1868,307 @@ def main(argv) -> int:
         held_at_widths("100x100 s-wave + uniform Zeeman", uniform, {h[4] for h in info["history"]}, tiled=False)
         return lowest_launches, {}
 
+    # ------------------------------------------------------------------ 13. the row-sharded path
+    def phase_sharded():
+        """The row-sharded path: the halo kernels on four slabs of the 1000×1000
+        operator against the whole-lattice kernels and timed beside them (the
+        backward pair at 512²); a world of one over NCCL through the sharded
+        KPM entry points and solve_gap(impl="cuda_sharded") at full width
+        (launch counters read here), each against its single-device call on the
+        same probes; four gloo ranks on the one card against the world of one;
+        and two NCCL ranks on the one card, which make_row_mesh must refuse."""
+        import torch.distributed as dist
+        from bodge_tpu_torch.parallel import (RowSharding, dos_kpm_sharded_cuda, free_energy_kpm_sharded_cuda,
+                                              initialize_multihost, ldos_kpm_sharded_cuda, make_row_mesh)
+
+        phase_t0 = time.perf_counter()
+        rows_out = {}
+        big = swave_superconductor((1000, 1000, 1))
+        sk = big.skeleton
+        Lx, P = sk.shape[0], sk.shape[1] * sk.shape[2]
+        N, S, K = sk.n_sites, sk.n_slots, 8
+
+        def halo_bytes(slab, K, vectors, extra=0):
+            """Operator rows of the slab once, ``vectors`` slab vectors, the two halo planes."""
+            return slab.n_local * S * 128 + vectors * slab.n_local * 4 * K * 8 + 2 * P * 4 * K * 8 + extra
+
+        # -------- four slabs of 250 planes against the whole lattice, K = 8
+        v, t_prev = random_vector(N, K, 1001), random_vector(N, K, 1002)
+        t_whole, pp_whole = ck.ell_cheb_step(big.data, sk, v, t_prev, 0.125)
+        y_whole = ck.ell_spmm(big.data, sk, v)
+        sums, same, worst = torch.zeros(2 * K, dtype=torch.float64, device=dev), True, 0.0
+        slabs = [ck.halo_slab(sk, 250 * r, 250) for r in range(4)]
+        for slab in slabs:
+            before, after = ((slab.x0 - 1) % Lx) * P, ((slab.x0 + slab.planes) % Lx) * P
+            hm, hp = v[before:before + P].clone(), v[after:after + P].clone()
+            r = slab.rows
+            t_r, pp_r = ck.ell_cheb_step_halo(big.data[r], slab, v[r], hm, hp, t_prev[r], 0.125)
+            y_r = ck.ell_spmm_halo(big.data[r], slab, v[r], hm, hp)
+            same = same and torch.equal(t_r, t_whole[r]) and torch.equal(y_r, y_whole[r])
+            worst = max(worst, float((t_r - t_whole[r]).abs().max()), float((y_r - y_whole[r]).abs().max()))
+            sums += pp_r.double().sum(dim=0)
+        want = pp_whole.double().sum(dim=0)
+        sums_rel = float((sums - want).abs().max() / want.abs().max())
+        emit({"phase": "sharded", "check": "4 slabs of 250 planes against the whole 1000x1000 lattice, K = 8",
+              "t_next_and_y_bit_equal": same, "max_abs_diff": worst, "summed_partials_rel": sums_rel})
+        check(worst <= 2e-4, f"slabs differ from the whole-lattice kernels by {worst}")
+        check(sums_rel <= 1e-6, f"summed slab partials differ by {sums_rel} relative")
+        del t_whole, y_whole, pp_whole
+
+        # -------- the forward halo kernels timed: one slab, the whole lattice as one slab, ell_cheb_step
+        whole = ck.halo_slab(sk, 0, Lx)
+        hm, hp = v[(Lx - 1) * P:].clone(), v[:P].clone()  # the ring of one: own last and first plane
+        out = torch.empty_like(v)
+        one, r1 = slabs[1], slabs[1].rows
+        d1, v1, tp1, out1 = big.data[r1], v[r1].contiguous(), t_prev[r1].contiguous(), torch.empty_like(v[r1])
+        h1m, h1p = v[249 * P:250 * P].clone(), v[500 * P:501 * P].clone()
+        fns = {
+            "ell_cheb_step_halo": lambda: ck.ell_cheb_step_halo(big.data, whole, v, hm, hp, t_prev, 0.125, out=out),
+            "ell_spmm_halo": lambda: ck.ell_spmm_halo(big.data, whole, v, hm, hp, out=out),
+            "ell_cheb_step_halo one slab": lambda: ck.ell_cheb_step_halo(d1, one, v1, h1m, h1p, tp1, 0.125, out=out1),
+            "ell_spmm_halo one slab": lambda: ck.ell_spmm_halo(d1, one, v1, h1m, h1p, out=out1),
+            "ell_cheb_step": lambda: ck.ell_cheb_step(big.data, sk, v, t_prev, 0.125, out=out),
+            "ell_spmm": lambda: ck.ell_spmm(big.data, sk, v),
+        }
+        t_h, _ = ck.ell_cheb_step_halo(big.data, whole, v, hm, hp, t_prev, 0.125)
+        t_p, _ = ck.ell_cheb_step_halo_plain(big.data, whole, v, hm, hp, t_prev, 0.125)
+        y_h = ck.ell_spmm_halo(big.data, whole, v, hm, hp)
+        y_p = ck.ell_spmm_halo_plain(big.data, whole, v, hm, hp)
+        err_w = {"ell_cheb_step_halo": float((t_h - t_p).abs().max()), "ell_spmm_halo": float((y_h - y_p).abs().max())}
+        check(all(e <= 2e-4 * max(1.0, float(t_p.abs().max())) for e in err_w.values()),
+              f"halo kernels at 1000x1000 disagree with their plain versions: {err_w}")
+        del t_h, t_p, y_h, y_p
+        first = {name: timed_ms(fn, 20) for name, fn in fns.items()}
+        plain_ms = {"ell_cheb_step_halo": timed_ms(lambda: ck.ell_cheb_step_halo_plain(
+                        big.data, whole, v, hm, hp, t_prev, 0.125), 3),
+                    "ell_spmm_halo": timed_ms(lambda: ck.ell_spmm_halo_plain(big.data, whole, v, hm, hp), 3)}
+        second = {name: timed_ms(fn, 20) for name, fn in fns.items()}
+        ms = {name: min(first[name], second[name]) for name in fns}
+        for name, vectors in (("ell_cheb_step_halo", 3), ("ell_spmm_halo", 2)):
+            rows_out[name] = bound_row(name, "swave 1000x1000x1, whole lattice as one slab", sk, K, ms[name],
+                                       plain_ms[name], halo_bytes(whole, K, vectors), spmm_flops(sk, K),
+                                       err_w[name], None, "none (the rows of ell_cheb_step / ell_spmm are the "
+                                       "yardstick)", [first[name], second[name]])
+        emit({"phase": "sharded", "timing": "halo kernels at 1000x1000, K = 8", "ms": ms,
+              "one_slab_bound_ms": {"ell_cheb_step_halo": halo_bytes(one, K, 3) / HBM_BYTES_PER_S * 1e3,
+                                    "ell_spmm_halo": halo_bytes(one, K, 2) / HBM_BYTES_PER_S * 1e3},
+              "ratio_whole_halo_to_ell": {"step": ms["ell_cheb_step_halo"] / ms["ell_cheb_step"],
+                                          "product": ms["ell_spmm_halo"] / ms["ell_spmm"]}})
+        del v, t_prev, out, hm, hp, d1, v1, tp1, out1, fns
+
+        # -------- the backward pair at 512², K = 8, in the form the sweep launches
+        metal = normal_metal((512, 512, 1))
+        sk_m = metal.skeleton
+        N_m, Lx_m = sk_m.n_sites, sk_m.shape[0]
+        P_m = sk_m.shape[1] * sk_m.shape[2]
+        data_m = sc.data_with_onsite_swave(metal.data, torch.full((N_m,), 0.6, device=dev, dtype=c64))
+        whole_m = ck.halo_slab(sk_m, 0, Lx_m)
+        t_cur, g, add = random_vector(N_m, K, 1201), random_vector(N_m, K, 1202), random_vector(N_m, K, 1203)
+        t_next = random_vector(N_m, K, 1204)
+        tm, tp = t_cur[(Lx_m - 1) * P_m:].clone(), t_cur[:P_m].clone()
+        gm, gp = g[(Lx_m - 1) * P_m:].clone(), g[:P_m].clone()
+        dm, dp = data_m[(Lx_m - 1) * P_m:].clone(), data_m[:P_m].clone()
+        shift = torch.linspace(0.5, 1.5, K, device=dev) * 1e-3
+        h_out, neg = torch.zeros_like(data_m), torch.empty_like(t_cur)
+        adj_h = ck.ell_spmm_adjoint_halo(data_m, whole_m, g, gm, gp, dm, dp, alpha=-0.25)
+        adj_w = ck.ell_spmm_adjoint(data_m, sk_m, g, alpha=-0.25)
+        adj_p = ck.ell_spmm_adjoint_halo_plain(data_m, whole_m, g, gm, gp, dm, dp, alpha=-0.25)
+        out_h = ck.ell_block_outer_halo(g, whole_m, t_cur, tm, tp, 0.25)
+        out_w = ck.ell_block_outer(g, sk_m, t_cur, 0.25)
+        out_p = ck.ell_block_outer_halo_plain(g, whole_m, t_cur, tm, tp, 0.25)
+        torch.cuda.synchronize()
+        err_b = {"ell_spmm_adjoint_halo": float(max((adj_h - adj_p).abs().max(), (adj_h - adj_w).abs().max())),
+                 "ell_block_outer_halo": float(max((out_h - out_p).abs().max(), (out_h - out_w).abs().max()))}
+        check(torch.allclose(adj_h, adj_p, atol=2e-4, rtol=2e-4) and torch.allclose(adj_h, adj_w, atol=2e-4, rtol=2e-4)
+              and torch.allclose(out_h, out_p, atol=2e-4, rtol=2e-4) and torch.allclose(out_h, out_w, atol=2e-4, rtol=2e-4),
+              f"halo backward kernels at 512x512 disagree: {err_b}")
+        del adj_h, adj_w, adj_p, out_h, out_w, out_p
+        bwd = {
+            "ell_spmm_adjoint_halo": lambda: ck.ell_spmm_adjoint_halo(
+                data_m, whole_m, g, gm, gp, dm, dp, alpha=-0.25, add=add, axpy=((shift, t_cur), (shift, t_next)), out=add),
+            "ell_block_outer_halo": lambda: ck.ell_block_outer_halo(
+                g, whole_m, t_cur, tm, tp, 0.25, out=h_out, accumulate=True, shift=shift, neg_out=neg),
+            "ell_spmm_adjoint": lambda: ck.ell_spmm_adjoint(
+                data_m, sk_m, g, alpha=-0.25, add=add, axpy=((shift, t_cur), (shift, t_next)), out=add),
+            "ell_block_outer": lambda: ck.ell_block_outer(
+                g, sk_m, t_cur, 0.25, out=h_out, accumulate=True, shift=shift, neg_out=neg),
+        }
+        first = {name: timed_ms(fn, 50) for name, fn in bwd.items()}
+        plain_b = {"ell_spmm_adjoint_halo": timed_ms(lambda: ck.ell_spmm_adjoint_halo_plain(
+                       data_m, whole_m, g, gm, gp, dm, dp), 5),
+                   "ell_block_outer_halo": timed_ms(lambda: ck.ell_block_outer_halo_plain(
+                       g, whole_m, t_cur, tm, tp, 0.25), 5)}
+        second = {name: timed_ms(fn, 50) for name, fn in bwd.items()}
+        ms_b = {name: min(first[name], second[name]) for name in bwd}
+        vec, op = N_m * 4 * K * 8, data_m.numel() * 8
+        plane_v, plane_d = P_m * 4 * K * 8, P_m * S * 128
+        nbytes_b = {"ell_spmm_adjoint_halo": op + 5 * vec + 2 * plane_v + 2 * plane_d,
+                    "ell_block_outer_halo": 3 * vec + 2 * op + 2 * plane_v}
+        for name in ("ell_spmm_adjoint_halo", "ell_block_outer_halo"):
+            rows_out[name] = bound_row(name, "metal 512x512x1, whole lattice as one slab", sk_m, K, ms_b[name],
+                                       plain_b[name], nbytes_b[name], spmm_flops(sk_m, K), err_b[name], None,
+                                       "none (ell_spmm_adjoint / ell_block_outer on the same rows are the yardstick)",
+                                       [first[name], second[name]])
+        emit({"phase": "sharded", "timing": "halo backward pair at 512x512, K = 8, the sweep's form", "ms": ms_b})
+        del t_cur, g, add, t_next, h_out, neg, bwd, data_m
+
+        # -------- single-device references on the same probes and scale (not part of the path's read)
+        energies = np.linspace(-1.0, 1.0, 41)
+        sites = [(100 + 50 * i, 100 + 50 * j, 0) for i in range(4) for j in range(4)]
+        scale = kpm.spectral_bound(big.data, sk)
+        ref = {"F": big.free_energy(0.01, method="kpm", order=256, samples=8, scale=scale),
+               "ldos": big.ldos_map(sites, energies, method="kpm", order=512, scale=scale),
+               "dos": big.dos(energies, order=256, samples=8, scale=scale)}
+        kw_gap = dict(V=2.5, temperature=0.0, method="kpm", order=512, samples=8)
+        steps, delta0 = 60, 0.3
+        if shared.get("gap_steps") != steps:  # phase gap did not run, or ran a short solve
+            shared["gap_delta"] = float(np.real(sc.solve_gap(metal, uniform=True, delta0=delta0, steps=steps,
+                                                             learning_rate=0.08 / N_m, **kw_gap)[0][0]))
+        gap_delta = shared["gap_delta"]
+        rng = np.random.default_rng(17)
+        field_s = (0.3 + 0.05 * rng.standard_normal(N_m)).astype(np.float32)
+        dwave_shape = (64, 64, 1)
+        field_d = (0.2 + 0.05 * rng.standard_normal(64 * 64)).astype(np.float32)
+        scale_s = kpm.spectral_bound(
+            sc.data_with_onsite_swave(metal.data, torch.full((N_m,), 2.0, device=dev, dtype=c64)), sk_m)
+        metal_d = normal_metal(dwave_shape)
+        sk_d = metal_d.skeleton
+        scale_d = kpm.spectral_bound(sc.data_with_bond_singlet(
+            metal_d.data, torch.full((sk_d.n_sites,), 2.0, device=dev, dtype=c64), sk_d, sc.bond_structure_dwave(sk_d)), sk_d)
+        objectives = {"swave 512x512": ((512, 512, 1), dict(kw_gap, scale=scale_s), field_s),
+                      "dwave 64x64 order 256": (dwave_shape, dict(kw_gap, order=256, pairing="dwave", scale=scale_d), field_d)}
+
+        # -------- the path: a world of one over NCCL (launch counters read here)
+        check(initialize_multihost(f"localhost:{free_port()}", 1, 0, backend="nccl"), "no process group")
+        try:
+            mesh = make_row_mesh()
+            rs = RowSharding(sk, mesh)
+            check(mesh.backend == "nccl" and rs.slab.planes == Lx, f"world of one: {mesh}")
+            ck.reset_launch_counts()
+            expected = counts()
+            got = {}
+            for overlap in (False, True):
+                per = 3 if overlap else 1
+                for label, fn, order in (
+                    ("free_energy", lambda: free_energy_kpm_sharded_cuda(rs, big.data, 0.01, scale, order=256, samples=8,
+                                                                         overlap=overlap), 256),
+                    ("ldos", lambda: ldos_kpm_sharded_cuda(rs, big.data, [big.lattice.index(c) for c in sites], energies,
+                                                           order=512, scale=scale, overlap=overlap), 512),
+                    ("dos", lambda: dos_kpm_sharded_cuda(rs, big.data, energies, order=256, scale=scale, samples=8,
+                                                         overlap=overlap), 256),
+                ):
+                    rs.stats.update(exchanges=0, exchange_s=0.0, staging_s=0.0)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got[(label, overlap)] = fn()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    expected["ell_cheb_step_halo"] += per * ck.sweep_launches(order)
+                    emit({"phase": "sharded", "call": f"world of one (nccl): {label}_kpm_sharded_cuda", "overlap": overlap,
+                          "order": order, "wall_s": wall, "step_launches": per * ck.sweep_launches(order),
+                          "ms_per_step_wall": wall / ck.sweep_launches(order) * 1e3, **rs.stats})
+            for overlap in (False, True):
+                F_s, ldos_s, dos_s = (got[(k, overlap)] for k in ("free_energy", "ldos", "dos"))
+                errs = {"F_rel": abs(F_s - ref["F"]) / abs(ref["F"]),
+                        "ldos_rel_to_max": float(np.abs(ldos_s - ref["ldos"]).max() / np.abs(ref["ldos"]).max()),
+                        "dos_rel_to_max": float(np.abs(dos_s - ref["dos"]).max() / np.abs(ref["dos"]).max())}
+                emit({"phase": "sharded", "check": "world of one against the single-device calls, same probes and scale",
+                      "overlap": overlap, "F_sharded": F_s, "F_single": ref["F"], **errs})
+                check(max(errs.values()) <= 1e-5, f"world of one differs from the single-device calls: {errs}")
+
+            # solve_gap through the sharded objective at the showcase shape, 60 steps
+            F_total = sc.make_total_free_energy(metal, impl="cuda_sharded", **kw_gap)
+            x = torch.full((1,), delta0, device=dev, requires_grad=True)
+            F_total(x.expand(N_m).to(c64))
+            before = ck.launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (g0,) = torch.autograd.grad(F_total(x.expand(N_m).to(c64)), x)
+            torch.cuda.synchronize()
+            grad_wall = time.perf_counter() - t0
+            per_gradient = launched_since(before)
+            sweep = ck.sweep_launches(512)
+            check(per_gradient == counts(ell_cheb_step_halo=sweep, ell_spmm_adjoint_halo=sweep,
+                                         ell_block_outer_halo=sweep),
+                  f"one sharded gradient launched {per_gradient}")
+            expected["ell_spmm_halo"] += 60  # the objective's spectral bound
+            expected["ell_cheb_step_halo"] += 2 * sweep  # the warm-up value and the gradient's forward sweep
+            expected["ell_spmm_adjoint_halo"] += sweep
+            expected["ell_block_outer_halo"] += sweep
+            del F_total
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            delta, F_gap = sc.solve_gap(metal, uniform=True, delta0=delta0, learning_rate=0.08 / N_m, steps=steps,
+                                        impl="cuda_sharded", **kw_gap)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            expected["ell_spmm_halo"] += 60
+            expected["ell_cheb_step_halo"] += (steps + 1) * sweep
+            expected["ell_spmm_adjoint_halo"] += steps * sweep
+            expected["ell_block_outer_halo"] += steps * sweep
+            diff = abs(float(np.real(delta[0])) - gap_delta)
+            emit({"phase": "sharded", "call": "solve_gap(normal_metal((512,512,1)), V=2.5, T=0, uniform, order=512, "
+                                              "samples=8, impl='cuda_sharded'), world of one (nccl)",
+                  "steps": steps, "wall_s": wall, "seconds_per_iteration": wall / (steps + 1),
+                  "one_gradient_wall_s": grad_wall, "launches_per_gradient": per_gradient, "peak_device_GB": peak,
+                  "delta": float(np.real(delta[0])), "delta_single_device": gap_delta, "abs_diff": diff, "F_total": F_gap})
+            check(diff <= 1e-5, f"sharded solve_gap Δ differs from the single-device Δ by {diff}")
+
+            # the world-of-one side of the four-rank comparisons
+            world_one = {}
+            for name, (shape, kw, field) in objectives.items():
+                system = metal if shape == (512, 512, 1) else metal_d
+                F_total = sc.make_total_free_energy(system, impl="cuda_sharded", **kw)
+                x = torch.as_tensor(field, device=dev).requires_grad_(True)
+                value = F_total(x.to(c64))
+                (grad,) = torch.autograd.grad(value, x)
+                order = kw["order"]
+                expected["ell_cheb_step_halo"] += ck.sweep_launches(order)
+                expected["ell_spmm_adjoint_halo"] += ck.sweep_launches(order)
+                expected["ell_block_outer_halo"] += ck.sweep_launches(order)
+                world_one[name] = (float(value.detach()), grad.cpu().numpy())
+                del F_total
+            sharded_launches = ck.launch_counts()  # read right after the path
+            check(sharded_launches == expected, f"sharded path launched {sharded_launches}, expected {expected}")
+            emit({"phase": "sharded", "launches": sharded_launches, "expected": expected})
+        finally:
+            dist.destroy_process_group()
+
+        # -------- four gloo ranks on the one card
+        probes = kpm.rademacher_probes(N, 8, 5, np.complex64)
+        single_mu = kpm.moments(big.data, sk, probes, 64, scale).cpu().numpy()
+        del big
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        four = run_ranks(4, "gloo", {"scale": scale, "probes": probes, "objectives": objectives}, timeout=600)[0]
+        four_wall = time.perf_counter() - t0
+        fe = four["free_energy"]
+        errs = {"F_rel_vs_world_one": abs(fe["F"] - got[("free_energy", False)]) / abs(got[("free_energy", False)]),
+                "mu_rows_rel_vs_single": float(np.abs(four["mu_rows"] - single_mu).max() / np.abs(single_mu).max()),
+                "mu_2x2_rel_vs_rows": float(np.abs(four["mu_2d"] - four["mu_rows"]).max() / np.abs(four["mu_rows"]).max())}
+        for name, (F1, g1) in world_one.items():
+            errs[f"{name}: F_rel"] = abs(four[name]["F"] - F1) / abs(F1)
+            errs[f"{name}: grad_rel_to_max"] = float(np.abs(four[name]["grad"] - g1).max() / np.abs(g1).max())
+        steps_fe = ck.sweep_launches(256)
+        emit({"phase": "sharded", "call": "4 gloo ranks on the one card, 250 planes each",
+              "wall_s_all_ranks_incl_start": four_wall, "free_energy_wall_s": fe["wall_s"],
+              "ms_per_step_wall": fe["wall_s"] / steps_fe * 1e3, "exchanges": fe["exchanges"],
+              "exchange_share": fe["exchange_s"] / fe["wall_s"], "host_staging_share": fe["staging_s"] / fe["wall_s"],
+              "rank0_launches": fe["launches"],
+              "objective_wall_s": {name: four[name]["wall_s"] for name in objectives}, **errs})
+        check(fe["launches"]["ell_cheb_step_halo"] == steps_fe, f"rank 0 launched {fe['launches']}")
+        check(max(errs.values()) <= 1e-5, f"four ranks differ: {errs}")
+
+        # -------- NCCL with two ranks on the one card is refused, naming gloo
+        refused = run_ranks(2, "nccl", {"expect_refusal": True}, timeout=120)
+        messages = [refused[r]["refused"] for r in sorted(refused)]
+        emit({"phase": "sharded", "check": "two NCCL ranks on the one card", "messages": messages})
+        check(all(m is not None and "gloo" in m for m in messages), f"make_row_mesh did not refuse: {messages}")
+        emit({"phase": "sharded", "wall_s": time.perf_counter() - phase_t0})
+        return sharded_launches, rows_out
+
     results = {}
     if "main" in phases:
         results["main"] = phase_main()
@@ -1628,7 +2180,8 @@ def main(argv) -> int:
         results["gap"] = phase_gap()
     if "dwave" in phases:
         phase_dwave()
-    for name, phase in (("generic", phase_generic), ("tiled", phase_tiled), ("lowest", phase_lowest)):
+    for name, phase in (("generic", phase_generic), ("tiled", phase_tiled), ("lowest", phase_lowest),
+                        ("sharded", phase_sharded)):
         if name in phases:
             results[name] = phase()
 
@@ -1645,7 +2198,9 @@ def main(argv) -> int:
     # Each kernel with the numbers of the path it belongs to: the general
     # forward kernels at the KPM path's shape (N = 10⁶), the backward kernels at
     # the differentiable path's (N = 262144), the gather kernels at the generic
-    # sheet's, the tiled step at N = 10⁶; `launches` adds the five paths' reads.
+    # sheet's, the tiled step at N = 10⁶, the halo forms at the row-sharded
+    # path's (the whole lattice as one slab: the world of one's form);
+    # `launches` adds the six paths' reads.
     replaces = {
         "ell_spmm": "bodge_tpu/ops/pallas_spmm.py:440",  # also :985 (plane layout)
         "ell_cheb_step": "bodge_tpu/ops/pallas_spmm.py:468",  # also :1081 (plane layout)
@@ -1654,16 +2209,21 @@ def main(argv) -> int:
         "ell_gather_spmm": "bodge_tpu/ops/pallas_gather.py:261",
         "ell_gather_cheb_step": "bodge_tpu/ops/pallas_gather.py:261",  # under the scan at :364
         "stencil_cheb_step_tiled": "bodge_tpu/ops/pallas_spmm.py:916",
+        "ell_spmm_halo": "bodge_tpu/ops/pallas_spmm.py:1163",
+        "ell_cheb_step_halo": "bodge_tpu/ops/pallas_spmm.py:1219",
+        "ell_spmm_adjoint_halo": "bodge_tpu/ops/pallas_spmm.py:1449",  # the halo VJPs' vector cotangent (also :1430)
+        "ell_block_outer_halo": "bodge_tpu/ops/pallas_spmm.py:1449",  # the halo VJPs' operator cotangent (also :1430)
     }
     sources = dict.fromkeys(ck.KERNELS, "bodge_tpu_torch/csrc/ell_spmm.cu")
     sources["ell_block_outer"] = "bodge_tpu_torch/csrc/ell_block_outer.cu"
     sources["ell_gather_spmm"] = sources["ell_gather_cheb_step"] = "bodge_tpu_torch/csrc/ell_gather.cu"
     sources["stencil_cheb_step_tiled"] = "bodge_tpu_torch/csrc/stencil_tiled.cu"
+    sources["ell_block_outer_halo"] = "bodge_tpu_torch/csrc/ell_block_outer.cu"
     paths = {"kpm_observables": "main", "solve_gap": "gap", "generic_lattice": "generic",
-             "tiled_step": "tiled", "lowest_states": "lowest"}
+             "tiled_step": "tiled", "lowest_states": "lowest", "row_sharded": "sharded"}
     kernels = []
     for name in ck.KERNELS:
-        row = next(results[p][1][name] for p in ("main", "gap", "generic", "tiled") if name in results[p][1])
+        row = next(results[p][1][name] for p in ("main", "gap", "generic", "tiled", "sharded") if name in results[p][1])
         by_path = {label: results[p][0][name] for label, p in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],

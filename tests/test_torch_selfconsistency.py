@@ -243,12 +243,14 @@ def test_pairing_and_option_errors_match_reference():
             jsc.make_total_free_energy(sj, V=1.0, **kwargs)
         with pytest.raises(ValueError) as e_t:
             tsc.make_total_free_energy(st, V=1.0, **kwargs)
-        assert str(e_t.value) == str(e_j.value)
+        # The port's message names its own sharded implementations.
+        assert str(e_j.value) == "mesh= and overlap= apply only to method='kpm', impl='pallas_sharded'"
+        assert str(e_t.value) == "mesh= and overlap= apply only to method='kpm', impl='cuda_sharded' or 'plain_sharded'"
     with pytest.raises(ValueError, match="Unknown method"):
         tsc.make_total_free_energy(st, V=1.0, method="lanczos")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
+    with pytest.raises(ValueError, match="Unknown kernel implementation 'pallas_sharded'"):
         tsc.make_total_free_energy(st, V=1.0, method="kpm", impl="pallas_sharded")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="apply only to method='kpm', impl='cuda_sharded'"):
         tsc.solve_gap(st, V=1.0, method="kpm", impl="pallas_sharded", mesh=object())
     with pytest.raises(RuntimeError, match="CUDA device"):
         tsc.make_total_free_energy(st, V=1.0, method="kpm", impl="cuda")

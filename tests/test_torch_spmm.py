@@ -217,4 +217,5 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     assert tk.launch_counts() == {
         "ell_spmm": 0, "ell_cheb_step": 0, "ell_spmm_adjoint": 0, "ell_block_outer": 0,
         "ell_gather_spmm": 0, "ell_gather_cheb_step": 0, "stencil_cheb_step_tiled": 0,
+        "ell_spmm_halo": 0, "ell_cheb_step_halo": 0, "ell_spmm_adjoint_halo": 0, "ell_block_outer_halo": 0,
     }
