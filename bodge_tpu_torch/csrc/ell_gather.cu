@@ -16,33 +16,42 @@
 // gather that machine has; that is not carried over.  Here data, the offsets
 // and the vectors stay in relabelled order for a whole sweep, and
 //
-//   - a thread block owns T consecutive relabelled sites x TK probe columns;
-//   - it copies the window of vector rows [t*T - bwb, t*T + T + bwb) x 4
-//     orbitals x TK columns into shared memory (rows outside [0, N) as
-//     zeros), 16 bytes per load where K and TK are even, synchronises, and
-//   - each thread takes its neighbours from shared memory by the per-(site,
-//     slot) offset rel[n,s] = (relabelled column) - n, an int32 in
-//     [-bwb, bwb]; INT_MIN marks a padding slot, which is skipped;
+//   - the grid is one wave: a thread block per SM and column tile (TK probe
+//     columns), each owning a contiguous run of `run` relabelled rows, which
+//     it walks in tiles of T rows;
+//   - shared memory holds a ring of R = 2*bwb + (D + 1)*T vector rows.  Tile
+//     t needs the window [a - bwb, a + T + bwb) (a its first row); moving to
+//     the next tile brings in only the T rows past the window's end.  Those of
+//     the D tiles after this one are in flight while this one is computed:
+//     cp.async copies (16 bytes where K and TK are even, else 8) to padded
+//     addresses, one commit group a tile, cp.async.wait_group, one barrier a
+//     tile.  Rows outside [0, N) are never read and never copied;
+//   - each thread takes its neighbours from the ring by the per-(site, slot)
+//     offset rel[n,s] = (relabelled column) - n, an int32 in [-bwb, bwb];
+//     INT_MIN marks a padding slot, which is skipped;
 //   - then the same complex FMAs as ell_kernel in ell_spmm.cu.
 //
 // The Chebyshev form fuses the recursion tail and both reductions into the
 // pass (the sweep is bound by bytes, so the unfused scan of the reference
 // would move each vector three more times).  Its own t_cur entries come from
-// the window too.  The reduction is a fixed tree in shared memory, no
-// atomics: results repeat bit for bit.
+// the ring too.  Each thread keeps its column's two sums in registers over
+// all its tiles; one fixed tree in shared memory at the end writes one row of
+// partials per thread block, no atomics: results repeat bit for bit.
 //
 // Bound: bytes, as for ell_spmm / ell_cheb_step with rel read in place of
 // cols: the operator once, N*S offsets, t_cur (and t_prev) once, t_next once.
-// What the window changes is the traffic between L2 and the SMs: each vector
-// row crosses (1 + 2*bwb/T) times instead of S times, and never as a
-// scattered 64-byte segment.
+// What the design does about it: a block copies its run plus 2*bwb rows once
+// (the window slides, it is not re-staged), so each vector row crosses
+// L2 -> SM about (1 + 2*bwb/run) times, never as a scattered 64-byte
+// segment, and the copies of the next tiles overlap this tile's arithmetic.
+// At K > TK the column tiles of one run are resident side by side, so the
+// operator's and the offsets' second reads come from L2.
 //
-// Shared memory: (T + 2*bwb) window sites of (4*TK + pad) float2 each, pad = 2
-// (16-byte loads) or 1, so that neighbouring window sites start in different
-// banks; where the window and the step's reduction tree together pass 48 KB
-// the launch raises the kernel's dynamic limit with cudaFuncSetAttribute.  The caller's plan picks T, TK and the thread count
-// (a power of two up to 1024) so that the window fits 227 KB less the 8 KB of
-// the reduction tree.  Columns beyond TK go to gridDim.y.
+// Shared memory: R ring rows of (4*TK + pad) float2 each, pad = 2 (16-byte
+// copies) or 1, so that neighbouring rows start in different banks; the
+// reduction tree reuses it at the end.  The caller's plan (ops/cuda_gather)
+// picks T, TK, D, the run and the thread count (a power of two up to 1024)
+// so that the ring fits 227 KB.  Columns beyond TK go to gridDim.y.
 //
 // Aliasing as in ell_spmm.cu: t_next must not alias t_cur (other blocks stage
 // it); it may alias t_prev (each thread reads its own entries before writing).
@@ -55,123 +64,201 @@
 namespace {
 
 constexpr int MAX_THREADS = 1024;
+constexpr int MAX_DEPTH = 2;  // tiles in flight
 constexpr int BLK = 4;
 constexpr int BLK_FLOAT4 = 8;
 constexpr int PAD_REL = INT_MIN;
 constexpr size_t SMEM_LIMIT = 232448;  // 227 KB a block may use on sm_90
+
+// The operator's shape and the launch plan.
+struct Plan {
+  long long N;
+  int S, K, TK, T, bwb, D, R;
+  long long run;
+};
 
 __device__ __forceinline__ void cfma(float2& acc, float dre, float dim, const float2& v) {
   acc.x = fmaf(dre, v.x, fmaf(-dim, v.y, acc.x));
   acc.y = fmaf(dre, v.y, fmaf(dim, v.x, acc.y));
 }
 
+__device__ __forceinline__ void copy_async(float2* dst, const float2* src, bool sixteen) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (sixteen)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void commit_group() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most `pending` of this thread's commit groups are in flight.
+__device__ __forceinline__ void wait_groups(int pending) {
+  if (pending <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
 template <bool CHEB, int VEC>
 __global__ void __launch_bounds__(MAX_THREADS)
 gather_kernel(const float4* __restrict__ data, const int* __restrict__ rel,
               const float2* __restrict__ t_cur, const float2* t_prev, float2* t_next,
-              float* __restrict__ partials, float two_inv,
-              long long N, int S, int K, int TK, int T, int bwb, int stride) {
-  extern __shared__ float4 window4[];
-  float2* win = reinterpret_cast<float2*>(window4);
+              float* __restrict__ partials, float two_inv, Plan pl) {
+  extern __shared__ float4 ring4[];
+  float2* ring = reinterpret_cast<float2*>(ring4);
 
   const int tid = threadIdx.x;
   const int threads = blockDim.x;
-  const long long tile0 = (long long)blockIdx.x * T;
-  const int k0 = blockIdx.y * TK;
-  const int W = T + 2 * bwb;
-
-  // Stage the window: element (w, b, kv) holds VEC columns of orbital b of
-  // window site w; kv is the fastest index, so a warp reads whole segments.
-  const int TKV = TK / VEC;
-  const int per_site = BLK * TKV;
-  for (int e = tid; e < W * per_site; e += threads) {
-    const int w = e / per_site;
-    const int r = e - w * per_site;
-    const int b = r / TKV;
-    const int kk = (r - b * TKV) * VEC;
-    const long long g = tile0 - bwb + w;
-    const bool inside = g >= 0 && g < N && k0 + kk < K;
-    const size_t src = ((size_t)(inside ? g : 0) * BLK + b) * K + k0 + kk;
-    float2* dst = win + (size_t)w * stride + b * TK + kk;
-    if (VEC == 2) {
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (inside) val = __ldg(reinterpret_cast<const float4*>(t_cur + src));
-      *reinterpret_cast<float4*>(dst) = val;
-    } else {
-      float2 val = make_float2(0.f, 0.f);
-      if (inside) val = __ldg(t_cur + src);
-      *dst = val;
-    }
-  }
-  __syncthreads();
-
-  const int kk = tid & (TK - 1);
-  const int row = tid / TK;
-  const int rows = threads / TK;
+  const int lg_tk = __ffs(pl.TK) - 1;
+  const int kk = tid & (pl.TK - 1);
+  const int row = tid >> lg_tk;
+  const int rows = threads >> lg_tk;
+  const int k0 = blockIdx.y * pl.TK;
   const int k = k0 + kk;
+  const int K = pl.K, S = pl.S, T = pl.T, bwb = pl.bwb, D = pl.D, R = pl.R;
+  const long long N = pl.N;
+  const int stride = BLK * pl.TK + VEC;  // float2 a ring row (VEC of padding)
+  const int lg_tkv = lg_tk - (VEC == 2 ? 1 : 0);
+  const int lg_site = lg_tkv + 2;  // log2 of the copies a row: 4 orbitals x TK/VEC
+
+  const long long r0 = (long long)blockIdx.x * pl.run;
+  const long long r1 = min(r0 + pl.run, N);
+  const long long base = r0 - bwb;        // global row g sits in ring row (g - base) mod R
+  const long long hi = min(N, r1 + bwb);  // rows past this are never read
+  const int tiles = (int)((r1 - r0 + T - 1) / T);
+
+  // Issue the copies of rows [g_lo, g_hi) (clipped to [0, hi)) into the ring;
+  // the caller commits the group.  At most R rows, so one wrap of the ring.
+  auto stage = [&](long long g_lo, long long g_hi) {
+    g_lo = max(g_lo, 0LL);
+    g_hi = min(g_hi, hi);
+    if (g_lo >= g_hi) return;
+    const int q0 = (int)((g_lo - base) % R);
+    const float2* src = t_cur + (size_t)g_lo * BLK * K + k0;
+    const int count = (int)(g_hi - g_lo) << lg_site;
+    for (int e = tid; e < count; e += threads) {
+      const int w = e >> lg_site;
+      const int r = e & ((1 << lg_site) - 1);
+      const int b = r >> lg_tkv;
+      const int c = (r & ((1 << lg_tkv) - 1)) * VEC;
+      if (k0 + c >= K) continue;  // columns past K are never read
+      int q = q0 + w;
+      q -= q >= R ? R : 0;
+      copy_async(ring + (size_t)q * stride + b * pl.TK + c, src + ((size_t)w * BLK + b) * K + c, VEC == 2);
+    }
+  };
+  // The rows tile t adds to the window of tile t - 1 (t >= 1).
+  auto stage_tile = [&](int t) {
+    if (t < tiles) stage(r0 + (long long)t * T + bwb, r0 + (long long)(t + 1) * T + bwb);
+    commit_group();  // empty groups keep the count of groups in flight uniform
+  };
+
+  stage(r0 - bwb, r0 + T + bwb);  // the window of tile 0
+  commit_group();
+  for (int t = 1; t < D; ++t) stage_tile(t);
 
   float cc = 0.f, nc = 0.f;
-  if (k < K) {
-    for (int i = row; i < T; i += rows) {
-      const long long n = tile0 + i;
-      if (n >= N) break;
-      float2 acc[BLK];
-#pragma unroll
-      for (int a = 0; a < BLK; ++a) acc[a] = make_float2(0.f, 0.f);
-
-      const int* rrow = rel + (size_t)n * S;
-      const float4* drow = data + (size_t)n * S * BLK_FLOAT4;
-      const float2* own = win + (size_t)(i + bwb) * stride + kk;
-      for (int s = 0; s < S; ++s) {
-        const int r = __ldg(rrow + s);
-        if (r == PAD_REL) continue;  // padding slot
-        const float2* vrow = own + (long long)r * stride;
-        float2 vb[BLK];
-#pragma unroll
-        for (int b = 0; b < BLK; ++b) vb[b] = vrow[b * TK];
-        const float4* blk = drow + (size_t)s * BLK_FLOAT4;
-#pragma unroll
-        for (int a = 0; a < BLK; ++a) {
-          const float4 d01 = __ldg(blk + 2 * a);      // entries (a,0), (a,1)
-          const float4 d23 = __ldg(blk + 2 * a + 1);  // entries (a,2), (a,3)
-          cfma(acc[a], d01.x, d01.y, vb[0]);
-          cfma(acc[a], d01.z, d01.w, vb[1]);
-          cfma(acc[a], d23.x, d23.y, vb[2]);
-          cfma(acc[a], d23.z, d23.w, vb[3]);
-        }
+  int qa = bwb;  // ring row of the tile's first row
+  for (int t = 0; t < tiles; ++t) {
+    if (D == 0) {
+      if (t > 0) {
+        __syncthreads();  // every thread is done with tile t - 1
+        stage_tile(t);
       }
+      wait_groups(0);
+    } else {
+      wait_groups(D - 1);  // tile t has landed (this thread's copies)
+    }
+    __syncthreads();  // ... everyone's; and every thread is done with tile t - 1
+    if (D > 0) stage_tile(t + D);
 
-      const size_t base = (size_t)n * BLK * K + k;
-#pragma unroll
-      for (int a = 0; a < BLK; ++a) {
-        const size_t o = base + (size_t)a * K;
+    const long long a = r0 + (long long)t * T;
+    const int Te = (int)min((long long)T, r1 - a);
+    if (k < K) {
+      for (int i = row; i < Te; i += rows) {
+        const long long n = a + i;
+        int qn = qa + i;
+        qn -= qn >= R ? R : 0;
+        const size_t base_o = (size_t)n * BLK * K + k;
+
+        float2 pv[BLK];
         if (CHEB) {
-          const float2 c = own[a * TK];
-          float2 p = make_float2(0.f, 0.f);
-          if (t_prev != nullptr) p = t_prev[o];  // read before the write below
-          float2 nx;
-          nx.x = fmaf(two_inv, acc[a].x, -p.x);
-          nx.y = fmaf(two_inv, acc[a].y, -p.y);
-          t_next[o] = nx;
-          cc = fmaf(c.x, c.x, fmaf(c.y, c.y, cc));
-          nc = fmaf(nx.x, c.x, fmaf(nx.y, c.y, nc));
-        } else {
-          t_next[o] = acc[a];
+#pragma unroll
+          for (int a2 = 0; a2 < BLK; ++a2)  // read before the write below
+            pv[a2] = t_prev != nullptr ? t_prev[base_o + (size_t)a2 * K] : make_float2(0.f, 0.f);
+        }
+        float2 acc[BLK];
+#pragma unroll
+        for (int a2 = 0; a2 < BLK; ++a2) acc[a2] = make_float2(0.f, 0.f);
+
+        const int* rrow = rel + (size_t)n * S;
+        const float4* drow = data + (size_t)n * S * BLK_FLOAT4;
+#pragma unroll 4
+        for (int s = 0; s < S; ++s) {
+          // The block's loads come first and unconditionally (a padding
+          // slot's block is allocated too), so that the compiler can keep the
+          // loads of several slots in flight.
+          const float4* blk = drow + (size_t)s * BLK_FLOAT4;
+          float4 d[2 * BLK];
+#pragma unroll
+          for (int e = 0; e < 2 * BLK; ++e) d[e] = __ldg(blk + e);
+          const int r = __ldg(rrow + s);
+          if (r == PAD_REL) continue;  // padding slot
+          int q = qn + r;
+          q += q < 0 ? R : 0;
+          q -= q >= R ? R : 0;
+          const float2* vrow = ring + (size_t)q * stride + kk;
+          float2 vb[BLK];
+#pragma unroll
+          for (int b = 0; b < BLK; ++b) vb[b] = vrow[b * pl.TK];
+#pragma unroll
+          for (int a2 = 0; a2 < BLK; ++a2) {
+            const float4 d01 = d[2 * a2];      // entries (a,0), (a,1)
+            const float4 d23 = d[2 * a2 + 1];  // entries (a,2), (a,3)
+            cfma(acc[a2], d01.x, d01.y, vb[0]);
+            cfma(acc[a2], d01.z, d01.w, vb[1]);
+            cfma(acc[a2], d23.x, d23.y, vb[2]);
+            cfma(acc[a2], d23.z, d23.w, vb[3]);
+          }
+        }
+
+        const float2* own = ring + (size_t)qn * stride + kk;
+#pragma unroll
+        for (int a2 = 0; a2 < BLK; ++a2) {
+          const size_t o = base_o + (size_t)a2 * K;
+          if (CHEB) {
+            const float2 c = own[a2 * pl.TK];
+            float2 nx;
+            nx.x = fmaf(two_inv, acc[a2].x, -pv[a2].x);
+            nx.y = fmaf(two_inv, acc[a2].y, -pv[a2].y);
+            t_next[o] = nx;
+            cc = fmaf(c.x, c.x, fmaf(c.y, c.y, cc));
+            nc = fmaf(nx.x, c.x, fmaf(nx.y, c.y, nc));
+          } else {
+            t_next[o] = acc[a2];
+          }
         }
       }
     }
+    qa += T;
+    qa -= qa >= R ? R : 0;
   }
 
   if constexpr (CHEB) {
-    __shared__ float s_cc[MAX_THREADS];
-    __shared__ float s_nc[MAX_THREADS];
+    wait_groups(0);
+    __syncthreads();  // the ring is free: the tree reuses it
+    float* s_cc = reinterpret_cast<float*>(ring4);
+    float* s_nc = s_cc + threads;
     s_cc[tid] = cc;
     s_nc[tid] = nc;
     __syncthreads();
     for (int h = rows / 2; h > 0; h >>= 1) {
       if (row < h) {
-        s_cc[tid] += s_cc[tid + h * TK];
-        s_nc[tid] += s_nc[tid + h * TK];
+        s_cc[tid] += s_cc[tid + (h << lg_tk)];
+        s_nc[tid] += s_nc[tid + (h << lg_tk)];
       }
       __syncthreads();
     }
@@ -187,57 +274,69 @@ bool power_of_two(int v) { return v >= 1 && (v & (v - 1)) == 0; }
 
 template <bool CHEB, int VEC>
 int launch(const void* data, const void* rel, const void* t_cur, const void* t_prev, void* t_next,
-           void* partials, float two_inv, long long N, int S, int K, int TK, int T, int bwb,
-           int threads, int stride, size_t smem, cudaStream_t stream) {
+           void* partials, float two_inv, const Plan& pl, int threads, int ctas, size_t smem,
+           cudaStream_t stream) {
   auto kernel = gather_kernel<CHEB, VEC>;
-  // Without the opt-in a block gets 48 KB in all, and the step's reduction
-  // tree is static shared memory on top of the window.
-  const size_t tree = CHEB ? 2 * MAX_THREADS * sizeof(float) : 0;
-  if (smem + tree > 48 * 1024) {
+  // Without the opt-in a block gets 48 KB; one block an SM is planned, so the
+  // carveout gives shared memory all it can take.
+  if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((unsigned)((N + T - 1) / T), (unsigned)((K + TK - 1) / TK), 1);
-  kernel<<<grid, threads, smem, stream>>>(
-      (const float4*)data, (const int*)rel, (const float2*)t_cur, (const float2*)t_prev,
-      (float2*)t_next, (float*)partials, two_inv, N, S, K, TK, T, bwb, stride);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)ctas, (unsigned)((pl.K + pl.TK - 1) / pl.TK), 1);
+  kernel<<<grid, threads, smem, stream>>>((const float4*)data, (const int*)rel, (const float2*)t_cur,
+                                          (const float2*)t_prev, (float2*)t_next, (float*)partials,
+                                          two_inv, pl);
   return (int)cudaGetLastError();
 }
 
 template <bool CHEB>
 int dispatch(const void* data, const void* rel, const void* t_cur, const void* t_prev, void* t_next,
-             void* partials, float two_inv, long long N, int S, int K, int TK, int T, int bwb,
-             int threads, void* stream) {
+             void* partials, float two_inv, long long N, int S, int K, int TK, int T, int bwb, int D,
+             long long run, int ctas, int threads, void* stream) {
   if (!power_of_two(TK) || TK > 32 || !power_of_two(threads) || threads > MAX_THREADS ||
-      threads < TK || N < 0 || S < 1 || K < 1 || T < 1 || bwb < 0)
+      threads < TK || N < 0 || S < 1 || K < 1 || T < 1 || bwb < 0 || D < 0 || D > MAX_DEPTH ||
+      run < 1 || ctas < 0 || ctas != (N + run - 1) / run)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   const int vec = (TK % 2 == 0 && K % 2 == 0) ? 2 : 1;
   const int stride = BLK * TK + vec;
-  const size_t smem = (size_t)(T + 2 * (long long)bwb) * stride * sizeof(float2);
-  if (smem + (CHEB ? 2 * MAX_THREADS * sizeof(float) : 0) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const long long R = 2 * (long long)bwb + (long long)(D + 1) * T;
+  size_t smem = (size_t)R * stride * sizeof(float2);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  if (CHEB && smem < 2 * threads * sizeof(float)) smem = 2 * threads * sizeof(float);  // the tree
+  const Plan pl{N, S, K, TK, T, bwb, D, (int)R, run};
   if (vec == 2)
-    return launch<CHEB, 2>(data, rel, t_cur, t_prev, t_next, partials, two_inv, N, S, K, TK, T, bwb,
-                           threads, stride, smem, (cudaStream_t)stream);
-  return launch<CHEB, 1>(data, rel, t_cur, t_prev, t_next, partials, two_inv, N, S, K, TK, T, bwb,
-                         threads, stride, smem, (cudaStream_t)stream);
+    return launch<CHEB, 2>(data, rel, t_cur, t_prev, t_next, partials, two_inv, pl, threads, ctas, smem,
+                           (cudaStream_t)stream);
+  return launch<CHEB, 1>(data, rel, t_cur, t_prev, t_next, partials, two_inv, pl, threads, ctas, smem,
+                         (cudaStream_t)stream);
 }
 
 }  // namespace
 
 // Both entry points launch on the given stream, do not synchronise, allocate
-// nothing, and return cudaGetLastError() (0 = launched).
+// nothing, and return cudaGetLastError() (0 = launched).  The plan
+// (ops/cuda_gather.plan_gather): TK probe columns and `run` rows a block,
+// ctas = ceil(N / run) blocks a column tile, tiles of T rows, D tiles in
+// flight (0 <= D <= MAX_DEPTH), `threads` a block; the step's partials are
+// ctas rows of 2K floats.
 
 extern "C" int ell_gather_spmm_launch(const void* data, const void* rel, const void* v, void* y,
-                                      long long N, int S, int K, int TK, int T, int bwb,
-                                      int threads, void* stream) {
-  return dispatch<false>(data, rel, v, nullptr, y, nullptr, 0.f, N, S, K, TK, T, bwb, threads, stream);
+                                      long long N, int S, int K, int TK, int T, int bwb, int D,
+                                      long long run, int ctas, int threads, void* stream) {
+  return dispatch<false>(data, rel, v, nullptr, y, nullptr, 0.f, N, S, K, TK, T, bwb, D, run, ctas,
+                         threads, stream);
 }
 
 extern "C" int ell_gather_cheb_step_launch(const void* data, const void* rel, const void* t_cur,
                                            const void* t_prev, void* t_next, void* partials,
                                            float inv, long long N, int S, int K, int TK, int T,
-                                           int bwb, int threads, void* stream) {
+                                           int bwb, int D, long long run, int ctas, int threads,
+                                           void* stream) {
   return dispatch<true>(data, rel, t_cur, t_prev, t_next, partials, 2.0f * inv, N, S, K, TK, T,
-                        bwb, threads, stream);
+                        bwb, D, run, ctas, threads, stream);
 }

@@ -15,14 +15,16 @@ product):
   ``Re⟨t_cur,t_cur⟩`` and ``Re⟨t_next,t_cur⟩`` per probe column.
 
 Both are CUDA C++ in ``csrc/ell_gather.cu`` (replacing ``_gather_kernel``
-under ``spmm_gather_packed``, ``pallas_gather.py:261``): a thread block owns
-``T`` consecutive relabelled sites × ``TK`` probe columns, stages the window
-``[t·T − bwb, t·T + T + bwb)`` of vector rows in shared memory, and each
-thread finds its neighbours there through a per-(site, slot) offset
-``rel[n, s] = column − n`` (int32 in ``[−bwb, bwb]``; :data:`PAD_REL` marks a
-padding slot).  What bounds them: bytes — the operator, the offsets (in place
-of ``cols``) and the vectors once; the window lowers the traffic between L2
-and the SMs from ``S`` crossings of each vector row to ``1 + 2·bwb/T``.
+under ``spmm_gather_packed``, ``pallas_gather.py:261``): one thread block per
+SM and column tile (``TK`` probe columns) walks a run of ``run`` relabelled
+rows in tiles of ``T``; the window ``[a − bwb, a + T + bwb)`` of vector rows
+slides through a ring in shared memory, the rows of the next ``depth`` tiles
+copied in by ``cp.async`` while a tile is computed, and each thread finds its
+neighbours there through a per-(site, slot) offset ``rel[n, s] = column − n``
+(int32 in ``[−bwb, bwb]``; :data:`PAD_REL` marks a padding slot).  What bounds
+them: bytes — the operator, the offsets (in place of ``cols``) and the vectors
+once; a block copies its run and ``2·bwb`` rows once, so each vector row
+crosses from L2 to the SMs about ``1 + 2·bwb/run`` times instead of ``S``.
 
 Order.  Everything these functions take — ``data``, vectors, partial sums —
 is in *relabelled* order: relabelled row ``r`` holds original site
@@ -35,9 +37,9 @@ within a row is unchanged), which the backward kernels
 (:func:`~bodge_tpu_torch.ops.cuda_spmm.ell_spmm_adjoint`,
 :func:`~bodge_tpu_torch.ops.cuda_spmm.ell_block_outer`) take as it is.
 
-:func:`plan_gather` picks ``T``, the largest ``TK`` whose window fits the
-227 KB of shared memory a block may use, and the thread count; it returns
-``None`` when not even ``TK = 1`` fits.  The wrappers launch their kernel on
+:func:`plan_gather` picks ``TK``, ``T``, the depth, the run and the thread
+count so that the ring fits the 227 KB of shared memory a block may use; it
+returns ``None`` when not even the window at ``TK = 1`` fits.  The wrappers launch their kernel on
 a CUDA tensor or raise; the plain versions run only for a CPU tensor or on
 ``impl="plain"``.
 """
@@ -56,9 +58,11 @@ from .blocksparse import BLOCK, Skeleton
 
 PAD_REL = -(2**31)  # rel entry of a padding slot (INT_MIN in the kernel)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
-TREE_BYTES = 8192  # the step kernel's reduction tree (2 × 1024 floats)
+TREE_BYTES = 8192  # room the feasibility rule keeps beside the window (2 × 1024 floats)
 MIN_TILE = 32
 MAX_WINDOW_TK = 8  # probe columns per window; more columns go to gridDim.y
+THREADS = 1024  # threads a block at most: one block an SM
+MAX_DEPTH = 2  # tiles in flight at most (MAX_DEPTH in the kernel)
 
 
 @dataclass(frozen=True, eq=False)  # identity hash: usable as a cache key
@@ -73,9 +77,13 @@ class GatherLayout:
         bwb: block bandwidth after relabelling.
         rel: ``[N, S]`` int32 — ``column − row`` per slot in relabelled order,
             :data:`PAD_REL` for padding slots.
-        K, T, TK, threads: probe columns, sites and columns per thread block,
-            threads per block.
-        smem_bytes: upper bound of the window's shared memory.
+        K, TK: probe columns, and probe columns a thread block.
+        T: rows a tile; a thread block computes one tile at a time.
+        depth: tiles in flight while one is computed (0: none).
+        run: relabelled rows a thread block walks, ``ctas`` blocks a column
+            tile (``ceil(N / run)``: one wave, a block an SM).
+        threads: threads a block.
+        smem_bytes: the ring's shared memory, ``ring`` rows.
     """
 
     sk: Skeleton
@@ -87,17 +95,21 @@ class GatherLayout:
     K: int
     T: int
     TK: int
+    depth: int
+    run: int
+    ctas: int
     threads: int
     smem_bytes: int
 
     @property
-    def n_tiles(self) -> int:
-        return -(-self.sk.n_sites // self.T)
+    def window(self) -> int:
+        """Rows one tile reads: ``T + 2·bwb``."""
+        return self.T + 2 * self.bwb
 
     @property
-    def window(self) -> int:
-        """Window sites per thread block: ``T + 2·bwb``."""
-        return self.T + 2 * self.bwb
+    def ring(self) -> int:
+        """Rows of the ring in shared memory: the window and the tiles in flight."""
+        return 2 * self.bwb + (self.depth + 1) * self.T
 
     def device_rel(self, device):
         return self.sk._device_copy("gather_rel", device, lambda: self.rel)
@@ -152,43 +164,64 @@ def _rcm_relabelled(sk: Skeleton):
     return _relabelled(sk, rank, bwb)
 
 
-def _site_bytes(TK: int) -> int:
-    """Shared memory per window site: 4·TK float2 and the bank padding (at most 2)."""
-    return (BLOCK * TK + 2) * 8
+def _site_bytes(TK: int, K: int) -> int:
+    """Shared memory a ring row: 4·TK float2 and the bank padding (2 with
+    16-byte copies, where K and TK are even, else 1)."""
+    return (BLOCK * TK + (2 if TK % 2 == 0 and K % 2 == 0 else 1)) * 8
 
 
-def _launch_plan(N: int, bwb: int, K: int, tile: Optional[int] = None):
-    """``(T, TK, threads, smem_bytes)`` or ``None`` when no window fits."""
+def _feasible(bwb: int, TK: int, T: int) -> bool:
+    """Whether a window of ``T + 2·bwb`` rows at 8·(4·TK + 2) bytes fits
+    beside 8 KB.  :func:`supported_gather`, and with it the step's dispatch,
+    answers by this rule alone, whatever ring the plan then builds."""
+    return T <= (SMEM_LIMIT - TREE_BYTES) // ((BLOCK * TK + 2) * 8) - 2 * bwb
+
+
+def _launch_plan(N: int, bwb: int, K: int, tile=None):
+    """``(T, TK, depth, run, ctas, threads, smem_bytes)`` or ``None`` when no
+    window fits.
+
+    TK is the widest (at most :data:`MAX_WINDOW_TK`) whose window fits with
+    ``T = MIN_TILE`` (or the forced ``T``), by the rule of :func:`_feasible`.
+    Then ``T`` is a block's ``1024 / TK`` rows of sites with one or two tiles
+    in flight (``depth``) where that fits, else the largest ``T`` with one in
+    flight, else the window alone (``depth = 0``).  The run gives every
+    SM one block: ``run = max(T, ceil(N / (sms // column tiles)))``.
+    ``tile`` forces ``T``, or ``(T, run)`` both.
+    """
+    T_forced, run_forced = (tile, None) if tile is None or isinstance(tile, int) else tuple(tile)
     tk_cap = min(ck.probe_tile(K), MAX_WINDOW_TK)
     for TK in (8, 4, 2, 1):
-        if TK > tk_cap:
+        if TK > tk_cap or not _feasible(bwb, TK, MIN_TILE if T_forced is None else T_forced):
             continue
-        room = (SMEM_LIMIT - TREE_BYTES) // _site_bytes(TK) - 2 * bwb
-        if tile is not None:
-            if tile > room:
-                continue
-            T = int(tile)
+        site = _site_bytes(TK, K)
+        beyond = SMEM_LIMIT // site - 2 * bwb  # ring rows past the band
+        if T_forced is not None:
+            T = int(T_forced)
+            depth = min(MAX_DEPTH, beyond // T - 1)
+        elif beyond >= 2 * (THREADS // TK):
+            T = min(THREADS // TK, max(MIN_TILE, -(-N // 32) * 32))  # small lattices: one short tile
+            depth = min(MAX_DEPTH, beyond // T - 1)
+        elif beyond // 2 >= MIN_TILE:
+            T, depth = beyond // 2, 1
         else:
-            if room < MIN_TILE:
-                continue
-            # A window twice the band re-reads each row at most twice; small
-            # bands still get tiles that fill a thread block.
-            T = min(512, max(64, -(-2 * bwb // 32) * 32))
-            T = min(T, max(MIN_TILE, -(-N // 32) * 32), room // 32 * 32)
-        smem = (T + 2 * bwb) * _site_bytes(TK)
-        threads = 1024 if smem > 100 * 1024 else (512 if smem > 50 * 1024 else 256)
-        return T, TK, threads, smem
+            T, depth = beyond, 0
+        threads = min(THREADS, max(32, 1 << (T * TK - 1).bit_length()))
+        blocks = max(1, ck.sm_count() // -(-K // TK))
+        run = max(T, -(-N // blocks)) if run_forced is None else int(run_forced)
+        ring = 2 * bwb + (depth + 1) * T
+        return T, TK, depth, run, -(-N // run), threads, ring * site
     return None
 
 
-def _layout(sk: Skeleton, K: int, relabelled, tile: Optional[int]) -> Optional[GatherLayout]:
+def _layout(sk: Skeleton, K: int, relabelled, tile) -> Optional[GatherLayout]:
     rank, inv_rank, bwb, sk_r, rel = relabelled
     launch = _launch_plan(sk.n_sites, bwb, K, tile)
     if launch is None:
         return None
-    T, TK, threads, smem = launch
-    return GatherLayout(sk=sk_r, source=sk, rank=rank, inv_rank=inv_rank, bwb=bwb, rel=rel,
-                        K=K, T=T, TK=TK, threads=threads, smem_bytes=smem)
+    T, TK, depth, run, ctas, threads, smem = launch
+    return GatherLayout(sk=sk_r, source=sk, rank=rank, inv_rank=inv_rank, bwb=bwb, rel=rel, K=K, T=T, TK=TK,
+                        depth=depth, run=run, ctas=ctas, threads=threads, smem_bytes=smem)
 
 
 @functools.lru_cache(maxsize=256)
@@ -196,7 +229,7 @@ def plan_gather(sk: Skeleton, K: int, tile: Optional[int] = None) -> Optional[Ga
     """Gather-kernel plan for ``K`` probe columns, or ``None`` when the window
     of ``T + 2·bwb`` sites does not fit shared memory even at ``TK = 1``.
 
-    ``tile`` forces ``T`` (for measurements).  Plans are cached per
+    ``tile`` forces ``T``, or ``(T, run)`` (for measurements).  Plans are cached per
     ``(skeleton, K, tile)``, and every plan of one skeleton shares the
     relabelled skeleton, so device copies are made once.
     """
@@ -205,7 +238,7 @@ def plan_gather(sk: Skeleton, K: int, tile: Optional[int] = None) -> Optional[Ga
     return _layout(sk, int(K), _rcm_relabelled(sk), tile)
 
 
-def layout_from_rank(sk: Skeleton, rank, bwb: int, K: int, tile: Optional[int] = None):
+def layout_from_rank(sk: Skeleton, rank, bwb: int, K: int, tile=None):
     """A :class:`GatherLayout` on a relabelling computed elsewhere (``rank[i]`` =
     new index of site ``i``, ``bwb`` its block bandwidth), or ``None`` when no
     window fits.  Raises ``ValueError`` if a neighbour lies outside the band."""
@@ -258,8 +291,8 @@ def ell_gather_spmm(data, gl: GatherLayout, v, *, impl: Optional[str] = None):
     lib = ck._library()
     with torch.cuda.device(v.device):
         err = lib.ell_gather_spmm_launch(
-            data.data_ptr(), rel.data_ptr(), v.data_ptr(), y.data_ptr(),
-            N, S, K, gl.TK, gl.T, gl.bwb, gl.threads, torch.cuda.current_stream().cuda_stream,
+            data.data_ptr(), rel.data_ptr(), v.data_ptr(), y.data_ptr(), N, S, K, gl.TK, gl.T, gl.bwb,
+            gl.depth, gl.run, gl.ctas, gl.threads, torch.cuda.current_stream().cuda_stream,
         )
     ck._raise_on(err, "ell_gather_spmm")
     ell_gather_spmm.launches += 1
@@ -274,7 +307,7 @@ def ell_gather_cheb_step(
 ):
     """Fused Chebyshev step in relabelled order: ``(t_next, partials)`` as
     :func:`~bodge_tpu_torch.ops.cuda_spmm.ell_cheb_step`, with one row of
-    partials per tile of ``gl.T`` sites.  ``out`` (kernel only) may be
+    partials per thread block (``gl.ctas`` rows).  ``out`` (kernel only) may be
     ``t_prev`` itself, never ``t_cur``.
     """
     _check_layout(gl)
@@ -291,13 +324,13 @@ def ell_gather_cheb_step(
     if out.untyped_storage().data_ptr() == t_cur.untyped_storage().data_ptr():
         raise ValueError("out must not share memory with t_cur (other thread blocks stage it)")
     rel = gl.device_rel(t_cur.device)
-    partials = torch.empty((gl.n_tiles, 2 * K), dtype=torch.float32, device=t_cur.device)
+    partials = torch.empty((gl.ctas, 2 * K), dtype=torch.float32, device=t_cur.device)
     lib = ck._library()
     with torch.cuda.device(t_cur.device):
         err = lib.ell_gather_cheb_step_launch(
             data.data_ptr(), rel.data_ptr(), t_cur.data_ptr(), ck._ptr(t_prev), out.data_ptr(),
-            partials.data_ptr(), float(inv), N, S, K, gl.TK, gl.T, gl.bwb, gl.threads,
-            torch.cuda.current_stream().cuda_stream,
+            partials.data_ptr(), float(inv), N, S, K, gl.TK, gl.T, gl.bwb, gl.depth, gl.run, gl.ctas,
+            gl.threads, torch.cuda.current_stream().cuda_stream,
         )
     ck._raise_on(err, "ell_gather_cheb_step")
     ell_gather_cheb_step.launches += 1

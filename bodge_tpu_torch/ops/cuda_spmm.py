@@ -56,14 +56,15 @@ uses that cotangent).
 The tiled step, in ``csrc/stencil_tiled.cu``:
 
 - :func:`stencil_cheb_step_tiled` — the same function as :func:`ell_cheb_step`
-  on a stencil skeleton, with a tile of the lattice and its halo staged in
-  shared memory and the neighbours found by stencil arithmetic (no ``cols``
+  on a stencil skeleton, streaming the lattice along x through a ring of
+  strip rows (and their halo) in shared memory, the next rows copied in by
+  ``cp.async``, and finding the neighbours by stencil arithmetic (no ``cols``
   read).  Replaces ``_plane_cheb_kernel_tiled`` (``pallas_spmm.py:916``) and,
   like it, is opt-in: ``impl="cuda_tiled"``, or ``BODGE_PLANE_TILED=1`` for
   ``impl=None`` on stencil skeletons.
 
-The kernels for generic skeletons (a window of relabelled vector rows in
-shared memory) live in :mod:`.cuda_gather`.
+The kernels for generic skeletons (a sliding window of relabelled vector rows
+in shared memory) live in :mod:`.cuda_gather`.
 
 Halo forms, for one x-slab of a row-sharded lattice (:class:`HaloSlab`;
 the exchange that fills the halo planes lives in
@@ -107,6 +108,7 @@ raised where the kernel is launched and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from dataclasses import dataclass, field
 from types import SimpleNamespace
@@ -120,8 +122,12 @@ from .blocksparse import BLOCK, Skeleton
 from .spmm import default_impl, spmm_gather, spmm_stencil
 
 THREADS = 256  # threads per block in csrc/ell_spmm.cu
-TILED_THREADS = 512  # threads per block in csrc/stencil_tiled.cu
+TILED_THREADS = 256  # threads per block in csrc/stencil_tiled.cu
+TILED_BLOCKS_PER_SM = 3  # its occupancy (at most 80 registers a thread)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+SM_SHARED = 233472  # bytes of shared memory an SM has on sm_90 ...
+BLOCK_RESERVED = 1024  # ... of which each resident block takes this much
+DEFAULT_SMS = 132  # streaming multiprocessors of an H100 SXM, for plans made without a card
 KERNELS = ("ell_spmm", "ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer",
            "ell_gather_spmm", "ell_gather_cheb_step", "stencil_cheb_step_tiled",
            "ell_spmm_halo", "ell_cheb_step_halo", "ell_spmm_adjoint_halo", "ell_block_outer_halo")
@@ -236,10 +242,10 @@ def _library():
             "ell_cheb_step_launch": (spmm, [p, p, p, p, p, p, f, ll, i, i, i, p]),
             "ell_spmm_adjoint_launch": (spmm, [p, p, p, i, p, p, f, p, p, p, p, p, ll, i, i, i, p]),
             "ell_block_outer_launch": (outer, [p, p, p, p, p, p, f, i, ll, i, i, i, p]),
-            "ell_gather_spmm_launch": (gather, [p, p, p, p, ll, i, i, i, i, i, i, p]),
-            "ell_gather_cheb_step_launch": (gather, [p, p, p, p, p, p, f, ll, i, i, i, i, i, i, p]),
+            "ell_gather_spmm_launch": (gather, [p, p, p, p, ll, i, i, i, i, i, i, ll, i, i, p]),
+            "ell_gather_cheb_step_launch": (gather, [p, p, p, p, p, p, f, ll, i, i, i, i, i, i, ll, i, i, p]),
             "stencil_cheb_step_tiled_launch": (
-                tiled, [p, p, p, p, p, f, i, i, i, i, i, i, i, i, i, i, ip, ip, p]),
+                tiled, [p, p, p, p, p, f, i, i, i, i, i, i, i, i, i, i, i, ip, ip, p]),
         }
         bound = SimpleNamespace()
         for name, (lib, argtypes) in signatures.items():
@@ -382,45 +388,85 @@ def ell_cheb_step(
 ell_cheb_step.launches = 0
 
 
-def tile_plan(sk: Skeleton, K: int, tile: Optional[Tuple[int, int]] = None) -> dict:
-    """Launch plan of :func:`stencil_cheb_step_tiled`: ``{"XB", "PB", "h", "TK",
-    "threads", "n_tiles", "smem_bytes"}``.
+def sm_count() -> int:
+    """Streaming multiprocessors of the current card (:data:`DEFAULT_SMS` without one)."""
+    return _sm_count(torch.cuda.current_device()) if torch.cuda.is_available() else DEFAULT_SMS
 
-    A thread block owns ``XB`` x-rows × ``PB`` in-plane sites × ``TK`` probe
-    columns and stages ``(XB + 2) × (PB + 2h)`` window sites, ``h`` being the
-    farthest in-plane neighbour (``Lz`` where the lattice extends in y,
-    ``Lz − 1`` otherwise).  The default tile holds ``2048 / TK`` sites (four
-    passes of the block's 512 threads), ``PB`` at least 32 and at least ``2h``;
-    it shrinks until the window fits shared memory.  ``tile=(XB, PB)`` forces
-    one (for measurements) and raises if it does not fit.  Raises
-    ``ValueError`` on a generic skeleton.
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tile_plan(sk: Skeleton, K: int, tile: Optional[Tuple[int, ...]] = None) -> dict:
+    """Launch plan of :func:`stencil_cheb_step_tiled`: ``{"TK", "PB", "h", "NR",
+    "XR", "threads", "ctas", "n_strips", "smem_bytes"}``.
+
+    The plane (``M = Ly·Lz`` sites) is cut into ``n_strips`` strips of ``PB``
+    sites; a work item is one strip of one x-row.  A thread block holds a ring
+    of ``NR`` strip rows of ``PB + 2h`` sites (``h`` the farthest in-plane
+    neighbour: ``Lz`` where the lattice extends in y, ``Lz − 1`` otherwise)
+    and ``TK`` probe columns, and walks ``XR`` consecutive items; ``NR − 3``
+    rows are in flight while one is computed.  ``ctas`` blocks a column tile,
+    one wave on the card: the default plan takes ``PB`` as the block's rows of
+    sites (``256 / TK``), raised to cover ``2h`` and capped at ``M``, the
+    deepest ring (``NR`` ≤ 5) with which three blocks fit an SM (fewer, or a
+    ring of three rows without a row in flight, or a narrower strip, where they
+    do not), and ``XR`` so that the blocks of all column tiles fill the card
+    once.  ``tile=(PB, XR)`` or ``(PB, XR, NR)`` forces one (for measurements)
+    and raises if it does not fit.  Raises ``ValueError`` on a generic skeleton.
     """
     _require_stencil(sk)
+    return dict(_tile_plan(sk, int(K), None if tile is None else tuple(int(t) for t in tile), sm_count()))
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_plan(sk: Skeleton, K: int, tile: Optional[Tuple[int, ...]], sms: int) -> dict:
     Lx, Ly, Lz = sk.shape
     M = Ly * Lz
     h = Lz if Ly > 1 else Lz - 1
     TK = min(probe_tile(K), 8)
+    vec = 2 if TK % 2 == 0 and K % 2 == 0 else 1
+    site = (BLOCK * TK + vec) * 8  # bytes a ring site, bank padding included
+    tree = 2 * TILED_THREADS * 4  # the reduction tree, static shared memory
 
-    def smem(XB, PB):
-        return (XB + 2) * (PB + 2 * h) * (BLOCK * TK + 2) * 8
+    def smem(PB, NR):
+        return NR * (PB + 2 * h) * site
 
-    room = SMEM_LIMIT - 2 * TILED_THREADS * 4
     if tile is not None:
-        XB, PB = (int(t) for t in tile)
-        if XB < 1 or PB < 1 or smem(XB, PB) > room:
-            raise ValueError(f"tile {tile} does not fit {room} bytes of shared memory at TK = {TK}")
+        if len(tile) not in (2, 3):
+            raise ValueError(f"tile {tile} is not (PB, XR) or (PB, XR, NR)")
+        PB, XR, NR = (tile + (4,))[:3]
+        if not (1 <= PB <= M and XR >= 1 and 3 <= NR <= 6):
+            raise ValueError(f"tile {tile} does not fit a plane of {M} sites (1 <= PB <= M, XR >= 1, 3 <= NR <= 6)")
+        if smem(PB, NR) + tree > SMEM_LIMIT:
+            raise ValueError(f"tile {tile} does not fit {SMEM_LIMIT - tree} bytes of shared memory at TK = {TK}")
+        per_sm = 1
     else:
-        PB = min(M, max(32, 2 * h))
-        XB = max(1, min(Lx, 64, (2048 // TK) // PB))
-        while smem(XB, PB) > room and XB > 1:
-            XB //= 2
-        while smem(XB, PB) > room and PB > 1:
+        rows = TILED_THREADS // TK
+        PB = min(M, rows * max(1, -(-2 * h // rows)))
+        while True:
+            choice = None
+            for per_sm, depths in ((TILED_BLOCKS_PER_SM, (5, 4)), (2, (4,)), (1, (4, 3))):
+                room = min(SM_SHARED // per_sm - BLOCK_RESERVED, SMEM_LIMIT) - tree
+                NR = next((nr for nr in depths if smem(PB, nr) <= room), None)
+                if NR is not None:
+                    choice = per_sm, NR
+                    break
+            if choice is not None or PB == 1:
+                break
             PB //= 2
-        if smem(XB, PB) > room:
+        if choice is None:
             raise ValueError(f"no tile of lattice {sk.shape} fits shared memory (halo {h})")
-    n_tiles = -(-Lx // XB) * -(-M // PB)
-    return {"XB": XB, "PB": PB, "h": h, "TK": TK, "threads": TILED_THREADS,
-            "n_tiles": n_tiles, "smem_bytes": smem(XB, PB)}
+        per_sm, NR = choice
+    n_strips = -(-M // PB)
+    items = n_strips * Lx
+    if tile is None:
+        blocks = max(1, per_sm * sms // -(-K // TK))  # a column tile's share of one wave
+        XR = -(-items // min(items, blocks))
+    ctas = -(-items // XR)
+    return {"TK": TK, "PB": PB, "h": h, "NR": NR, "XR": XR, "threads": TILED_THREADS, "ctas": ctas,
+            "n_strips": n_strips, "smem_bytes": smem(PB, NR)}
 
 
 def _slot_table(sk: Skeleton):
@@ -440,13 +486,13 @@ def stencil_cheb_step_tiled(
     tile: Optional[Tuple[int, int]] = None,
 ):
     """The fused Chebyshev step on a stencil skeleton, tiled: ``(t_next, partials)``
-    as :func:`ell_cheb_step`, with one row of partials per lattice tile.
+    as :func:`ell_cheb_step`, with one row of partials per thread block.
 
-    The kernel stages ``t_cur`` for a tile and its halo in shared memory and
-    finds the neighbours by stencil arithmetic on ``sk.shape`` and
-    ``sk.slots``; it reads no ``cols``.  ``out`` (kernel only) may be
-    ``t_prev`` itself, never ``t_cur``; ``tile=(XB, PB)`` overrides
-    :func:`tile_plan`.  Raises ``ValueError`` on a generic skeleton.  On a CPU
+    The kernel streams ``t_cur`` along x through a ring of strip rows in
+    shared memory and finds the neighbours by stencil arithmetic on
+    ``sk.shape`` and ``sk.slots``; it reads no ``cols``.  ``out`` (kernel only)
+    may be ``t_prev`` itself, never ``t_cur``; ``tile=(PB, XR)`` or
+    ``(PB, XR, NR)`` overrides :func:`tile_plan`.  Raises ``ValueError`` on a generic skeleton.  On a CPU
     tensor, or with ``impl="plain"``, it is :func:`stencil_cheb_step_tiled_plain`.
     """
     _require_stencil(sk)
@@ -462,16 +508,16 @@ def stencil_cheb_step_tiled(
         _check_operand("out", out, shape, t_cur.device)
     if out.untyped_storage().data_ptr() == t_cur.untyped_storage().data_ptr():
         raise ValueError("out must not share memory with t_cur (other thread blocks stage it)")
-    plan = tile_plan(sk, K, tile)
+    plan = _tile_plan(sk, K, None if tile is None else tuple(int(t) for t in tile), sm_count())  # read only
     axes, dirs = _slot_table(sk)
-    partials = torch.empty((plan["n_tiles"], 2 * K), dtype=torch.float32, device=t_cur.device)
+    partials = torch.empty((plan["ctas"], 2 * K), dtype=torch.float32, device=t_cur.device)
     Lx, Ly, Lz = sk.shape
     lib = _library()
     with torch.cuda.device(t_cur.device):
         err = lib.stencil_cheb_step_tiled_launch(
             data.data_ptr(), t_cur.data_ptr(), _ptr(t_prev), out.data_ptr(), partials.data_ptr(),
-            float(inv), Lx, Ly, Lz, S, K, plan["TK"], plan["XB"], plan["PB"], plan["h"],
-            plan["threads"], axes, dirs, torch.cuda.current_stream().cuda_stream,
+            float(inv), Lx, Ly, Lz, S, K, plan["TK"], plan["PB"], plan["h"], plan["NR"], plan["XR"],
+            plan["ctas"], axes, dirs, torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "stencil_cheb_step_tiled")
     stencil_cheb_step_tiled.launches += 1

@@ -41,13 +41,14 @@ use; ``grad``: gradients through the kernels against autograd through the
 plain complex128 product; ``gap``: ``solve_gap`` at full width (launch
 counters read here), its dense control, and all four kernels at its shape;
 ``dwave``: one d-wave gradient at order 1024; ``generic``: the generic-lattice
-path (launch counters read here), the gather kernels at its shape beside the
-general kernels in natural and relabelled order, one gradient against
-complex128; ``tiled``: ``free_energy(impl="cuda_tiled")`` against the untiled
-call (launch counters read here) and the tiled step timed at N = 10⁶;
-``lowest``: the lowest-states solver (launch counters read here), and its
-kernels against their plain versions on each run's operator at the block
-widths the run took.
+path (launch counters read here), the gather kernels at its shape and widths
+beside the general kernels in natural and relabelled order, variants of their
+plan, one gradient against complex128; ``tiled``:
+``free_energy(impl="cuda_tiled")`` against the untiled call (launch counters
+read here) and the tiled step timed at N = 10⁶ beside ``ell_cheb_step`` at
+K = 1, 8, 64, with variants of its plan; ``lowest``: the lowest-states solver
+(launch counters read here), and its kernels against their plain versions and
+timed on each run's operator at the block widths the run took.
 """
 
 from __future__ import annotations
@@ -506,59 +507,89 @@ def main(argv) -> int:
         j = (i + 1) % n
         return bs.skeleton_from_pairs(n, np.concatenate([i, i, j]), np.concatenate([i, j, i]))
 
+    def gather_tile_between(sk, K, lo, hi):
+        """A forced tile T whose ring takes lo < bytes <= hi of shared memory at
+        the planned TK (the largest such T), or None."""
+        gl = cg.plan_gather(sk, K)
+        for T in range(6000, 0, -1):
+            plan = cg._launch_plan(sk.n_sites, gl.bwb, K, T)
+            if plan is not None and plan[1] == gl.TK and lo < plan[6] <= hi:
+                return T
+        return None
+
     ck.reset_launch_counts()
     gather_cases = [("ring(300)", ring_skeleton(300)),
                     ("generic 10x40", bs.skeleton_from_lattice(CubicLattice((10, 40, 1)))),
                     ("generic 12x9", bs.skeleton_from_lattice(CubicLattice((12, 9, 1)))),
                     (f"pairs(23, S={sk_pairs.n_slots})", sk_pairs)]
     gather_err = {"ell_gather_spmm": 0.0, "ell_gather_cheb_step": 0.0, "gather_partials_rel": 0.0}
-    # A window of 40-48 KB passes the 48 KB a block gets without the opt-in only
-    # together with the step's 8 KB reduction tree: T = 160 on the ring is one.
-    near_48k = False
+    # Each case at the planned tile; T = 32 (pairs(23): N smaller than one tile,
+    # and not a multiple of it); runs of one tile and of five (more tiles than
+    # the ring has stages); T = 160; and the T whose ring comes closest to the
+    # 227 KB a block may use.  One ring of 48-56 KB (the launch raises the
+    # 48 KB default) must be among them.
+    above_48k = near_limit = False
     for name, sk in gather_cases:
         data = random_blocks(sk, 400)  # not Hermitian, padding slots filled with garbage
         worst = dict.fromkeys(gather_err, 0.0)
         plans = {}
         for K in probe_counts:
-            for tile in (None, 32, 160):
+            tiles = [None, 32, (32, 32), (32, 160), 160, gather_tile_between(sk, K, 220 * 1024, cg.SMEM_LIMIT)]
+            if name == "ring(300)":
+                tiles.append(gather_tile_between(sk, K, 48 * 1024, 56 * 1024))
+            for tile in tiles:
                 gl = cg.plan_gather(sk, K, tile)
-                check(gl is not None, f"no gather plan for {name} at K={K}")
-                near_48k = near_48k or 40 * 1024 < gl.smem_bytes <= 48 * 1024
+                check(gl is not None, f"no gather plan for {name} at K={K}, tile={tile}")
+                above_48k = above_48k or 48 * 1024 < gl.smem_bytes <= 56 * 1024
+                near_limit = near_limit or gl.smem_bytes > 220 * 1024
                 ok, err = compare_gather(sk, gl, data, K, seed=500 + K)
-                check(ok, f"gather kernel disagrees on {name}, K={K}, T={gl.T}: {err}")
+                check(ok, f"gather kernel disagrees on {name}, K={K}, tile={tile}: {err}")
                 worst = {k: max(worst[k], err[k]) for k in worst}
-                plans[f"K={K},tile={tile}"] = [gl.T, gl.TK, gl.threads]
+                plans[f"K={K},tile={tile}"] = [gl.T, gl.TK, gl.depth, gl.run, gl.ctas, gl.threads, gl.smem_bytes]
         gather_err = {k: max(gather_err[k], worst[k]) for k in worst}
-        emit({"phase": "kernels", "shape": name, "S": sk.n_slots, "K": probe_counts, "bwb": gl.bwb,
-              "padding_slots": bool((sk.cols < 0).any()), "plans_T_TK_threads": plans, "max_abs_err": worst})
-    check(near_48k, "no gather case with a window of 40-48 KB")
+        emit({"phase": "kernels", "shape": name, "N": sk.n_sites, "S": sk.n_slots, "K": probe_counts, "bwb": gl.bwb,
+              "padding_slots": bool((sk.cols < 0).any()),
+              "plans_T_TK_depth_run_ctas_threads_smem": plans, "max_abs_err": worst})
+    check(above_48k and near_limit, "no gather case with a ring of 48-56 KB, or none near 227 KB")
     tiled_err = {"stencil_cheb_step_tiled": 0.0, "tiled_partials_rel": 0.0}
-    sk = bs.skeleton((5, 6, 4))  # the same for the tiled step: a (5, 16) tile stages 7 × 24 window sites
+    sk = bs.skeleton((5, 6, 4))  # a ring of six rows of 24 + 8 sites: 52 KB, past the 48 KB default
     for K in (8, 33):
-        check(40 * 1024 < ck.tile_plan(sk, K, tile=(5, 16))["smem_bytes"] <= 48 * 1024, "tile (5, 16) is not 40-48 KB")
-        ok, err = compare_tiled(random_blocks(sk, 650), sk, K, seed=750 + K, tile=(5, 16))
-        check(ok, f"tiled kernel disagrees on (5, 6, 4) with a 40-48 KB window, K={K}: {err}")
-    for i, shape in enumerate(shapes):
+        check(48 * 1024 < ck.tile_plan(sk, K, tile=(24, 5, 6))["smem_bytes"] + 2 * ck.TILED_THREADS * 4 <= 56 * 1024,
+              "tile (24, 5, 6) is not 48-56 KB")
+        ok, err = compare_tiled(random_blocks(sk, 650), sk, K, seed=750 + K, tile=(24, 5, 6))
+        check(ok, f"tiled kernel disagrees on (5, 6, 4) with a 52 KB ring, K={K}: {err}")
+    # The seven stencil skeletons and three more (Lx = 1 with y and z, all
+    # extents 2), periodic and open, K up to 64, at the planned tile and at
+    # three forced ones: strips of 2 (every halo wraps modulo M) in runs of 3
+    # (ragged, across strips) with one row in flight; strips of 3 in runs of 5
+    # without a row in flight (NR = 3); strips of 4 in runs of 7 with three in
+    # flight (NR = 6).
+    tiled_shapes = shapes + [(1, 6, 4), (1, 1, 7), (2, 2, 2)]
+    tiled_counts = probe_counts + [64]
+    for i, shape in enumerate(tiled_shapes):
         sk = bs.skeleton(shape)
+        M = shape[1] * shape[2]
         worst = dict.fromkeys(tiled_err, 0.0)
         variants = (("periodic", random_blocks(sk, 600 + i)),  # every slot random, padding slots garbage
                     ("open", random_system(shape, seed=i, pbc=False)[0]))
+        forced = [(min(M, 2), 3), (min(M, 3), 5, 3), (min(M, 4), 7, 6)]
         for label, data in variants:
-            for K in probe_counts:
-                for tile in (None, (2, 3)):  # the planned tile (one block here) and a small one (many, ragged)
+            for K in tiled_counts:
+                for tile in [None, *forced]:
                     ok, err = compare_tiled(data, sk, K, seed=700 + K, tile=tile)
                     check(ok, f"tiled kernel disagrees on {shape} {label}, K={K}, tile={tile}: {err}")
                     worst = {k: max(worst[k], err[k]) for k in worst}
         tiled_err = {k: max(tiled_err[k], worst[k]) for k in worst}
-        emit({"phase": "kernels", "shape": str(shape), "S": sk.n_slots, "K": probe_counts,
-              "boundaries": ["periodic", "open"], "tiles": ["planned", [2, 3]], "max_abs_err": worst})
+        emit({"phase": "kernels", "shape": str(shape), "S": sk.n_slots, "K": tiled_counts,
+              "boundaries": ["periodic", "open"], "tiles": ["planned", *forced],
+              "planned_K8": ck.tile_plan(sk, 8), "max_abs_err": worst})
     try:
         ck.stencil_cheb_step_tiled(data_pairs, sk_pairs, random_vector(23, 4, 1), None, 0.1)
         fail("the tiled step accepted a generic skeleton")
     except ValueError:
         pass
     emit({"phase": "kernels", "held": ["ell_gather_spmm", "ell_gather_cheb_step", "stencil_cheb_step_tiled"],
-          "gather_shapes": len(gather_cases), "tiled_shapes": len(shapes),
+          "gather_shapes": len(gather_cases), "tiled_shapes": len(tiled_shapes),
           "tolerance": {"against_plain_and_general": "atol=rtol=2e-4 vs complex64 plain and vs ell_spmm / ell_cheb_step",
                         "partials": "1e-4 of the largest sum vs complex128 plain", "repeat": "second launch bit-equal"},
           "max_abs_err": {**gather_err, **tiled_err}, "launches": ck.launch_counts()})
@@ -1406,8 +1437,8 @@ def main(argv) -> int:
         natural_bwb = int(np.abs(sk.cols[rows_nat, slots_nat] - rows_nat).max())
         emit({"phase": "generic", "call": "plan_gather(K=8): RCM relabelling and launch plan", "wall_s": t_plan,
               "natural_bwb": natural_bwb, "relabelled": bool((gl.rank != np.arange(N)).any()), "bwb": gl.bwb, "T": gl.T,
-              "TK": gl.TK, "threads": gl.threads, "window_sites": gl.window, "smem_bytes": gl.smem_bytes,
-              "n_tiles": gl.n_tiles})
+              "TK": gl.TK, "threads": gl.threads, "window_sites": gl.window, "ring_rows": gl.ring,
+              "depth": gl.depth, "run": gl.run, "ctas": gl.ctas, "smem_bytes": gl.smem_bytes})
 
         expected = counts()
 
@@ -1445,7 +1476,8 @@ def main(argv) -> int:
         generic_launches = ck.launch_counts()  # read right after the path
         peak_GB = torch.cuda.max_memory_allocated() / 1e9
         mid, outside = len(energies) // 2, np.abs(energies) >= 0.5
-        check(generic_launches == expected, f"launch counters {generic_launches} != expected {expected}")
+        check(generic_launches == expected and (expected["ell_gather_spmm"], expected["ell_gather_cheb_step"]) == (121, 896),
+              f"launch counters {generic_launches} != expected {expected} (121 / 896)")
         check(generic_launches["ell_gather_spmm"] > 0 and generic_launches["ell_gather_cheb_step"] > 0
               and generic_launches["ell_spmm"] == 0 and generic_launches["ell_cheb_step"] == 0,
               "the generic path did not go through the gather kernels alone")
@@ -1517,10 +1549,20 @@ def main(argv) -> int:
         ok, err = compare_gather(sk, gl, data_nat, K, seed=81)
         check(ok, f"gather kernel disagrees at {label}: {err}")
         for K_path in (1, 4, 16):  # the other widths the path above ran: the bound, ldos, ldos_map
-            ok, err_k = compare_gather(sk, cg.plan_gather(sk, K_path), data_nat, K_path, seed=84 + K_path)
+            gl_k = cg.plan_gather(sk, K_path)
+            ok, err_k = compare_gather(sk, gl_k, data_nat, K_path, seed=84 + K_path)
             check(ok, f"gather kernel disagrees at {label}, K={K_path}: {err_k}")
+            # Device ms at this width, beside the general kernels on the same relabelled operator.
+            d_k, v_k, p_k = gl_k.relabel(data_nat).contiguous(), random_vector(N, K_path, 88), random_vector(N, K_path, 89)
+            o_k = torch.empty_like(v_k)
+            ms_k = {"ell_gather_spmm": timed_ms(lambda: cg.ell_gather_spmm(d_k, gl_k, v_k), 50),
+                    "ell_gather_cheb_step": timed_ms(lambda: cg.ell_gather_cheb_step(d_k, gl_k, v_k, p_k, 0.125, out=o_k), 50),
+                    "ell_spmm": timed_ms(lambda: ck.ell_spmm(d_k, gl_k.sk, v_k), 50),
+                    "ell_cheb_step": timed_ms(lambda: ck.ell_cheb_step(d_k, gl_k.sk, v_k, p_k, 0.125, out=o_k), 50)}
             emit({"phase": "generic", "held": label, "K": K_path, "max_abs_err": err_k,
-                  "tolerance": "atol=rtol=2e-4 vs complex64 plain; sums 1e-4 vs complex128 plain"})
+                  "tolerance": "atol=rtol=2e-4 vs complex64 plain; sums 1e-4 vs complex128 plain",
+                  "plan_T_TK_depth_run_ctas": [gl_k.T, gl_k.TK, gl_k.depth, gl_k.run, gl_k.ctas], "ms": ms_k})
+            del d_k, v_k, p_k, o_k
         t_cur, t_prev = random_vector(N, K, 82), random_vector(N, K, 83)
         out = torch.empty_like(t_cur)
         lib_layout, lib_fn, lib_y, lib_errors = library_spmm(data_rel, gl.sk, t_cur)
@@ -1554,9 +1596,26 @@ def main(argv) -> int:
                 [first[name], second[name]])
         emit({"phase": "generic", "comparison": "gather against general kernels, natural against relabelled order",
               "N": N, "S": S, "K": K, "natural_bwb": natural_bwb, "bwb": gl.bwb, "T": gl.T, "TK": gl.TK,
-              "threads": gl.threads, "ms": {name: min(first[name], second[name]) for name in fns},
-              "runs_ms": {name: [first[name], second[name]] for name in fns}})
-        del data_rel, t_cur, t_prev, out, fns
+              "depth": gl.depth, "run": gl.run, "ctas": gl.ctas, "threads": gl.threads, "smem_bytes": gl.smem_bytes,
+              "ms": {name: min(first[name], second[name]) for name in fns},
+              "runs_ms": {name: [first[name], second[name]] for name in fns},
+              "ratio_step": min(first["ell_gather_cheb_step"], second["ell_gather_cheb_step"])
+              / min(first["ell_cheb_step relabelled"], second["ell_cheb_step relabelled"]),
+              "ratio_product": min(first["ell_gather_spmm"], second["ell_gather_spmm"])
+              / min(first["ell_spmm relabelled"], second["ell_spmm relabelled"])})
+        # Measured variants of the plan on the same operands: tiles of 64 and 32
+        # rows (deeper rings), and two waves of blocks (runs of half the length).
+        variants = {"planned": fns["ell_gather_cheb_step"], "ell_cheb_step relabelled": fns["ell_cheb_step relabelled"]}
+        for tile in (64, 32, (gl.T, -(-gl.run // 2))):
+            gl_v = cg.plan_gather(sk, K, tile)
+            variants[f"tile={tile} T={gl_v.T} depth={gl_v.depth} run={gl_v.run} threads={gl_v.threads}"] = (
+                lambda gl_v=gl_v: cg.ell_gather_cheb_step(data_rel, gl_v, t_cur, t_prev, 0.125, out=out))
+        var_runs = {name: [timed_ms(fn, 50)] for name, fn in variants.items()}
+        for name, fn in reversed(list(variants.items())):
+            var_runs[name].append(timed_ms(fn, 50))
+        emit({"phase": "generic", "variants_of": "ell_gather_cheb_step", "K": K,
+              "ms": {name: min(r) for name, r in var_runs.items()}, "runs_ms": var_runs})
+        del data_rel, t_cur, t_prev, out, fns, variants
 
         # The same sheet numbered along y: its natural band is one row of 256
         # sites, no relabelling beats it, and the window fits at TK = 8.  The
@@ -1652,8 +1711,30 @@ def main(argv) -> int:
                 row = bound_row("stencil_cheb_step_tiled", label, sk, K, min(runs), plain,
                                 chebyshev_step_bytes(sk, K, 8), spmm_flops(sk, K),
                                 err["stencil_cheb_step_tiled"], None, "none", runs)
+                plan = ck.tile_plan(sk, K)
                 emit({"phase": "tiled", "shape": label, "K": K, "stencil_cheb_step_tiled_ms": min(runs),
-                      "ell_cheb_step_ms": min(untiled_runs), "ratio": min(runs) / min(untiled_runs)})
+                      "ell_cheb_step_ms": min(untiled_runs), "ratio": min(runs) / min(untiled_runs),
+                      "bound_ms": row["bound_ms"], "runs_ms": runs, "ell_cheb_step_runs_ms": untiled_runs,
+                      "plan": plan})
+                if N > 100_000 and K == 8:
+                    # Measured variants of the plan: the ring's depth (rows in
+                    # flight), a strip of two sites a thread, and four waves.
+                    items = plan["n_strips"] * sk.shape[0]
+                    forced = {"NR=4 (one row in flight)": (plan["PB"], plan["XR"], 4),
+                              "NR=3 (no row in flight)": (plan["PB"], plan["XR"], 3),
+                              "PB=64": (64, -(-(-(-(sk.shape[1] * sk.shape[2]) // 64) * sk.shape[0]) // plan["ctas"]), 5),
+                              "XR/4 (four waves)": (plan["PB"], -(-plan["XR"] // 4), 5)}
+                    variants = {"planned": tiled, "ell_cheb_step": untiled}
+                    for name, tile in forced.items():
+                        check(ck.tile_plan(sk, K, tile)["smem_bytes"] > 0, name)
+                        variants[f"{name} {tile}"] = (
+                            lambda tile=tile: ck.stencil_cheb_step_tiled(system.data, sk, t_cur, t_prev, 0.125,
+                                                                         out=out, tile=tile))
+                    var_runs = {name: [timed_ms(fn, reps)] for name, fn in variants.items()}
+                    for name, fn in reversed(list(variants.items())):
+                        var_runs[name].append(timed_ms(fn, reps))
+                    emit({"phase": "tiled", "variants_of": label, "K": K, "items": items,
+                          "ms": {name: min(r) for name, r in var_runs.items()}, "runs_ms": var_runs})
                 if K == 8:
                     rows.setdefault("stencil_cheb_step_tiled", row)  # the first shape is N = 10⁶
                 del t_cur, t_prev, out
@@ -1683,9 +1764,21 @@ def main(argv) -> int:
                     check(ok, f"{label}: tiled kernel disagrees with its plain version at K={K}: {err_t}")
                     err.update(err_t)
                 worst = {n: max(worst.get(n, 0.0), v) for n, v in err.items()}
-            emit({"phase": "lowest", "held": label, "N": system.skeleton.n_sites, "K": sorted({1, *widths}),
+            # Device ms a step at each width (back-to-back launches: at N = 1024 this
+            # is the launch rate, not memory).
+            N_l = system.skeleton.n_sites
+            ms = {}
+            for K in sorted(widths):
+                t_cur, t_prev = random_vector(N_l, K, 960), random_vector(N_l, K, 961)
+                out = torch.empty_like(t_cur)
+                ms[K] = {"ell_cheb_step": timed_ms(lambda: ck.ell_cheb_step(system.data, system.skeleton, t_cur,
+                                                                            t_prev, 0.125, out=out), 200)}
+                if tiled:
+                    ms[K]["stencil_cheb_step_tiled"] = timed_ms(lambda: ck.stencil_cheb_step_tiled(
+                        system.data, system.skeleton, t_cur, t_prev, 0.125, out=out), 200)
+            emit({"phase": "lowest", "held": label, "N": N_l, "K": sorted({1, *widths}),
                   "tolerance": "atol=rtol=2e-4 vs complex64 plain; sums 1e-4 vs complex128 plain",
-                  "max_abs_err": worst})
+                  "max_abs_err": worst, "step_ms_by_width": ms})
 
         def modulated(shape, pot):
             """s-wave lattice (Δ = 0.2, μ = 0.5, periodic) with a weak incommensurate
@@ -1719,8 +1812,8 @@ def main(argv) -> int:
         emit({"phase": "lowest", "call": "32x32: diagonalize(method='lanczos', k=4)", "wall_s": wall, "E": E_l.tolist(),
               "residual_max": float(np.abs(H @ X_l - X_l * E_l).max()), **errs,
               "launches": {n: v for n, v in launched.items() if v}, "tolerance": 1e-6})
-        check(launched["ell_cheb_step"] > 0 and launched["ell_spmm"] == 60
-              and launched["stencil_cheb_step_tiled"] == 0, f"32x32 lanczos launched {launched}")
+        check(launched["ell_cheb_step"] == 90962 and launched["ell_spmm"] == 60
+              and launched["stencil_cheb_step_tiled"] == 0, f"32x32 lanczos launched {launched} (90962 steps)")
         check(max(errs.values()) <= 1e-6, f"32x32 lowest states disagree: {errs}")
         untiled_steps = launched["ell_cheb_step"]
 

@@ -6,6 +6,8 @@ the façade and a gradient on a ring.  The port runs its plain versions on the
 CPU; the CUDA kernels themselves are held against these on the card by
 ``chip_smoke.py``."""
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -104,9 +106,13 @@ def test_layout_matches_reference_plan(name, K):
     assert np.array_equal(handed.rel, gl.rel) and (handed.T, handed.TK) == (gl.T, gl.TK)
     with pytest.raises(ValueError, match="within bwb"):
         gather_layout_from_numpy(sk_t, gl_j.rank, max(gl_j.bwb - 1, 0), K)
-    # The launch plan: the window fits shared memory, TK covers min(K, 8).
-    assert gl.window * (4 * gl.TK + 2) * 8 == gl.smem_bytes <= cg.SMEM_LIMIT - cg.TREE_BYTES
-    assert gl.TK == ck.probe_tile(K) and gl.T % 32 == 0
+    # The launch plan: the ring (the window and the tiles in flight) fits shared
+    # memory, TK covers min(K, 8), a thread takes one site of a tile, and the
+    # blocks' runs cover every row once.
+    site = (4 * gl.TK + (2 if gl.TK % 2 == 0 and K % 2 == 0 else 1)) * 8
+    assert gl.ring == 2 * gl.bwb + (gl.depth + 1) * gl.T and gl.ring * site == gl.smem_bytes <= cg.SMEM_LIMIT
+    assert gl.TK == ck.probe_tile(K) and min(gl.T * gl.TK, cg.THREADS) <= gl.threads <= cg.THREADS
+    assert gl.run >= gl.T and gl.ctas == -(-N // gl.run)
 
 
 @pytest.mark.parametrize("name,K,seed", [("ring300", 4, 1), ("generic10x40", 2, 5)])
@@ -278,3 +284,36 @@ def test_gather_requests_that_cannot_run_raise(monkeypatch):
     finally:
         cg.plan_gather.cache_clear()
     assert ck.launch_counts()["ell_gather_spmm"] == 0 and ck.launch_counts()["ell_gather_cheb_step"] == 0
+
+
+def _window_rule_tk(bwb, K, tile):
+    """TK of the window rule, restated: the widest TK ≤ min(probe_tile(K), 8)
+    whose window of ``T + 2·bwb`` rows at 8·(4·TK + 2) bytes fits beside 8 KB,
+    with T = 32 or the forced T; ``None`` where none fits."""
+    for TK in (8, 4, 2, 1):
+        room = (cg.SMEM_LIMIT - cg.TREE_BYTES) // ((4 * TK + 2) * 8) - 2 * bwb
+        if TK <= min(ck.probe_tile(K), 8) and (32 if tile is None else tile) <= room:
+            return TK
+    return None
+
+
+@pytest.mark.parametrize("Ks", [(1, 3), (8, 33)])
+def test_launch_plan_feasibility_unchanged(Ks):
+    """Plan only (no kernel, no product): the sliding-window plan is feasible
+    exactly where the window rule says, with the same TK, so ``supported_gather``
+    and with it the step's dispatch answer as before; every ring fits shared
+    memory, and the runs of a plan without a card give each of an H100's 132
+    SMs one block per column tile."""
+    for K, bwb, tile in itertools.product(Ks, range(0, 3000, 13), (None, 32, 160)):
+        plan = cg._launch_plan(250855, bwb, K, tile)
+        assert (plan is None) == (_window_rule_tk(bwb, K, tile) is None)
+        if plan is None:
+            continue
+        T, TK, depth, run, ctas, threads, smem = plan
+        assert TK == _window_rule_tk(bwb, K, tile) and (tile is None or T == tile)
+        site = (4 * TK + (2 if TK % 2 == 0 and K % 2 == 0 else 1)) * 8
+        assert smem == (2 * bwb + (depth + 1) * T) * site <= cg.SMEM_LIMIT and 0 <= depth <= cg.MAX_DEPTH
+        assert ctas == -(-250855 // run) and ctas * -(-K // TK) <= ck.DEFAULT_SMS
+    # The sheet's shape (bwb 293 after RCM): tiles of 128 rows, one in flight, 1901 rows a block.
+    assert cg._launch_plan(250855, 293, 8) == (128, 8, 1, 1901, 132, 1024, 229024)
+    assert cg._launch_plan(23, 10, 3, (32, 8))[3:5] == (8, 3)  # forced T and run: three blocks

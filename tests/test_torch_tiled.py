@@ -65,9 +65,13 @@ def check_tiled_plain_against_general(shape, pbc):
         np.testing.assert_allclose(pp.numpy(), pp_want.numpy(), rtol=1e-12, atol=1e-12)
     plan = ck.tile_plan(sk, K)
     Lx, Ly, Lz = shape
+    M = Ly * Lz
     assert plan["h"] == (Lz if Ly > 1 else Lz - 1) and plan["TK"] == 4
-    assert plan["n_tiles"] == -(-Lx // plan["XB"]) * -(-(Ly * Lz) // plan["PB"])
-    assert plan["smem_bytes"] <= ck.SMEM_LIMIT - 2 * ck.TILED_THREADS * 4
+    assert plan["n_strips"] == -(-M // plan["PB"]) and 1 <= plan["PB"] <= M
+    assert plan["ctas"] == -(-(plan["n_strips"] * Lx) // plan["XR"])  # the blocks' items cover the lattice once
+    site = (4 * plan["TK"] + 1) * 8  # K = 3: 8-byte copies, one float2 of padding
+    assert plan["smem_bytes"] == plan["NR"] * (plan["PB"] + 2 * plan["h"]) * site
+    assert plan["smem_bytes"] <= ck.SMEM_LIMIT - 2 * ck.TILED_THREADS * 4 and 3 <= plan["NR"] <= 6
 
 
 @pytest.mark.parametrize("shape", [(6, 5, 1), (4, 4, 3), (3, 1, 5), (1, 6, 4)])
@@ -138,5 +142,29 @@ def test_tiled_dispatch_and_env_knob(monkeypatch):
     with pytest.raises(RuntimeError, match="CPU"):
         ck.stencil_cheb_step_tiled(data, sk, v0, None, 0.1, impl="cuda")
     with pytest.raises(ValueError, match="does not fit"):
-        ck.tile_plan(sk, 8, tile=(64, 512))
+        ck.tile_plan(sk, 8, tile=(64, 512))  # a strip wider than the plane of 5 sites
+    with pytest.raises(ValueError, match="does not fit"):
+        ck.tile_plan(tbs.skeleton((1, 40, 40)), 8, tile=(1600, 1))  # a ring of 4 × 1680 sites
+    assert ck.tile_plan(sk, 8, tile=(3, 4, 5))["NR"] == 5 and ck.tile_plan(sk, 8, tile=(3, 4))["NR"] == 4
     assert ck.launch_counts()["stencil_cheb_step_tiled"] == 0  # plain versions count no launch
+
+
+@pytest.mark.parametrize("shapes", [[(1000, 1000, 1), (64, 64, 4)], [(32, 32, 1), (32, 32, 32)]])
+def test_tile_plan_fills_one_wave(shapes):
+    """Plan only (no kernel): at K = 1, 8 and 64 the default plan's ring fits
+    the three blocks an SM holds (or fewer, at the 32³ lattice's halo of 32),
+    strips are a block's rows of sites or wider, and the blocks of all column
+    tiles are one wave on an H100's 132 SMs, so at K = 64 the eight column
+    tiles of a strip run side by side."""
+    for shape in shapes:
+        sk = tbs.skeleton(shape)
+        M = shape[1] * shape[2]
+        for K in (1, 8, 64):
+            plan = ck.tile_plan(sk, K)
+            per_sm = next(n for n in (3, 2, 1)
+                          if plan["smem_bytes"] + 2 * ck.TILED_THREADS * 4 <= ck.SM_SHARED // n - ck.BLOCK_RESERVED)
+            rows = ck.TILED_THREADS // plan["TK"]
+            assert plan["PB"] == min(M, rows * max(1, -(-2 * plan["h"] // rows)))
+            assert plan["ctas"] * -(-K // plan["TK"]) <= per_sm * ck.DEFAULT_SMS
+            assert plan["NR"] >= 4  # at least one row in flight
+        assert (per_sm, plan["NR"]) == ((3, 5) if shape != (32, 32, 32) else (1, 4))
