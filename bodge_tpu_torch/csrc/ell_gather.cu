@@ -56,17 +56,24 @@
 // Aliasing as in ell_spmm.cu: t_next must not alias t_cur (other blocks stage
 // it); it may alias t_prev (each thread reads its own entries before writing).
 // All element offsets are 64-bit.
+//
+// Operator forms (template parameter OP, operator_form.cuh): complex64
+// (OP = float4) or the bf16 form (OP = uint4, four 16-byte loads a block,
+// upcast to float32 in registers), the counterpart of the reference's
+// bfloat16 operator storage (pallas_gather.py:223-226).  The ring holds
+// vectors only, so its plan does not depend on the operator's form.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "operator_form.cuh"
 
 namespace {
 
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_DEPTH = 2;  // tiles in flight
 constexpr int BLK = 4;
-constexpr int BLK_FLOAT4 = 8;
 constexpr int PAD_REL = INT_MIN;
 constexpr size_t SMEM_LIMIT = 232448;  // 227 KB a block may use on sm_90
 
@@ -102,9 +109,9 @@ __device__ __forceinline__ void wait_groups(int pending) {
     asm volatile("cp.async.wait_group 2;\n" ::: "memory");
 }
 
-template <bool CHEB, int VEC>
+template <bool CHEB, int VEC, typename OP>
 __global__ void __launch_bounds__(MAX_THREADS)
-gather_kernel(const float4* __restrict__ data, const int* __restrict__ rel,
+gather_kernel(const OP* __restrict__ data, const int* __restrict__ rel,
               const float2* __restrict__ t_cur, const float2* t_prev, float2* t_next,
               float* __restrict__ partials, float two_inv, Plan pl) {
   extern __shared__ float4 ring4[];
@@ -195,16 +202,16 @@ gather_kernel(const float4* __restrict__ data, const int* __restrict__ rel,
         for (int a2 = 0; a2 < BLK; ++a2) acc[a2] = make_float2(0.f, 0.f);
 
         const int* rrow = rel + (size_t)n * S;
-        const float4* drow = data + (size_t)n * S * BLK_FLOAT4;
+        const OP* drow = data + (size_t)n * S * opform::Op<OP>::PER_BLOCK;
 #pragma unroll 4
         for (int s = 0; s < S; ++s) {
           // The block's loads come first and unconditionally (a padding
           // slot's block is allocated too), so that the compiler can keep the
           // loads of several slots in flight.
-          const float4* blk = drow + (size_t)s * BLK_FLOAT4;
-          float4 d[2 * BLK];
+          const OP* blk = drow + (size_t)s * opform::Op<OP>::PER_BLOCK;
+          OP d[opform::Op<OP>::PER_BLOCK];
 #pragma unroll
-          for (int e = 0; e < 2 * BLK; ++e) d[e] = __ldg(blk + e);
+          for (int e = 0; e < opform::Op<OP>::PER_BLOCK; ++e) d[e] = __ldg(blk + e);
           const int r = __ldg(rrow + s);
           if (r == PAD_REL) continue;  // padding slot
           int q = qn + r;
@@ -216,12 +223,21 @@ gather_kernel(const float4* __restrict__ data, const int* __restrict__ rel,
           for (int b = 0; b < BLK; ++b) vb[b] = vrow[b * pl.TK];
 #pragma unroll
           for (int a2 = 0; a2 < BLK; ++a2) {
-            const float4 d01 = d[2 * a2];      // entries (a,0), (a,1)
-            const float4 d23 = d[2 * a2 + 1];  // entries (a,2), (a,3)
-            cfma(acc[a2], d01.x, d01.y, vb[0]);
-            cfma(acc[a2], d01.z, d01.w, vb[1]);
-            cfma(acc[a2], d23.x, d23.y, vb[2]);
-            cfma(acc[a2], d23.z, d23.w, vb[3]);
+            if constexpr (opform::Op<OP>::PER_BLOCK == 8) {  // complex64
+              const float4 d01 = d[2 * a2];      // entries (a,0), (a,1)
+              const float4 d23 = d[2 * a2 + 1];  // entries (a,2), (a,3)
+              cfma(acc[a2], d01.x, d01.y, vb[0]);
+              cfma(acc[a2], d01.z, d01.w, vb[1]);
+              cfma(acc[a2], d23.x, d23.y, vb[2]);
+              cfma(acc[a2], d23.z, d23.w, vb[3]);
+            } else {  // bf16 pairs: entries (a,0) .. (a,3) in one 16-byte word
+              const float2 e0 = opform::bf16_pair(d[a2].x), e1 = opform::bf16_pair(d[a2].y);
+              const float2 e2 = opform::bf16_pair(d[a2].z), e3 = opform::bf16_pair(d[a2].w);
+              cfma(acc[a2], e0.x, e0.y, vb[0]);
+              cfma(acc[a2], e1.x, e1.y, vb[1]);
+              cfma(acc[a2], e2.x, e2.y, vb[2]);
+              cfma(acc[a2], e3.x, e3.y, vb[3]);
+            }
           }
         }
 
@@ -272,11 +288,11 @@ gather_kernel(const float4* __restrict__ data, const int* __restrict__ rel,
 
 bool power_of_two(int v) { return v >= 1 && (v & (v - 1)) == 0; }
 
-template <bool CHEB, int VEC>
+template <bool CHEB, int VEC, typename OP>
 int launch(const void* data, const void* rel, const void* t_cur, const void* t_prev, void* t_next,
            void* partials, float two_inv, const Plan& pl, int threads, int ctas, size_t smem,
            cudaStream_t stream) {
-  auto kernel = gather_kernel<CHEB, VEC>;
+  auto kernel = gather_kernel<CHEB, VEC, OP>;
   // Without the opt-in a block gets 48 KB; one block an SM is planned, so the
   // carveout gives shared memory all it can take.
   if (smem > 48 * 1024) {
@@ -287,14 +303,14 @@ int launch(const void* data, const void* rel, const void* t_cur, const void* t_p
                                          (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)ctas, (unsigned)((pl.K + pl.TK - 1) / pl.TK), 1);
-  kernel<<<grid, threads, smem, stream>>>((const float4*)data, (const int*)rel, (const float2*)t_cur,
+  kernel<<<grid, threads, smem, stream>>>((const OP*)data, (const int*)rel, (const float2*)t_cur,
                                           (const float2*)t_prev, (float2*)t_next, (float*)partials,
                                           two_inv, pl);
   return (int)cudaGetLastError();
 }
 
 template <bool CHEB>
-int dispatch(const void* data, const void* rel, const void* t_cur, const void* t_prev, void* t_next,
+int dispatch(const void* data, int bf16, const void* rel, const void* t_cur, const void* t_prev, void* t_next,
              void* partials, float two_inv, long long N, int S, int K, int TK, int T, int bwb, int D,
              long long run, int ctas, int threads, void* stream) {
   if (!power_of_two(TK) || TK > 32 || !power_of_two(threads) || threads > MAX_THREADS ||
@@ -309,11 +325,12 @@ int dispatch(const void* data, const void* rel, const void* t_cur, const void* t
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (CHEB && smem < 2 * threads * sizeof(float)) smem = 2 * threads * sizeof(float);  // the tree
   const Plan pl{N, S, K, TK, T, bwb, D, (int)R, run};
-  if (vec == 2)
-    return launch<CHEB, 2>(data, rel, t_cur, t_prev, t_next, partials, two_inv, pl, threads, ctas, smem,
-                           (cudaStream_t)stream);
-  return launch<CHEB, 1>(data, rel, t_cur, t_prev, t_next, partials, two_inv, pl, threads, ctas, smem,
-                         (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define GATHER_LAUNCH(V, OP) \
+  launch<CHEB, V, OP>(data, rel, t_cur, t_prev, t_next, partials, two_inv, pl, threads, ctas, smem, st)
+  if (bf16) return vec == 2 ? GATHER_LAUNCH(2, uint4) : GATHER_LAUNCH(1, uint4);
+  return vec == 2 ? GATHER_LAUNCH(2, float4) : GATHER_LAUNCH(1, float4);
+#undef GATHER_LAUNCH
 }
 
 }  // namespace
@@ -323,20 +340,21 @@ int dispatch(const void* data, const void* rel, const void* t_cur, const void* t
 // (ops/cuda_gather.plan_gather): TK probe columns and `run` rows a block,
 // ctas = ceil(N / run) blocks a column tile, tiles of T rows, D tiles in
 // flight (0 <= D <= MAX_DEPTH), `threads` a block; the step's partials are
-// ctas rows of 2K floats.
+// ctas rows of 2K floats.  `bf16`: 0 for a complex64 operator, 1 for the bf16
+// form.
 
-extern "C" int ell_gather_spmm_launch(const void* data, const void* rel, const void* v, void* y,
+extern "C" int ell_gather_spmm_launch(const void* data, int bf16, const void* rel, const void* v, void* y,
                                       long long N, int S, int K, int TK, int T, int bwb, int D,
                                       long long run, int ctas, int threads, void* stream) {
-  return dispatch<false>(data, rel, v, nullptr, y, nullptr, 0.f, N, S, K, TK, T, bwb, D, run, ctas,
+  return dispatch<false>(data, bf16, rel, v, nullptr, y, nullptr, 0.f, N, S, K, TK, T, bwb, D, run, ctas,
                          threads, stream);
 }
 
-extern "C" int ell_gather_cheb_step_launch(const void* data, const void* rel, const void* t_cur,
+extern "C" int ell_gather_cheb_step_launch(const void* data, int bf16, const void* rel, const void* t_cur,
                                            const void* t_prev, void* t_next, void* partials,
                                            float inv, long long N, int S, int K, int TK, int T,
                                            int bwb, int D, long long run, int ctas, int threads,
                                            void* stream) {
-  return dispatch<true>(data, rel, t_cur, t_prev, t_next, partials, 2.0f * inv, N, S, K, TK, T,
+  return dispatch<true>(data, bf16, rel, t_cur, t_prev, t_next, partials, 2.0f * inv, N, S, K, TK, T,
                         bwb, D, run, ctas, threads, stream);
 }

@@ -76,9 +76,20 @@
 // planes travel, and the boundary rows after; partials then hold one row per
 // thread block of the range.  The bound is the same as above, plus the two
 // halo planes read once.
+//
+// Operator forms (template parameter OP, operator_form.cuh): the forward
+// kernels and their halo forms take the operator as complex64 (OP = float4)
+// or in the bf16 form (OP = uint4: each entry a bf16 (re, im) pair, a block
+// row one 16-byte load, upcast to float32 in registers), the counterpart of
+// the reference's bfloat16 operator storage.  Only the operator's bytes
+// change; vectors, sums and the arithmetic stay float32.  The adjoint takes
+// complex64 only, as the reference's differentiable paths take a float32
+// operator only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "operator_form.cuh"
 
 namespace {
 
@@ -135,9 +146,9 @@ __device__ __forceinline__ const float4* blk_at(const float4* data, const Halo& 
   return data + ((size_t)col * S + slot) * BLK_FLOAT4;
 }
 
-template <bool CHEB, bool ADJ, bool HALO>
+template <bool CHEB, bool ADJ, bool HALO, typename OP>
 __global__ void __launch_bounds__(THREADS)
-ell_kernel(const float4* __restrict__ data, const int* __restrict__ cols,
+ell_kernel(const OP* __restrict__ data, const int* __restrict__ cols,
            const int* __restrict__ mirror, int mirror_per_row,
            const float2* __restrict__ t_cur, const float2* t_prev, float2* t_next,
            float* __restrict__ partials, float two_inv, Epilogue ep, Halo halo,
@@ -158,7 +169,7 @@ ell_kernel(const float4* __restrict__ data, const int* __restrict__ cols,
     for (int a = 0; a < BLK; ++a) acc[a] = make_float2(0.f, 0.f);
 
     const int* crow = cols + (size_t)n * S;
-    const float4* drow = data + (size_t)n * S * BLK_FLOAT4;
+    const OP* drow = data + (size_t)n * S * opform::Op<OP>::PER_BLOCK;
     for (int s = 0; s < S; ++s) {
       const int col = __ldg(crow + s);
       if (col < pad) continue;  // padding slot
@@ -166,7 +177,7 @@ ell_kernel(const float4* __restrict__ data, const int* __restrict__ cols,
       float2 vb[BLK];
 #pragma unroll
       for (int b = 0; b < BLK; ++b) vb[b] = __ldg(vrow + (size_t)b * K);
-      if (ADJ) {
+      if constexpr (ADJ) {
         // The mirror block lives in row `col`; row b of it feeds column b of
         // its conjugate transpose: acc[a] += conj(blk[b][a]) * v[b].
         const int ms = __ldg(mirror + (mirror_per_row ? (size_t)n * S + s : (size_t)s));
@@ -181,15 +192,15 @@ ell_kernel(const float4* __restrict__ data, const int* __restrict__ cols,
           cfma(acc[3], d23.z, -d23.w, vb[b]);
         }
       } else {
-        const float4* blk = drow + (size_t)s * BLK_FLOAT4;
+        const OP* blk = drow + (size_t)s * opform::Op<OP>::PER_BLOCK;
 #pragma unroll
         for (int a = 0; a < BLK; ++a) {
-          const float4 d01 = __ldg(blk + 2 * a);      // entries (a,0), (a,1)
-          const float4 d23 = __ldg(blk + 2 * a + 1);  // entries (a,2), (a,3)
-          cfma(acc[a], d01.x, d01.y, vb[0]);
-          cfma(acc[a], d01.z, d01.w, vb[1]);
-          cfma(acc[a], d23.x, d23.y, vb[2]);
-          cfma(acc[a], d23.z, d23.w, vb[3]);
+          float2 d[BLK];  // entries (a,0) .. (a,3)
+          opform::load_row(blk, a, d);
+          cfma(acc[a], d[0].x, d[0].y, vb[0]);
+          cfma(acc[a], d[1].x, d[1].y, vb[1]);
+          cfma(acc[a], d[2].x, d[2].y, vb[2]);
+          cfma(acc[a], d[3].x, d[3].y, vb[3]);
         }
       }
     }
@@ -270,18 +281,35 @@ bool bad_range(long long N, long long row0, long long row1) {
   return row0 < 0 || row1 < row0 || row1 > N;
 }
 
+// A forward form (product or step, whole or halo) on the operator form the
+// caller names: bf16 != 0 is the bf16 form, else complex64.
+template <bool CHEB, bool HALO>
+void launch_forward(int bf16, long long rows, const void* data, const void* cols, const void* t_cur,
+                    const void* t_prev, void* t_next, void* partials, float two_inv, const Halo& halo,
+                    long long N, int S, int K, int TK, void* stream) {
+  const dim3 grid = grid_for(rows, K, TK);
+  if (bf16)
+    ell_kernel<CHEB, false, HALO, uint4><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint4*)data, (const int*)cols, nullptr, 0, (const float2*)t_cur, (const float2*)t_prev,
+        (float2*)t_next, (float*)partials, two_inv, NO_EPILOGUE, halo, N, S, K, TK);
+  else
+    ell_kernel<CHEB, false, HALO, float4><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float4*)data, (const int*)cols, nullptr, 0, (const float2*)t_cur, (const float2*)t_prev,
+        (float2*)t_next, (float*)partials, two_inv, NO_EPILOGUE, halo, N, S, K, TK);
+}
+
 }  // namespace
 
 // All entry points launch on the given stream, do not synchronise, allocate
-// nothing, and return cudaGetLastError() (0 = launched).
+// nothing, and return cudaGetLastError() (0 = launched).  The forward ones
+// take `bf16`: 0 for a complex64 operator, 1 for the bf16 form.
 
-extern "C" int ell_spmm_launch(const void* data, const void* cols, const void* v, void* y,
+extern "C" int ell_spmm_launch(const void* data, int bf16, const void* cols, const void* v, void* y,
                                long long N, int S, int K, int TK, void* stream) {
   if (bad_tile(TK) || N < 0 || S < 1 || K < 1) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  ell_kernel<false, false, false><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float4*)data, (const int*)cols, nullptr, 0, (const float2*)v, nullptr, (float2*)y,
-      nullptr, 0.f, NO_EPILOGUE, whole(N), N, S, K, TK);
+  launch_forward<false, false>(bf16, N, data, cols, v, nullptr, y, nullptr, 0.f, whole(N), N, S, K, TK,
+                               stream);
   return (int)cudaGetLastError();
 }
 
@@ -298,21 +326,20 @@ extern "C" int ell_spmm_adjoint_launch(const void* data, const void* cols, const
   if (N == 0) return 0;
   const Epilogue ep = {alpha, (const float2*)add, (const float2*)x1, (const float*)c1,
                        (const float2*)x2, (const float*)c2};
-  ell_kernel<false, true, false><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
+  ell_kernel<false, true, false, float4><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
       (const float4*)data, (const int*)cols, (const int*)mirror, mirror_per_row,
       (const float2*)v, nullptr, (float2*)y, nullptr, 0.f, ep, whole(N), N, S, K, TK);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ell_cheb_step_launch(const void* data, const void* cols, const void* t_cur,
+extern "C" int ell_cheb_step_launch(const void* data, int bf16, const void* cols, const void* t_cur,
                                     const void* t_prev, void* t_next, void* partials,
                                     float inv, long long N, int S, int K, int TK,
                                     void* stream) {
   if (bad_tile(TK) || N < 0 || S < 1 || K < 1) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  ell_kernel<true, false, false><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float4*)data, (const int*)cols, nullptr, 0, (const float2*)t_cur, (const float2*)t_prev,
-      (float2*)t_next, (float*)partials, 2.0f * inv, NO_EPILOGUE, whole(N), N, S, K, TK);
+  launch_forward<true, false>(bf16, N, data, cols, t_cur, t_prev, t_next, partials, 2.0f * inv, whole(N),
+                              N, S, K, TK, stream);
   return (int)cudaGetLastError();
 }
 
@@ -322,7 +349,7 @@ extern "C" int ell_cheb_step_launch(const void* data, const void* cols, const vo
 // slab, [P, 4, K]; for the adjoint, dm and dp the operator rows of those
 // planes, [P, S, 4, 4].  None of them may be null, and none may be written.
 
-extern "C" int ell_spmm_halo_launch(const void* data, const void* cols, const void* v,
+extern "C" int ell_spmm_halo_launch(const void* data, int bf16, const void* cols, const void* v,
                                     const void* hm, const void* hp, void* y, long long N, int P,
                                     long long row0, long long row1, int S, int K, int TK,
                                     void* stream) {
@@ -331,13 +358,12 @@ extern "C" int ell_spmm_halo_launch(const void* data, const void* cols, const vo
     return (int)cudaErrorInvalidValue;
   if (row1 == row0) return 0;
   const Halo halo = {(const float2*)hm, (const float2*)hp, nullptr, nullptr, P, row0, row1};
-  ell_kernel<false, false, true><<<grid_for(row1 - row0, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float4*)data, (const int*)cols, nullptr, 0, (const float2*)v, nullptr, (float2*)y,
-      nullptr, 0.f, NO_EPILOGUE, halo, N, S, K, TK);
+  launch_forward<false, true>(bf16, row1 - row0, data, cols, v, nullptr, y, nullptr, 0.f, halo, N, S, K,
+                              TK, stream);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ell_cheb_step_halo_launch(const void* data, const void* cols, const void* t_cur,
+extern "C" int ell_cheb_step_halo_launch(const void* data, int bf16, const void* cols, const void* t_cur,
                                          const void* hm, const void* hp, const void* t_prev,
                                          void* t_next, void* partials, float inv, long long N,
                                          int P, long long row0, long long row1, int S, int K,
@@ -347,9 +373,8 @@ extern "C" int ell_cheb_step_halo_launch(const void* data, const void* cols, con
     return (int)cudaErrorInvalidValue;
   if (row1 == row0) return 0;
   const Halo halo = {(const float2*)hm, (const float2*)hp, nullptr, nullptr, P, row0, row1};
-  ell_kernel<true, false, true><<<grid_for(row1 - row0, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float4*)data, (const int*)cols, nullptr, 0, (const float2*)t_cur, (const float2*)t_prev,
-      (float2*)t_next, (float*)partials, 2.0f * inv, NO_EPILOGUE, halo, N, S, K, TK);
+  launch_forward<true, true>(bf16, row1 - row0, data, cols, t_cur, t_prev, t_next, partials, 2.0f * inv,
+                             halo, N, S, K, TK, stream);
   return (int)cudaGetLastError();
 }
 
@@ -369,7 +394,7 @@ extern "C" int ell_spmm_adjoint_halo_launch(const void* data, const void* dm, co
                        (const float2*)x2, (const float*)c2};
   const Halo halo = {(const float2*)vm, (const float2*)vp, (const float4*)dm, (const float4*)dp,
                      P, 0, N};
-  ell_kernel<false, true, true><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
+  ell_kernel<false, true, true, float4><<<grid_for(N, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
       (const float4*)data, (const int*)cols, (const int*)mirror, 0, (const float2*)v, nullptr,
       (float2*)y, nullptr, 0.f, ep, halo, N, S, K, TK);
   return (int)cudaGetLastError();

@@ -51,16 +51,23 @@
 //
 // Aliasing as in ell_spmm.cu: t_next must not alias t_cur; it may alias
 // t_prev.  All element offsets are 64-bit.
+//
+// Operator forms (template parameter OP, operator_form.cuh): complex64
+// (OP = float4) or the bf16 form (OP = uint4, four 16-byte loads a block,
+// upcast to float32 in registers), the counterpart of the reference's
+// bfloat16 operator storage (pallas_spmm.py:737-743).  The bf16 form halves
+// the operator stream, the one this step loads synchronously.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "operator_form.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int BLOCKS_PER_SM = 3;  // the plan's occupancy: 80 registers a thread at most
 constexpr int BLK = 4;
-constexpr int BLK_FLOAT4 = 8;
 constexpr int MAX_SLOTS = 8;
 constexpr int MAX_DEPTH = 3;  // rows in flight
 constexpr size_t SMEM_LIMIT = 232448;  // 227 KB a block may use on sm_90
@@ -102,9 +109,9 @@ __device__ __forceinline__ void wait_groups(int pending) {
     asm volatile("cp.async.wait_group 2;\n" ::: "memory");
 }
 
-template <int VEC, int S>
+template <int VEC, int S, typename OP>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
-tiled_kernel(const float4* __restrict__ data, const float2* __restrict__ t_cur,
+tiled_kernel(const OP* __restrict__ data, const float2* __restrict__ t_cur,
              const float2* t_prev, float2* t_next, float* __restrict__ partials, float two_inv,
              Plan pl, SlotTable slots) {
   extern __shared__ float4 ring4[];
@@ -211,17 +218,17 @@ tiled_kernel(const float4* __restrict__ data, const float2* __restrict__ t_cur,
 #pragma unroll
           for (int a = 0; a < BLK; ++a) acc[a] = make_float2(0.f, 0.f);
 
-          const float4* drow = data + n * S * BLK_FLOAT4;
+          const OP* drow = data + n * S * opform::Op<OP>::PER_BLOCK;
           const int own = (i + h) * stride + kk;
 #pragma unroll
           for (int s = 0; s < S; ++s) {
             // The block's loads come first and unconditionally (a padding
             // slot's block is allocated too), so that the compiler can keep
             // the loads of several slots in flight.
-            const float4* blk = drow + s * BLK_FLOAT4;
-            float4 d[2 * BLK];
+            const OP* blk = drow + s * opform::Op<OP>::PER_BLOCK;
+            OP d[opform::Op<OP>::PER_BLOCK];
 #pragma unroll
-            for (int e = 0; e < 2 * BLK; ++e) d[e] = __ldg(blk + e);
+            for (int e = 0; e < opform::Op<OP>::PER_BLOCK; ++e) d[e] = __ldg(blk + e);
             const int axis = slots.axis[s];
             if (axis == -2) continue;  // padding slot on every row
             const int dir = slots.dir[s];
@@ -243,12 +250,21 @@ tiled_kernel(const float4* __restrict__ data, const float2* __restrict__ t_cur,
             for (int b = 0; b < BLK; ++b) vb[b] = vrow[b * pl.TK];
 #pragma unroll
             for (int a = 0; a < BLK; ++a) {
-              const float4 d01 = d[2 * a];      // entries (a,0), (a,1)
-              const float4 d23 = d[2 * a + 1];  // entries (a,2), (a,3)
-              cfma(acc[a], d01.x, d01.y, vb[0]);
-              cfma(acc[a], d01.z, d01.w, vb[1]);
-              cfma(acc[a], d23.x, d23.y, vb[2]);
-              cfma(acc[a], d23.z, d23.w, vb[3]);
+              if constexpr (opform::Op<OP>::PER_BLOCK == 8) {  // complex64
+                const float4 d01 = d[2 * a];      // entries (a,0), (a,1)
+                const float4 d23 = d[2 * a + 1];  // entries (a,2), (a,3)
+                cfma(acc[a], d01.x, d01.y, vb[0]);
+                cfma(acc[a], d01.z, d01.w, vb[1]);
+                cfma(acc[a], d23.x, d23.y, vb[2]);
+                cfma(acc[a], d23.z, d23.w, vb[3]);
+              } else {  // bf16 pairs: entries (a,0) .. (a,3) in one 16-byte word
+                const float2 e0 = opform::bf16_pair(d[a].x), e1 = opform::bf16_pair(d[a].y);
+                const float2 e2 = opform::bf16_pair(d[a].z), e3 = opform::bf16_pair(d[a].w);
+                cfma(acc[a], e0.x, e0.y, vb[0]);
+                cfma(acc[a], e1.x, e1.y, vb[1]);
+                cfma(acc[a], e2.x, e2.y, vb[2]);
+                cfma(acc[a], e3.x, e3.y, vb[3]);
+              }
             }
           }
 
@@ -301,11 +317,11 @@ int carveout_for(size_t bytes) {
   return 100;
 }
 
-template <int VEC, int S>
+template <int VEC, int S, typename OP>
 int launch(const void* data, const void* t_cur, const void* t_prev, void* t_next, void* partials,
            float two_inv, const Plan& pl, int ctas, size_t smem, const SlotTable& slots,
            cudaStream_t stream) {
-  auto kernel = tiled_kernel<VEC, S>;
+  auto kernel = tiled_kernel<VEC, S, OP>;
   // Without the opt-in a block gets 48 KB in all, the reduction tree's static
   // 2 KB included.  The carveout asks for the shared memory of the
   // BLOCKS_PER_SM blocks an SM is planned to hold, and leaves the rest to L1.
@@ -318,7 +334,7 @@ int launch(const void* data, const void* t_cur, const void* t_prev, void* t_next
                                          carveout_for(BLOCKS_PER_SM * (smem + tree + 1024)));
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)ctas, (unsigned)((pl.K + pl.TK - 1) / pl.TK), 1);
-  kernel<<<grid, THREADS, smem, stream>>>((const float4*)data, (const float2*)t_cur, (const float2*)t_prev,
+  kernel<<<grid, THREADS, smem, stream>>>((const OP*)data, (const float2*)t_cur, (const float2*)t_prev,
                                           (float2*)t_next, (float*)partials, two_inv, pl, slots);
   return (int)cudaGetLastError();
 }
@@ -331,8 +347,9 @@ int launch(const void* data, const void* t_cur, const void* t_prev, void* t_next
 // (ops/cuda_spmm.tile_plan): TK probe columns a block, strips of PB in-plane
 // sites, halo h, a ring of NR rows (3 <= NR <= 3 + MAX_DEPTH), XR items a
 // block, and ctas = ceil(ceil(M / PB) * Lx / XR) blocks a column tile, whose
-// partials are ctas rows of 2K floats.
-extern "C" int stencil_cheb_step_tiled_launch(const void* data, const void* t_cur, const void* t_prev,
+// partials are ctas rows of 2K floats.  `bf16`: 0 for a complex64 operator, 1
+// for the bf16 form.
+extern "C" int stencil_cheb_step_tiled_launch(const void* data, int bf16, const void* t_cur, const void* t_prev,
                                               void* t_next, void* partials, float inv,
                                               int Lx, int Ly, int Lz, int S, int K, int TK,
                                               int PB, int h, int NR, int XR, int ctas,
@@ -358,19 +375,23 @@ extern "C" int stencil_cheb_step_tiled_launch(const void* data, const void* t_cu
   if (smem + 2 * THREADS * sizeof(float) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const float two_inv = 2.0f * inv;
   cudaStream_t st = (cudaStream_t)stream;
-#define TILED_LAUNCH(V, NS) \
-  launch<V, NS>(data, t_cur, t_prev, t_next, partials, two_inv, pl, ctas, smem, slots, st)
-  // A cubic stencil has the diagonal and two slots an axis that is not flat.
-  switch (S * 2 + (vec == 2 ? 1 : 0)) {
-    case 2: return TILED_LAUNCH(1, 1);
-    case 3: return TILED_LAUNCH(2, 1);
-    case 6: return TILED_LAUNCH(1, 3);
-    case 7: return TILED_LAUNCH(2, 3);
-    case 10: return TILED_LAUNCH(1, 5);
-    case 11: return TILED_LAUNCH(2, 5);
-    case 14: return TILED_LAUNCH(1, 7);
-    case 15: return TILED_LAUNCH(2, 7);
-    default: return (int)cudaErrorInvalidValue;
+#define TILED_LAUNCH(V, NS, OP) \
+  launch<V, NS, OP>(data, t_cur, t_prev, t_next, partials, two_inv, pl, ctas, smem, slots, st)
+#define TILED_SWITCH(OP)                         \
+  switch (S * 2 + (vec == 2 ? 1 : 0)) {          \
+    case 2: return TILED_LAUNCH(1, 1, OP);       \
+    case 3: return TILED_LAUNCH(2, 1, OP);       \
+    case 6: return TILED_LAUNCH(1, 3, OP);       \
+    case 7: return TILED_LAUNCH(2, 3, OP);       \
+    case 10: return TILED_LAUNCH(1, 5, OP);      \
+    case 11: return TILED_LAUNCH(2, 5, OP);      \
+    case 14: return TILED_LAUNCH(1, 7, OP);      \
+    case 15: return TILED_LAUNCH(2, 7, OP);      \
+    default: return (int)cudaErrorInvalidValue; \
   }
+  // A cubic stencil has the diagonal and two slots an axis that is not flat.
+  if (bf16) TILED_SWITCH(uint4)
+  TILED_SWITCH(float4)
+#undef TILED_SWITCH
 #undef TILED_LAUNCH
 }

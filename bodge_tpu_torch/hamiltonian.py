@@ -363,14 +363,16 @@ class Hamiltonian:
     # ------------------------------------------------------------------
     # Operator application
     # ------------------------------------------------------------------
-    def apply(self, v, *, impl: Optional[str] = None):
+    def apply(self, v, *, impl: Optional[str] = None, operator_dtype=None):
         """Block-sparse product ``H @ v`` for ``v: [N, 4, K]`` (array or tensor).
 
         Returns a tensor on the Hamiltonian's device.  ``impl=None`` is the
-        CUDA kernel on the card and the plain product on the CPU.
+        CUDA kernel on the card and the plain product on the CPU;
+        ``operator_dtype="bf16"`` multiplies with the operator in the bf16
+        form (:func:`bodge_tpu_torch.ops.spmm.spmm`).
         """
         v = torch.as_tensor(v).to(device=self.device, dtype=self._data.dtype)
-        return _spmm(self._data, self._sk, v.contiguous(), impl=impl)
+        return _spmm(self._data, self._sk, v.contiguous(), impl=impl, operator_dtype=operator_dtype)
 
     # ------------------------------------------------------------------
     # Solvers
@@ -442,7 +444,7 @@ class Hamiltonian:
         Chebyshev-step kernels — O(order·nnz·k) on the device instead of an
         O(dim³) factorization; see
         :func:`bodge_tpu_torch.ops.lanczos.lowest_eigenstates` for the knobs
-        (``tol``, ``max_iter``, ``max_order``, ``impl``…).
+        (``tol``, ``max_iter``, ``max_order``, ``impl``, ``operator_dtype``…).
 
         ``method="shift_invert"`` computes the same k states by host ARPACK
         with a SuperLU factorization of A − σI (``sigma=0`` default) — exact
@@ -553,7 +555,8 @@ class Hamiltonian:
         ``method="kpm"`` computes it by Chebyshev expansion of the
         free-energy integrand plus (stochastic) trace estimation —
         O(order·nnz); see :func:`bodge_tpu_torch.ops.chebyshev.free_energy_kpm`
-        for the knobs.  ``method="dense"`` sums over the positive spectrum
+        for the knobs (``order``, ``samples``, ``scale=``,
+        ``operator_dtype=``, ``impl=``).  ``method="dense"`` sums over the positive spectrum
         of :meth:`eigenvalues`, ``"banded"`` over the same spectrum from the
         banded host solver.  The
         reference's ``cuda`` flag raises: the device is chosen with
@@ -587,7 +590,7 @@ class Hamiltonian:
 
         ``method="kpm"`` uses the Chebyshev/KPM expansion driven by the
         block-sparse SpMM kernels.  Extra keywords (``eta=`` for a target
-        Lorentzian broadening, ``scale=``, ``impl=``) are forwarded to
+        Lorentzian broadening, ``scale=``, ``operator_dtype=``, ``impl=``) are forwarded to
         :func:`bodge_tpu_torch.ops.chebyshev.ldos_kpm`.  ``method="exact"``
         evaluates the exact diagonal resolvent elements spectrally, with the
         reference's grid-adaptive broadening Γ = gradient(unique(|ε|)).

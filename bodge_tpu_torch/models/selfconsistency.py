@@ -513,7 +513,8 @@ def _make_total_free_energy_sharded(system, V: float, T: float, order: int, samp
     def F_total(delta):
         delta = torch.as_tensor(delta, device=dev)
         slab, dm, dp = slabs(insert(base, Replicated.apply(delta, rs)))
-        mu = moments_sharded_ad(rs, slab, z_l, 1.0 / scale, order, dm, dp, overlap=overlap, impl=backend)
+        mu = moments_sharded_ad(rs, slab, z_l, 1.0 / scale, order, dm, dp, overlap=overlap, impl=backend,
+                                remat="auto")  # √steps checkpointing, as the reference's objective asks
         F = 0.5 * torch.dot(coeffs.to(mu.dtype), mu.sum(dim=1)) / K * (N * BLOCK)
         return F + penalty(delta)
 

@@ -26,7 +26,13 @@ kernels on a stencil skeleton, the windowed gather kernels on a generic one
 (``"cuda_gather"``), the tiled step under ``BODGE_PLANE_TILED=1``
 (``"cuda_tiled"``); a ``"cuda*"`` name on a CPU tensor raises; ``"plain"``,
 ``"stencil"`` and ``"gather"`` stay forceable for cross-checks and keep the
-tensor's own precision.  Any probe
+tensor's own precision.  ``operator_dtype="bf16"`` (or
+``BODGE_OPERATOR_STORAGE=bf16``, read where the argument is ``None``) stores
+the operator in the bf16 form for the moment sweep — half the operator's
+bytes; vectors and sums stay in the vectors' precision — as the reference's
+Pallas paths do; :func:`spectral_bound` stays on the complex operator, its
+5 % margin covering the ≤ 2⁻⁹·‖H‖ by which the rounding can move the
+spectrum.  Any probe
 count K goes through one launch per step.  Probes are drawn with NumPy from
 an integer ``seed``.  The moments come off the device once; the
 reconstruction (damping kernels, Chebyshev series, coefficient fits) is tiny
@@ -42,7 +48,7 @@ import torch
 
 from ..common import numpy_dtype
 from .blocksparse import BLOCK, Skeleton
-from .cuda_spmm import StepPlan, moments_fused
+from .cuda_spmm import StepPlan, bf16_operator, moments_fused, operator_values, resolve_operator_storage
 from .spmm import spmm
 
 DEFAULT_ORDER = 512
@@ -173,7 +179,8 @@ def _identity_probes(N: int, dtype, what: str) -> np.ndarray:
     return np.eye(N * BLOCK, dtype=dtype).reshape(N, BLOCK, N * BLOCK)
 
 
-def moments(data, sk: Skeleton, v0, order: int, scale: float, impl: Optional[str] = None):
+def moments(data, sk: Skeleton, v0, order: int, scale: float, impl: Optional[str] = None,
+            operator_dtype=None):
     """Chebyshev moments of H/scale against probe vectors ``v0: [N, 4, K]``.
 
     Returns a real ``[order, K]`` tensor on ``data``'s device.  ``v0`` may be
@@ -189,12 +196,22 @@ def moments(data, sk: Skeleton, v0, order: int, scale: float, impl: Optional[str
     recursion (:func:`~bodge_tpu_torch.ops.cuda_spmm.moments_fused`).
     ``"stencil"`` / ``"gather"`` run separate SpMMs and inner products in
     plain PyTorch.
+
+    ``operator_dtype``: the operator's storage (``"f32"`` / ``"bf16"``;
+    ``None`` reads ``BODGE_OPERATOR_STORAGE``,
+    :func:`~bodge_tpu_torch.ops.cuda_spmm.resolve_operator_storage`).  With
+    bf16 the sweep runs on the bf16 form — the kernels' bf16 instantiations
+    on the card, the plain versions on its exact upcast on the CPU; the
+    ``"stencil"`` / ``"gather"`` scans multiply with the same rounded blocks.
     """
     v0 = _as_tensor(v0, data)
     inv = 1.0 / float(scale)
+    storage = resolve_operator_storage(operator_dtype)
     if impl in ("stencil", "gather"):
+        if storage is not None:
+            data = operator_values(bf16_operator(data), data.dtype)
         return _moments_scan(data, sk, v0, inv, order, impl)
-    return moments_fused(data, sk, v0, inv, order, impl=impl)
+    return moments_fused(data, sk, v0, inv, order, impl=impl, operator_dtype=storage)
 
 
 def _host_moments(mu) -> np.ndarray:
@@ -290,6 +307,7 @@ def ldos_kpm(
     scale: Optional[float] = None,
     eta: Optional[float] = None,
     impl: Optional[str] = None,
+    operator_dtype=None,
 ) -> np.ndarray:
     """Local density of states at one site via KPM.
 
@@ -305,7 +323,7 @@ def ldos_kpm(
     """
     return ldos_kpm_sites(
         data, sk, [site_index], energies, order=order, kernel=kernel,
-        scale=scale, eta=eta, impl=impl,
+        scale=scale, eta=eta, impl=impl, operator_dtype=operator_dtype,
     )[0]
 
 
@@ -319,6 +337,7 @@ def ldos_kpm_sites(
     scale: Optional[float] = None,
     eta: Optional[float] = None,
     impl: Optional[str] = None,
+    operator_dtype=None,
 ) -> np.ndarray:
     """Batched KPM LDOS for many sites in one moment sweep.
 
@@ -330,7 +349,7 @@ def ldos_kpm_sites(
     order, kernel, scale = _kpm_setup(data, sk, order, kernel, scale, eta, impl)
     site_indices = np.asarray(site_indices, dtype=np.int64)
     v0 = ldos_site_probes(sk.n_sites, site_indices, numpy_dtype(data.dtype))
-    mu = moments(data, sk, v0, order, scale, impl=impl)  # [order, 4·n_sites]
+    mu = moments(data, sk, v0, order, scale, impl=impl, operator_dtype=operator_dtype)  # [order, 4·n_sites]
     return ldos_from_moments(mu, energies, scale, kernel, len(site_indices))
 
 
@@ -345,6 +364,7 @@ def dos_kpm(
     samples: Optional[int] = 16,
     seed: Optional[int] = None,
     impl: Optional[str] = None,
+    operator_dtype=None,
 ) -> np.ndarray:
     """Total density of states Tr δ(ε−H) via KPM.
 
@@ -363,7 +383,7 @@ def dos_kpm(
         v0 = rademacher_probes(N, samples, seed, dtype, default_seed=1)
         norm = 1.0 / samples
 
-    mu = moments(data, sk, v0, order, scale, impl=impl)  # [order, K]
+    mu = moments(data, sk, v0, order, scale, impl=impl, operator_dtype=operator_dtype)  # [order, K]
     mu_tr = _host_moments(mu.sum(dim=1)) * norm  # trace estimate per order
 
     energies = np.array(energies, dtype=float)
@@ -392,6 +412,7 @@ def trace_function(
     seed: Optional[int] = None,
     kernel: str = "jackson",
     impl: Optional[str] = None,
+    operator_dtype=None,
 ) -> float:
     """Tr fn(H) by Chebyshev expansion.
 
@@ -413,7 +434,7 @@ def trace_function(
         probes = rademacher_probes(N, samples, seed, dtype)
         norm = 1.0 / samples
 
-    mu = moments(data, sk, probes, order, scale, impl=impl)  # [order, K]
+    mu = moments(data, sk, probes, order, scale, impl=impl, operator_dtype=operator_dtype)  # [order, K]
     mu_tr = _host_moments(mu.sum(dim=1))
     return float(np.dot(coeffs[: mu_tr.shape[0]], mu_tr)) * norm
 
@@ -427,6 +448,7 @@ def free_energy_kpm(
     seed: Optional[int] = None,
     scale: Optional[float] = None,
     impl: Optional[str] = None,
+    operator_dtype=None,
 ) -> float:
     """Landau free energy F = U − T·S without diagonalization.
 
@@ -447,5 +469,6 @@ def free_energy_kpm(
     else:
         g = lambda E: -np.abs(E) / 2 - T * np.log1p(np.exp(-np.abs(E) / T))
 
-    tr = trace_function(data, sk, g, order, scale, samples=samples, seed=seed, impl=impl)
+    tr = trace_function(data, sk, g, order, scale, samples=samples, seed=seed, impl=impl,
+                        operator_dtype=operator_dtype)
     return 0.5 * tr

@@ -256,6 +256,7 @@ def ell_gather_spmm_plain(data, gl: GatherLayout, v):
     """Plain version of :func:`ell_gather_spmm`: the neighbours are the rows
     ``n + rel[n, s]``, resolved by indexing; padding slots contribute nothing."""
     gathered = v[gl.device_window_index(v.device)]  # [N, S, 4, K]
+    data = ck.operator_values(data, v.dtype)
     if gl.sk.has_padding:
         data = data * gl.sk.device_valid(v.device)[..., None, None]
     N, S = gl.sk.cols.shape
@@ -279,27 +280,37 @@ def ell_gather_spmm(data, gl: GatherLayout, v, *, impl: Optional[str] = None):
     """``y[n] = Σ_s data[n, s] · v[n + rel[n, s]]`` in relabelled order (padding slots skipped).
 
     On a CUDA tensor this launches the kernel (complex64, contiguous
-    tensors; anything else raises).  On a CPU tensor, or with
-    ``impl="plain"``, it is :func:`ell_gather_spmm_plain`.
+    tensors; anything else raises; ``data`` in the bf16 form: the bf16
+    instantiation, counted as :func:`ell_gather_spmm_bf16`).  On a CPU
+    tensor, or with ``impl="plain"``, it is :func:`ell_gather_spmm_plain`.
     """
     _check_layout(gl)
     if ck._resolve(impl, v) == "plain":
         return ell_gather_spmm_plain(data, gl, v)
-    N, S, K = ck._check_call(data, gl.sk, v)
+    N, S, K, bf16 = ck._check_forward(data, gl.sk, v)
     rel = gl.device_rel(v.device)
     y = torch.empty_like(v)
     lib = ck._library()
     with torch.cuda.device(v.device):
         err = lib.ell_gather_spmm_launch(
-            data.data_ptr(), rel.data_ptr(), v.data_ptr(), y.data_ptr(), N, S, K, gl.TK, gl.T, gl.bwb,
-            gl.depth, gl.run, gl.ctas, gl.threads, torch.cuda.current_stream().cuda_stream,
+            data.data_ptr(), int(bf16), rel.data_ptr(), v.data_ptr(), y.data_ptr(), N, S, K, gl.TK, gl.T,
+            gl.bwb, gl.depth, gl.run, gl.ctas, gl.threads, torch.cuda.current_stream().cuda_stream,
         )
-    ck._raise_on(err, "ell_gather_spmm")
-    ell_gather_spmm.launches += 1
+    ck._raise_on(err, "ell_gather_spmm_bf16" if bf16 else "ell_gather_spmm")
+    (ell_gather_spmm_bf16 if bf16 else ell_gather_spmm).launches += 1
     return y
 
 
 ell_gather_spmm.launches = 0
+
+
+def ell_gather_spmm_bf16(data, gl: GatherLayout, v, *, impl: Optional[str] = None):
+    """:func:`ell_gather_spmm` with the operator in the bf16 form, which it requires."""
+    ck._require_bf16(data, "ell_gather_spmm_bf16")
+    return ell_gather_spmm(data, gl, v, impl=impl)
+
+
+ell_gather_spmm_bf16.launches = 0
 
 
 def ell_gather_cheb_step(
@@ -308,12 +319,13 @@ def ell_gather_cheb_step(
     """Fused Chebyshev step in relabelled order: ``(t_next, partials)`` as
     :func:`~bodge_tpu_torch.ops.cuda_spmm.ell_cheb_step`, with one row of
     partials per thread block (``gl.ctas`` rows).  ``out`` (kernel only) may be
-    ``t_prev`` itself, never ``t_cur``.
+    ``t_prev`` itself, never ``t_cur``.  ``data`` in the bf16 form launches
+    the bf16 instantiation, counted as :func:`ell_gather_cheb_step_bf16`.
     """
     _check_layout(gl)
     if ck._resolve(impl, t_cur) == "plain":
         return ell_gather_cheb_step_plain(data, gl, t_cur, t_prev, inv)
-    N, S, K = ck._check_call(data, gl.sk, t_cur)
+    N, S, K, bf16 = ck._check_forward(data, gl.sk, t_cur)
     shape = (N, BLOCK, K)
     if t_prev is not None:
         ck._check_operand("t_prev", t_prev, shape, t_cur.device)
@@ -328,16 +340,26 @@ def ell_gather_cheb_step(
     lib = ck._library()
     with torch.cuda.device(t_cur.device):
         err = lib.ell_gather_cheb_step_launch(
-            data.data_ptr(), rel.data_ptr(), t_cur.data_ptr(), ck._ptr(t_prev), out.data_ptr(),
+            data.data_ptr(), int(bf16), rel.data_ptr(), t_cur.data_ptr(), ck._ptr(t_prev), out.data_ptr(),
             partials.data_ptr(), float(inv), N, S, K, gl.TK, gl.T, gl.bwb, gl.depth, gl.run, gl.ctas,
             gl.threads, torch.cuda.current_stream().cuda_stream,
         )
-    ck._raise_on(err, "ell_gather_cheb_step")
-    ell_gather_cheb_step.launches += 1
+    ck._raise_on(err, "ell_gather_cheb_step_bf16" if bf16 else "ell_gather_cheb_step")
+    (ell_gather_cheb_step_bf16 if bf16 else ell_gather_cheb_step).launches += 1
     return out, partials
 
 
 ell_gather_cheb_step.launches = 0
+
+
+def ell_gather_cheb_step_bf16(data, gl: GatherLayout, t_cur, t_prev, inv: float, *, out=None,
+                              impl: Optional[str] = None):
+    """:func:`ell_gather_cheb_step` with the operator in the bf16 form, which it requires."""
+    ck._require_bf16(data, "ell_gather_cheb_step_bf16")
+    return ell_gather_cheb_step(data, gl, t_cur, t_prev, inv, out=out, impl=impl)
+
+
+ell_gather_cheb_step_bf16.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -34,6 +34,19 @@ cast down to complex64 by the callers that choose the kernel
 (:func:`moments_fused`, :func:`bodge_tpu_torch.ops.spmm.spmm`), as the TPU
 path casts when it packs; ``impl="plain"`` keeps complex128.
 
+Operator storage.  The forward kernels (the products and steps, general,
+gather, tiled and halo) also take the operator in the *bf16 form*
+(:func:`bf16_operator`): ``[N, S, 4, 4, 2]`` bfloat16, one (re, im) pair of 4
+bytes per entry, half the operator's bytes; vectors, sums and arithmetic stay
+float32.  It is the reference's ``operator_dtype=jnp.bfloat16`` /
+``BODGE_OPERATOR_STORAGE=bf16`` (:func:`resolve_operator_storage`), and each
+bf16 instantiation counts its launches under its own name
+(``ell_spmm_bf16``, …).  A :class:`StepPlan` brings the operator into that
+form once per sweep.  The plain versions take it too and upcast it exactly.
+The adjoint and outer-product kernels, and so the differentiable sweeps,
+take complex64 only, as the reference's differentiable paths take a float32
+operator only: the bf16 form raises there.
+
 Backward (the gradient of the step, which the reference takes from the XLA
 VJP of its ``_flat_cheb_step_ref`` / ``_plane_cheb_step_halo_ref``
 restatements inside ``cheb_step_pallas_ad``, ``pallas_spmm.py:1397``):
@@ -130,8 +143,60 @@ BLOCK_RESERVED = 1024  # ... of which each resident block takes this much
 DEFAULT_SMS = 132  # streaming multiprocessors of an H100 SXM, for plans made without a card
 KERNELS = ("ell_spmm", "ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer",
            "ell_gather_spmm", "ell_gather_cheb_step", "stencil_cheb_step_tiled",
-           "ell_spmm_halo", "ell_cheb_step_halo", "ell_spmm_adjoint_halo", "ell_block_outer_halo")
+           "ell_spmm_halo", "ell_cheb_step_halo", "ell_spmm_adjoint_halo", "ell_block_outer_halo",
+           "ell_spmm_bf16", "ell_cheb_step_bf16", "ell_spmm_halo_bf16", "ell_cheb_step_halo_bf16",
+           "ell_gather_spmm_bf16", "ell_gather_cheb_step_bf16", "stencil_cheb_step_tiled_bf16")
 PAD_COLUMN = -(2 ** 31)  # padding in a slab's column table (below every halo index)
+
+
+# --------------------------------------------------------------------------
+# Operator storage: the complex form and the bf16 form.
+# --------------------------------------------------------------------------
+def resolve_operator_storage(operator_dtype=None) -> Optional[torch.dtype]:
+    """The operator storage a call asks for: ``None`` (the complex operator)
+    or ``torch.bfloat16`` (:func:`bf16_operator`).
+
+    The counterpart of the reference's ``_operator_storage``: ``None`` reads
+    ``BODGE_OPERATOR_STORAGE``; ``""``, ``"f32"``, ``"float32"`` and
+    ``torch.float32`` mean the complex operator, ``"bf16"``, ``"bfloat16"``
+    and ``torch.bfloat16`` the bf16 form.  Anything else raises
+    ``ValueError`` (the reference passes it on to its packer).
+    """
+    if operator_dtype is None:
+        operator_dtype = os.environ.get("BODGE_OPERATOR_STORAGE", "")
+    if operator_dtype in ("", "f32", "float32", torch.float32):
+        return None
+    if operator_dtype in ("bf16", "bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"Unknown operator storage {operator_dtype!r} (expected 'f32' or 'bf16')")
+
+
+def bf16_operator(data):
+    """Block data ``[N, S, 4, 4]`` in the bf16 form: ``[N, S, 4, 4, 2]``
+    bfloat16, the (re, im) parts of each entry rounded to nearest even from
+    float32 (the reference's ``.astype(bfloat16)`` of its float32 planes).
+    A tensor already in that form is returned as it is."""
+    if is_bf16_operator(data):
+        return data
+    return torch.view_as_real(data.to(torch.complex64)).to(torch.bfloat16).contiguous()
+
+
+def is_bf16_operator(data) -> bool:
+    return isinstance(data, torch.Tensor) and data.dtype == torch.bfloat16
+
+
+def operator_values(data, dtype):
+    """The block data the plain versions multiply with: the bf16 form upcast
+    (exactly) to complex ``dtype``, a complex operator as it is."""
+    if is_bf16_operator(data):
+        return torch.view_as_complex(data.float().contiguous()).to(dtype)
+    return data
+
+
+def _require_complex_operator(data, what: str):
+    if is_bf16_operator(data):
+        raise TypeError(f"{what} takes a complex operator: the bf16 form is for the forward kernels only "
+                        "(the reference's differentiable paths take a float32 operator)")
 
 
 # --------------------------------------------------------------------------
@@ -139,7 +204,7 @@ PAD_COLUMN = -(2 ** 31)  # padding in a slab's column table (below every halo in
 # --------------------------------------------------------------------------
 def ell_spmm_plain(data, sk: Skeleton, v):
     """Plain version of :func:`ell_spmm` (the gather product)."""
-    return spmm_gather(data, sk, v)
+    return spmm_gather(operator_values(data, v.dtype), sk, v)
 
 
 def ell_cheb_step_plain(data, sk: Skeleton, t_cur, t_prev, inv: float, sums: bool = True):
@@ -148,7 +213,7 @@ def ell_cheb_step_plain(data, sk: Skeleton, t_cur, t_prev, inv: float, sums: boo
     Returns ``(t_next, partials)`` with ``partials`` of shape ``[1, 2K]``:
     the per-column sums of ``Re⟨t_cur,t_cur⟩`` then ``Re⟨t_next,t_cur⟩``.
     """
-    return cheb_tail_plain(spmm_gather(data, sk, t_cur), t_cur, t_prev, inv, sums)
+    return cheb_tail_plain(ell_spmm_plain(data, sk, t_cur), t_cur, t_prev, inv, sums)
 
 
 def cheb_tail_plain(hv, t_cur, t_prev, inv: float, sums: bool = True):
@@ -170,7 +235,7 @@ def stencil_cheb_step_tiled_plain(data, sk: Skeleton, t_cur, t_prev, inv: float,
     ``torch.roll`` stencil arithmetic on ``sk.slots`` (no ``cols`` read), then
     the shared tail."""
     _require_stencil(sk)
-    return cheb_tail_plain(spmm_stencil(data, sk, t_cur), t_cur, t_prev, inv, sums)
+    return cheb_tail_plain(spmm_stencil(operator_values(data, t_cur.dtype), sk, t_cur), t_cur, t_prev, inv, sums)
 
 
 def _require_stencil(sk: Skeleton):
@@ -234,18 +299,18 @@ def _library():
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         ip = ctypes.POINTER(ctypes.c_int)
         signatures = {
-            "ell_spmm_halo_launch": (spmm, [p, p, p, p, p, p, ll, i, ll, ll, i, i, i, p]),
-            "ell_cheb_step_halo_launch": (spmm, [p] * 8 + [f, ll, i, ll, ll, i, i, i, p]),
+            "ell_spmm_halo_launch": (spmm, [p, i, p, p, p, p, p, ll, i, ll, ll, i, i, i, p]),
+            "ell_cheb_step_halo_launch": (spmm, [p, i] + [p] * 7 + [f, ll, i, ll, ll, i, i, i, p]),
             "ell_spmm_adjoint_halo_launch": (spmm, [p] * 9 + [f] + [p] * 5 + [ll, i, i, i, i, p]),
             "ell_block_outer_halo_launch": (outer, [p] * 8 + [f, i, ll, i, i, i, i, p]),
-            "ell_spmm_launch": (spmm, [p, p, p, p, ll, i, i, i, p]),
-            "ell_cheb_step_launch": (spmm, [p, p, p, p, p, p, f, ll, i, i, i, p]),
+            "ell_spmm_launch": (spmm, [p, i, p, p, p, ll, i, i, i, p]),
+            "ell_cheb_step_launch": (spmm, [p, i, p, p, p, p, p, f, ll, i, i, i, p]),
             "ell_spmm_adjoint_launch": (spmm, [p, p, p, i, p, p, f, p, p, p, p, p, ll, i, i, i, p]),
             "ell_block_outer_launch": (outer, [p, p, p, p, p, p, f, i, ll, i, i, i, p]),
-            "ell_gather_spmm_launch": (gather, [p, p, p, p, ll, i, i, i, i, i, i, ll, i, i, p]),
-            "ell_gather_cheb_step_launch": (gather, [p, p, p, p, p, p, f, ll, i, i, i, i, i, i, ll, i, i, p]),
+            "ell_gather_spmm_launch": (gather, [p, i, p, p, p, ll, i, i, i, i, i, i, ll, i, i, p]),
+            "ell_gather_cheb_step_launch": (gather, [p, i, p, p, p, p, p, f, ll, i, i, i, i, i, i, ll, i, i, p]),
             "stencil_cheb_step_tiled_launch": (
-                tiled, [p, p, p, p, p, f, i, i, i, i, i, i, i, i, i, i, i, ip, ip, p]),
+                tiled, [p, i, p, p, p, p, f, i, i, i, i, i, i, i, i, i, i, i, ip, ip, p]),
         }
         bound = SimpleNamespace()
         for name, (lib, argtypes) in signatures.items():
@@ -277,13 +342,13 @@ def _resolve(impl: Optional[str], tensor) -> str:
     return impl
 
 
-def _check_operand(name: str, t, shape, device):
+def _check_operand(name: str, t, shape, device, dtype=torch.complex64):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if t.device != device:
         raise RuntimeError(f"{name} lies on {t.device}, expected {device}")
-    if t.dtype != torch.complex64:
-        raise TypeError(f"{name} must be complex64 for the CUDA kernel, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {str(dtype).replace('torch.', '')} for the CUDA kernel, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -293,6 +358,16 @@ def _check_operand(name: str, t, shape, device):
 
 
 def _check_call(data, sk: Skeleton, v) -> Tuple[int, int, int]:
+    """``(N, S, K)`` of a kernel call on a complex64 operator."""
+    N, S, K, bf16 = _check_forward(data, sk, v)
+    if bf16:
+        _require_complex_operator(data, "this kernel")
+    return N, S, K
+
+
+def _check_forward(data, sk: Skeleton, v) -> Tuple[int, int, int, bool]:
+    """``(N, S, K, bf16)`` of a forward kernel's call: the operator complex64
+    ``[N, S, 4, 4]`` or in the bf16 form ``[N, S, 4, 4, 2]``."""
     if not isinstance(v, torch.Tensor) or v.dim() != 3 or v.shape[1] != BLOCK:
         raise ValueError("operand must be a tensor of shape [N, 4, K]")
     N, S = sk.cols.shape
@@ -300,8 +375,12 @@ def _check_call(data, sk: Skeleton, v) -> Tuple[int, int, int]:
     if K < 1:
         raise ValueError("operand needs at least one probe column")
     _check_operand("operand", v, (N, BLOCK, K), v.device)
-    _check_operand("data", data, (N, S, BLOCK, BLOCK), v.device)
-    return N, S, K
+    bf16 = is_bf16_operator(data)
+    if bf16:
+        _check_operand("data", data, (N, S, BLOCK, BLOCK, 2), v.device, torch.bfloat16)
+    else:
+        _check_operand("data", data, (N, S, BLOCK, BLOCK), v.device)
+    return N, S, K, bf16
 
 
 def as_kernel_operand(t):
@@ -321,26 +400,42 @@ def ell_spmm(data, sk: Skeleton, v, *, impl: Optional[str] = None):
     """``y[n,a,k] = Σ_s Σ_b data[n,s,a,b] · v[cols[n,s],b,k]`` (padding slots skipped).
 
     On a CUDA tensor this launches the kernel (complex64, contiguous
-    tensors; anything else raises).  On a CPU tensor, or with
-    ``impl="plain"``, it is :func:`ell_spmm_plain`.
+    tensors; anything else raises); ``data`` in the bf16 form
+    (:func:`bf16_operator`) launches its bf16 instantiation, counted as
+    :func:`ell_spmm_bf16`.  On a CPU tensor, or with ``impl="plain"``, it is
+    :func:`ell_spmm_plain`.
     """
     if _resolve(impl, v) == "plain":
         return ell_spmm_plain(data, sk, v)
-    N, S, K = _check_call(data, sk, v)
+    N, S, K, bf16 = _check_forward(data, sk, v)
     cols = sk.device_cols(v.device)
     y = torch.empty_like(v)
     lib = _library()
     with torch.cuda.device(v.device):
         err = lib.ell_spmm_launch(
-            data.data_ptr(), cols.data_ptr(), v.data_ptr(), y.data_ptr(),
+            data.data_ptr(), int(bf16), cols.data_ptr(), v.data_ptr(), y.data_ptr(),
             N, S, K, probe_tile(K), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(err, "ell_spmm")
-    ell_spmm.launches += 1
+    _raise_on(err, "ell_spmm_bf16" if bf16 else "ell_spmm")
+    (ell_spmm_bf16 if bf16 else ell_spmm).launches += 1
     return y
 
 
 ell_spmm.launches = 0
+
+
+def _require_bf16(data, what: str):
+    if not is_bf16_operator(data):
+        raise TypeError(f"{what} takes the operator in the bf16 form (bf16_operator), got {data.dtype}")
+
+
+def ell_spmm_bf16(data, sk: Skeleton, v, *, impl: Optional[str] = None):
+    """:func:`ell_spmm` with the operator in the bf16 form, which it requires."""
+    _require_bf16(data, "ell_spmm_bf16")
+    return ell_spmm(data, sk, v, impl=impl)
+
+
+ell_spmm_bf16.launches = 0
 
 
 def ell_cheb_step(
@@ -354,11 +449,12 @@ def ell_cheb_step(
     partials per thread block, without atomics, so the sums repeat exactly.
 
     ``out`` (kernel only) is the buffer ``t_next`` is written into; it may be
-    ``t_prev`` itself, never ``t_cur``.
+    ``t_prev`` itself, never ``t_cur``.  ``data`` in the bf16 form launches
+    the bf16 instantiation, counted as :func:`ell_cheb_step_bf16`.
     """
     if _resolve(impl, t_cur) == "plain":
         return ell_cheb_step_plain(data, sk, t_cur, t_prev, inv)
-    N, S, K = _check_call(data, sk, t_cur)
+    N, S, K, bf16 = _check_forward(data, sk, t_cur)
     shape = (N, BLOCK, K)
     if t_prev is not None:
         _check_operand("t_prev", t_prev, shape, t_cur.device)
@@ -375,17 +471,26 @@ def ell_cheb_step(
     lib = _library()
     with torch.cuda.device(t_cur.device):
         err = lib.ell_cheb_step_launch(
-            data.data_ptr(), cols.data_ptr(), t_cur.data_ptr(),
+            data.data_ptr(), int(bf16), cols.data_ptr(), t_cur.data_ptr(),
             None if t_prev is None else t_prev.data_ptr(), out.data_ptr(),
             partials.data_ptr(), float(inv), N, S, K, tk,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(err, "ell_cheb_step")
-    ell_cheb_step.launches += 1
+    _raise_on(err, "ell_cheb_step_bf16" if bf16 else "ell_cheb_step")
+    (ell_cheb_step_bf16 if bf16 else ell_cheb_step).launches += 1
     return out, partials
 
 
 ell_cheb_step.launches = 0
+
+
+def ell_cheb_step_bf16(data, sk: Skeleton, t_cur, t_prev, inv: float, *, out=None, impl: Optional[str] = None):
+    """:func:`ell_cheb_step` with the operator in the bf16 form, which it requires."""
+    _require_bf16(data, "ell_cheb_step_bf16")
+    return ell_cheb_step(data, sk, t_cur, t_prev, inv, out=out, impl=impl)
+
+
+ell_cheb_step_bf16.launches = 0
 
 
 def sm_count() -> int:
@@ -492,13 +597,15 @@ def stencil_cheb_step_tiled(
     shared memory and finds the neighbours by stencil arithmetic on
     ``sk.shape`` and ``sk.slots``; it reads no ``cols``.  ``out`` (kernel only)
     may be ``t_prev`` itself, never ``t_cur``; ``tile=(PB, XR)`` or
-    ``(PB, XR, NR)`` overrides :func:`tile_plan`.  Raises ``ValueError`` on a generic skeleton.  On a CPU
-    tensor, or with ``impl="plain"``, it is :func:`stencil_cheb_step_tiled_plain`.
+    ``(PB, XR, NR)`` overrides :func:`tile_plan`.  Raises ``ValueError`` on a generic skeleton.  ``data``
+    in the bf16 form launches the bf16 instantiation, counted as
+    :func:`stencil_cheb_step_tiled_bf16`.  On a CPU tensor, or with
+    ``impl="plain"``, it is :func:`stencil_cheb_step_tiled_plain`.
     """
     _require_stencil(sk)
     if _resolve(impl, t_cur) == "plain":
         return stencil_cheb_step_tiled_plain(data, sk, t_cur, t_prev, inv)
-    N, S, K = _check_call(data, sk, t_cur)
+    N, S, K, bf16 = _check_forward(data, sk, t_cur)
     shape = (N, BLOCK, K)
     if t_prev is not None:
         _check_operand("t_prev", t_prev, shape, t_cur.device)
@@ -515,16 +622,26 @@ def stencil_cheb_step_tiled(
     lib = _library()
     with torch.cuda.device(t_cur.device):
         err = lib.stencil_cheb_step_tiled_launch(
-            data.data_ptr(), t_cur.data_ptr(), _ptr(t_prev), out.data_ptr(), partials.data_ptr(),
+            data.data_ptr(), int(bf16), t_cur.data_ptr(), _ptr(t_prev), out.data_ptr(), partials.data_ptr(),
             float(inv), Lx, Ly, Lz, S, K, plan["TK"], plan["PB"], plan["h"], plan["NR"], plan["XR"],
             plan["ctas"], axes, dirs, torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(err, "stencil_cheb_step_tiled")
-    stencil_cheb_step_tiled.launches += 1
+    _raise_on(err, "stencil_cheb_step_tiled_bf16" if bf16 else "stencil_cheb_step_tiled")
+    (stencil_cheb_step_tiled_bf16 if bf16 else stencil_cheb_step_tiled).launches += 1
     return out, partials
 
 
 stencil_cheb_step_tiled.launches = 0
+
+
+def stencil_cheb_step_tiled_bf16(data, sk: Skeleton, t_cur, t_prev, inv: float, *, out=None,
+                                 impl: Optional[str] = None, tile: Optional[Tuple[int, int]] = None):
+    """:func:`stencil_cheb_step_tiled` with the operator in the bf16 form, which it requires."""
+    _require_bf16(data, "stencil_cheb_step_tiled_bf16")
+    return stencil_cheb_step_tiled(data, sk, t_cur, t_prev, inv, out=out, impl=impl, tile=tile)
+
+
+stencil_cheb_step_tiled_bf16.launches = 0
 
 
 def _check_column_weights(name: str, c, K: int, device):
@@ -558,6 +675,7 @@ def ell_spmm_adjoint(data, sk: Skeleton, v, *, alpha: float = 1.0, add=None, axp
     """
     if len(axpy) > 2:
         raise ValueError("at most two axpy terms fit the kernel's epilogue")
+    _require_complex_operator(data, "ell_spmm_adjoint")
     if _resolve(impl, v) == "plain":
         return ell_spmm_adjoint_plain(data, sk, v, alpha, add, axpy)
     N, S, K = _check_call(data, sk, v)
@@ -754,7 +872,7 @@ def ell_spmm_halo_plain(data, slab: HaloSlab, v, hm, hp, rows=None):
     r0, r1 = (0, slab.n_local) if rows is None else rows
     idx = slab.device_ext_index(v.device)[r0:r1]
     gathered = _extended(slab, hm, v, hp)[idx]  # [R, S, 4, K]
-    d = data[r0:r1]
+    d = operator_values(data[r0:r1], v.dtype)
     if slab.has_padding:
         d = d * slab.device_valid(v.device)[r0:r1, :, None, None]
     R, S = idx.shape
@@ -835,8 +953,9 @@ def ell_spmm_halo(data, slab: HaloSlab, v, hm, hp, *, rows=None, out=None,
     rows only, into ``out`` (required then); ``hm`` / ``hp`` may be ``None``
     where the rows read no halo (the interior of the overlap split).
 
-    On a CUDA tensor this launches the kernel; on a CPU tensor, or with
-    ``impl="plain"``, it is :func:`ell_spmm_halo_plain`."""
+    On a CUDA tensor this launches the kernel (``data`` in the bf16 form: the
+    bf16 instantiation, counted as :func:`ell_spmm_halo_bf16`); on a CPU
+    tensor, or with ``impl="plain"``, it is :func:`ell_spmm_halo_plain`."""
     r0, r1 = _row_range(slab, rows, hm, hp)
     if rows is not None and out is None:
         raise ValueError("rows= writes into a buffer of the whole slab: pass out=")
@@ -846,7 +965,7 @@ def ell_spmm_halo(data, slab: HaloSlab, v, hm, hp, *, rows=None, out=None,
             return y
         out[r0:r1] = y
         return out
-    N, S, K = _check_call(data, slab, v)
+    N, S, K, bf16 = _check_forward(data, slab, v)
     _check_halo(slab, K, v.device, **{k: t for k, t in (("hm", hm), ("hp", hp)) if t is not None})
     if out is None:
         out = torch.empty_like(v)
@@ -857,17 +976,26 @@ def ell_spmm_halo(data, slab: HaloSlab, v, hm, hp, *, rows=None, out=None,
     lib = _library()
     with torch.cuda.device(v.device):
         err = lib.ell_spmm_halo_launch(
-            data.data_ptr(), slab.device_cols(v.device).data_ptr(), v.data_ptr(),
+            data.data_ptr(), int(bf16), slab.device_cols(v.device).data_ptr(), v.data_ptr(),
             (hm if hm is not None else v).data_ptr(), (hp if hp is not None else v).data_ptr(),
             out.data_ptr(), N, slab.plane, r0, r1, S, K, probe_tile(K),
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(err, "ell_spmm_halo")
-    ell_spmm_halo.launches += 1
+    _raise_on(err, "ell_spmm_halo_bf16" if bf16 else "ell_spmm_halo")
+    (ell_spmm_halo_bf16 if bf16 else ell_spmm_halo).launches += 1
     return out
 
 
 ell_spmm_halo.launches = 0
+
+
+def ell_spmm_halo_bf16(data, slab: HaloSlab, v, hm, hp, *, rows=None, out=None, impl: Optional[str] = None):
+    """:func:`ell_spmm_halo` with the operator in the bf16 form, which it requires."""
+    _require_bf16(data, "ell_spmm_halo_bf16")
+    return ell_spmm_halo(data, slab, v, hm, hp, rows=rows, out=out, impl=impl)
+
+
+ell_spmm_halo_bf16.launches = 0
 
 
 def ell_cheb_step_halo(data, slab: HaloSlab, t_cur, hm, hp, t_prev, inv: float, *, rows=None,
@@ -879,8 +1007,9 @@ def ell_cheb_step_halo(data, slab: HaloSlab, t_cur, hm, hp, t_prev, inv: float, 
     of those rows; ``hm`` / ``hp`` may be ``None`` where the rows read no
     halo.  ``out`` may be ``t_prev`` itself, never ``t_cur``, ``hm`` or ``hp``.
 
-    On a CUDA tensor this launches the kernel; on a CPU tensor, or with
-    ``impl="plain"``, it is :func:`ell_cheb_step_halo_plain`."""
+    On a CUDA tensor this launches the kernel (``data`` in the bf16 form: the
+    bf16 instantiation, counted as :func:`ell_cheb_step_halo_bf16`); on a CPU
+    tensor, or with ``impl="plain"``, it is :func:`ell_cheb_step_halo_plain`."""
     r0, r1 = _row_range(slab, rows, hm, hp)
     if rows is not None and out is None:
         raise ValueError("rows= writes into a buffer of the whole slab: pass out=")
@@ -890,7 +1019,7 @@ def ell_cheb_step_halo(data, slab: HaloSlab, t_cur, hm, hp, t_prev, inv: float, 
             return t_next, pp
         out[r0:r1] = t_next
         return out, pp
-    N, S, K = _check_call(data, slab, t_cur)
+    N, S, K, bf16 = _check_forward(data, slab, t_cur)
     shape = (N, BLOCK, K)
     _check_halo(slab, K, t_cur.device, **{k: t for k, t in (("hm", hm), ("hp", hp)) if t is not None})
     if t_prev is not None:
@@ -907,17 +1036,27 @@ def ell_cheb_step_halo(data, slab: HaloSlab, t_cur, hm, hp, t_prev, inv: float, 
     lib = _library()
     with torch.cuda.device(t_cur.device):
         err = lib.ell_cheb_step_halo_launch(
-            data.data_ptr(), slab.device_cols(t_cur.device).data_ptr(), t_cur.data_ptr(),
+            data.data_ptr(), int(bf16), slab.device_cols(t_cur.device).data_ptr(), t_cur.data_ptr(),
             (hm if hm is not None else t_cur).data_ptr(), (hp if hp is not None else t_cur).data_ptr(),
             _ptr(t_prev), out.data_ptr(), partials.data_ptr(), float(inv), N, slab.plane, r0, r1,
             S, K, tk, torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(err, "ell_cheb_step_halo")
-    ell_cheb_step_halo.launches += 1
+    _raise_on(err, "ell_cheb_step_halo_bf16" if bf16 else "ell_cheb_step_halo")
+    (ell_cheb_step_halo_bf16 if bf16 else ell_cheb_step_halo).launches += 1
     return out, partials
 
 
 ell_cheb_step_halo.launches = 0
+
+
+def ell_cheb_step_halo_bf16(data, slab: HaloSlab, t_cur, hm, hp, t_prev, inv: float, *, rows=None, out=None,
+                            impl: Optional[str] = None):
+    """:func:`ell_cheb_step_halo` with the operator in the bf16 form, which it requires."""
+    _require_bf16(data, "ell_cheb_step_halo_bf16")
+    return ell_cheb_step_halo(data, slab, t_cur, hm, hp, t_prev, inv, rows=rows, out=out, impl=impl)
+
+
+ell_cheb_step_halo_bf16.launches = 0
 
 
 def ell_spmm_adjoint_halo(data, slab: HaloSlab, v, vm, vp, dm, dp, *, alpha: float = 1.0, add=None,
@@ -932,6 +1071,8 @@ def ell_spmm_adjoint_halo(data, slab: HaloSlab, v, vm, vp, dm, dp, *, alpha: flo
     ``impl="plain"``, it is :func:`ell_spmm_adjoint_halo_plain`."""
     if len(axpy) > 2:
         raise ValueError("at most two axpy terms fit the kernel's epilogue")
+    for d in (data, dm, dp):
+        _require_complex_operator(d, "ell_spmm_adjoint_halo")
     if _resolve(impl, v) == "plain":
         return ell_spmm_adjoint_halo_plain(data, slab, v, vm, vp, dm, dp, alpha, add, axpy)
     N, S, K = _check_call(data, slab, v)
@@ -1020,11 +1161,14 @@ ell_block_outer_halo.launches = 0
 
 
 def _wrappers():
-    from .cuda_gather import ell_gather_cheb_step, ell_gather_spmm
+    from .cuda_gather import (ell_gather_cheb_step, ell_gather_cheb_step_bf16, ell_gather_spmm,
+                              ell_gather_spmm_bf16)
 
     return (ell_spmm, ell_cheb_step, ell_spmm_adjoint, ell_block_outer,
             ell_gather_spmm, ell_gather_cheb_step, stencil_cheb_step_tiled,
-            ell_spmm_halo, ell_cheb_step_halo, ell_spmm_adjoint_halo, ell_block_outer_halo)
+            ell_spmm_halo, ell_cheb_step_halo, ell_spmm_adjoint_halo, ell_block_outer_halo,
+            ell_spmm_bf16, ell_cheb_step_bf16, ell_spmm_halo_bf16, ell_cheb_step_halo_bf16,
+            ell_gather_spmm_bf16, ell_gather_cheb_step_bf16, stencil_cheb_step_tiled_bf16)
 
 
 def launch_counts() -> dict:
@@ -1095,18 +1239,27 @@ def resolve_path(impl: Optional[str], tensor, sk: Skeleton, K: int) -> str:
 class StepPlan:
     """The step one sweep runs, and the order it runs in.
 
-    ``StepPlan(sk, K, impl, like)`` resolves the path for a sweep of ``K``
-    probe columns over tensors like ``like`` (:func:`resolve_path`).
-    :meth:`operator` and :meth:`enter` bring block data and vectors into the
-    form the step takes — complex64 for the kernels, relabelled rows for the
-    gather step — and :meth:`leave` brings a vector back; both are
-    differentiable.  :meth:`step` and :meth:`spmm` then work on those.
-    ``plan.sk`` is the skeleton in the sweep's order (the relabelled one on
-    the gather path), which the backward kernels take, and ``plan.backend``
-    (``"cuda"`` / ``"plain"``) the ``impl`` they run with.
+    ``StepPlan(sk, K, impl, like, operator_dtype)`` resolves the path for a
+    sweep of ``K`` probe columns over tensors like ``like``
+    (:func:`resolve_path`).  :meth:`operator` and :meth:`enter` bring block
+    data and vectors into the form the step takes — complex64 for the
+    kernels, relabelled rows for the gather step — and :meth:`leave` brings a
+    vector back; all are differentiable except the bf16 form.
+    ``operator_dtype`` is the operator's storage as
+    :func:`resolve_operator_storage` gives it: ``None`` (complex) or
+    ``torch.bfloat16``, for which :meth:`operator` ends in
+    :func:`bf16_operator` and the steps launch their bf16 instantiations.
+    :meth:`step` and :meth:`spmm` then work on those.  ``plan.sk`` is the
+    skeleton in the sweep's order (the relabelled one on the gather path),
+    which the backward kernels take, and ``plan.backend`` (``"cuda"`` /
+    ``"plain"``) the ``impl`` they run with.
     """
 
-    def __init__(self, sk: Skeleton, K: int, impl: Optional[str], like):
+    def __init__(self, sk: Skeleton, K: int, impl: Optional[str], like, operator_dtype=None):
+        if operator_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"operator_dtype {operator_dtype!r}: None or torch.bfloat16 "
+                             "(resolve a name with resolve_operator_storage)")
+        self.operator_dtype = operator_dtype
         self.impl = resolve_path(impl, like, sk, K)
         self.backend, self.kind = PATHS[self.impl]
         self.layout = None
@@ -1131,8 +1284,10 @@ class StepPlan:
         return x if self.layout is None else self.layout.relabel(x)
 
     def operator(self, data):
-        """Block data ``[N, S, 4, 4]`` in the sweep's form."""
-        return self._form(data)
+        """Block data ``[N, S, 4, 4]`` in the sweep's form (the bf16 form
+        where the plan stores the operator so)."""
+        data = self._form(data)
+        return data if self.operator_dtype is None else bf16_operator(data)
 
     def enter(self, v):
         """A vector ``[N, 4, K]`` in the sweep's form."""
@@ -1218,6 +1373,7 @@ class ChebStep(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, data, t_cur, t_prev, sk, inv, impl):
+        _require_complex_operator(data, "ChebStep")
         inv = float(inv)
         t_next, partials = ell_cheb_step(data, sk, t_cur, t_prev, inv, impl=impl)
         ctx.save_for_backward(data, t_cur, t_next)
@@ -1258,6 +1414,7 @@ class MomentSweep(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, data, v0, sk, inv, order, impl):
+        _require_complex_operator(data, "MomentSweep")
         inv = float(inv)
         plan = impl if isinstance(impl, StepPlan) else StepPlan(sk, v0.shape[-1], _resolve(impl, v0), v0)
         steps = max(0, (order - 2 + 1) // 2)
@@ -1324,6 +1481,30 @@ def halo_cheb_step(data, slab: HaloSlab, ring, t_cur, t_prev, inv: float, *, bac
     return out, torch.cat([pp_lo, pp_int, pp_hi]), (hm, hp)
 
 
+def halo_steps(data, slab: HaloSlab, ring, t_prev, t_cur, inv: float, n: int, *, backend: str,
+               split: bool = False, keep: bool = False, own_cur: bool = False):
+    """``n`` full fused steps on a slab from the carry ``(t_prev, t_cur)``:
+    ``(sums, ts, halos, carry)`` with this rank's column sums of each step,
+    and, with ``keep``, every new vector and every step's halo planes of its
+    ``t_cur`` (else empty lists: ``t_next`` overwrites a ``t_prev`` buffer of
+    this run once the carry's vectors have left it, so a carry — a boundary
+    the backward pass replays from — is never written; ``own_cur`` marks the
+    carry's ``t_cur`` as this run's own, free from the second step on).
+    ``carry`` is the last ``(t_prev, t_cur)``."""
+    sums, ts, halos = [], [], []
+    first_reuse = 1 if own_cur else 2
+    for i in range(n):
+        out = t_prev if (not keep and backend == "cuda" and i >= first_reuse) else None
+        t_next, pp, h = halo_cheb_step(data, slab, ring, t_cur, t_prev, inv, backend=backend, split=split,
+                                       out=out)
+        sums.append(pp.sum(dim=0))
+        if keep:
+            ts.append(t_next)
+            halos.append(h)
+        t_prev, t_cur = t_cur, t_next
+    return sums, ts, halos, (t_prev, t_cur)
+
+
 def halo_sweep(data, slab: HaloSlab, ring, v0, inv: float, order: int, *, backend: str,
                split: bool = False, keep: bool = False):
     """The doubled-moment sweep of :func:`moments_fused` on one slab: this
@@ -1333,18 +1514,9 @@ def halo_sweep(data, slab: HaloSlab, ring, v0, inv: float, order: int, *, backen
     third step on: three vectors in all)."""
     inv = float(inv)
     t1, pp, halos0 = halo_cheb_step(data, slab, ring, v0, None, 0.5 * inv, backend=backend, split=split)
-    sums, ts, halos = [pp.sum(dim=0)], [v0, t1], [halos0]
-    t_prev, t_cur = v0, t1
-    for i in range(max(0, (order - 2 + 1) // 2)):
-        out = t_prev if (not keep and backend == "cuda" and i > 0) else None  # i == 0: t_prev is v0
-        t_next, pp, h = halo_cheb_step(data, slab, ring, t_cur, t_prev, inv, backend=backend, split=split,
-                                       out=out)
-        sums.append(pp.sum(dim=0))
-        if keep:
-            ts.append(t_next)
-            halos.append(h)
-        t_prev, t_cur = t_cur, t_next
-    return torch.stack(sums), ts, halos
+    sums, ts, halos, _ = halo_steps(data, slab, ring, v0, t1, inv, sweep_launches(order) - 1, backend=backend,
+                                    split=split, keep=keep, own_cur=True)
+    return torch.stack([pp.sum(dim=0), *sums]), [v0, t1, *ts], [halos0, *halos]
 
 
 def halo_step_backward(data, slab: HaloSlab, ring, t_cur, halos, t_next, inv: float, g_next, cc_bar,
@@ -1382,47 +1554,106 @@ class ShardedMomentSweep(torch.autograd.Function):
     function: the counterpart of :class:`MomentSweep` on the halo kernels.
 
     ``ShardedMomentSweep.apply(data, v0, slab, ring, inv, order, backend,
-    split, dm, dp)`` returns this rank's column sums ``[1 + steps, 2K]``
+    split, dm, dp, chunk)`` returns this rank's column sums ``[1 + steps, 2K]``
     (sum them over the ranks with
     :class:`bodge_tpu_torch.parallel.sharded.RowSum`).  Forward: one exchange
-    and one :func:`ell_cheb_step_halo` step (three with ``split``) per step,
-    every vector and halo kept.  Backward: per step, one
-    :func:`ell_block_outer_halo`, one exchange of ``−G`` and one
-    :func:`ell_spmm_adjoint_halo`.  Gradients flow to ``data`` and ``v0``;
-    ``dm`` / ``dp`` (the neighbour planes' operator rows, whose gradients
-    their own ranks compute) get none.  Every rank must run the backward
-    pass, in step with the others.
+    and one :func:`ell_cheb_step_halo` step (three with ``split``) per step.
+    Backward: per step, one :func:`ell_block_outer_halo`, one exchange of
+    ``−G`` and one :func:`ell_spmm_adjoint_halo`.  Gradients flow to ``data``
+    and ``v0``; ``dm`` / ``dp`` (the neighbour planes' operator rows, whose
+    gradients their own ranks compute) get none.  Every rank must run the
+    backward pass, in step with the others.
+
+    ``chunk`` is the two-level checkpointing schedule of the reference's
+    sharded scan (``_remat_chunk_for``; :func:`remat_chunk_for` here): with
+    ``0 < chunk < steps`` the forward pass keeps only the carry ``(t_prev,
+    t_cur)`` at the start of each of the ``steps // chunk`` chunks, and the
+    ragged tail's vectors and halos; the backward pass replays each chunk
+    from its carry (steps and exchanges, every rank in step) before it walks
+    that chunk's steps back.  O(steps / chunk + chunk) vectors instead of
+    ``2 + steps``, for one more forward sweep; the same kernels replay on the
+    same inputs, so the values are bit-equal.  ``chunk = 0`` keeps every
+    vector and halo.
     """
 
     @staticmethod
-    def forward(ctx, data, v0, slab, ring, inv, order, backend, split, dm, dp):
+    def forward(ctx, data, v0, slab, ring, inv, order, backend, split, dm, dp, chunk=0):
+        _require_complex_operator(data, "ShardedMomentSweep")
         inv = float(inv)
-        sums, ts, halos = halo_sweep(data, slab, ring, v0, inv, order, backend=backend, split=split,
-                                     keep=True)
-        ctx.save_for_backward(data, dm, dp, *ts, *(h for pair in halos for h in pair))
-        ctx.slab, ctx.ring, ctx.inv, ctx.backend, ctx.n = slab, ring, inv, backend, len(ts)
-        return sums
+        steps = sweep_launches(order) - 1
+        chunk = int(chunk) if 0 < int(chunk) < steps else 0
+        full = steps // chunk if chunk else 0
+        t1, pp, (h0m, h0p) = halo_cheb_step(data, slab, ring, v0, None, 0.5 * inv, backend=backend, split=split)
+        sums, carries = [pp.sum(dim=0)], []
+        carry = (v0, t1)
+        for _ in range(full):
+            carries.extend(carry)
+            chunk_sums, _, _, carry = halo_steps(data, slab, ring, *carry, inv, chunk, backend=backend,
+                                                 split=split)
+            sums.extend(chunk_sums)
+        tail_sums, tail_ts, tail_halos, _ = halo_steps(data, slab, ring, *carry, inv, steps - full * chunk,
+                                                       backend=backend, split=split, keep=True)
+        sums.extend(tail_sums)
+        ctx.save_for_backward(data, dm, dp, h0m, h0p, *carries, *carry, *tail_ts,
+                              *(h for pair in tail_halos for h in pair))
+        ctx.slab, ctx.ring, ctx.inv, ctx.backend, ctx.split = slab, ring, inv, backend, split
+        ctx.chunk, ctx.full, ctx.rem = chunk, full, len(tail_ts)
+        return torch.stack(sums)
 
     @staticmethod
     def backward(ctx, g_sums):
-        data, dm, dp, *rest = ctx.saved_tensors
-        ts, flat = rest[:ctx.n], rest[ctx.n:]
-        halos = [(flat[2 * i], flat[2 * i + 1]) for i in range(len(flat) // 2)]
+        data, dm, dp, h0m, h0p, *rest = ctx.saved_tensors
+        chunk, full, rem = ctx.chunk, ctx.full, ctx.rem
+        carries, rest = rest[:2 * full], rest[2 * full:]
+        tail = list(rest[:2 + rem])  # the tail's carry, then its vectors
+        flat = rest[2 + rem:]
+        tail_halos = [(flat[2 * i], flat[2 * i + 1]) for i in range(rem)]
         need_data, need_v0 = ctx.needs_input_grad[:2]
-        K = ts[0].shape[-1]
-        real = torch.float32 if ts[0].dtype == torch.complex64 else torch.float64
+        K = tail[0].shape[-1]
+        real = torch.float32 if tail[0].dtype == torch.complex64 else torch.float64
         cc_bar = g_sums[:, :K].to(real).contiguous()
         nc_bar = g_sums[:, K:].to(real).contiguous()
-        h_bar = g_later = g_cur_add = None
-        for i in range(len(ts) - 2, -1, -1):
-            h_bar, g_cur, neg_G = halo_step_backward(
-                data, ctx.slab, ctx.ring, ts[i], halos[i], ts[i + 1], ctx.inv if i > 0 else 0.5 * ctx.inv,
-                g_later, cc_bar[i], nc_bar[i], dm, dp, h_bar=h_bar, g_cur_add=g_cur_add,
-                backend=ctx.backend,
-            )
-            g_later, g_cur_add = g_cur, neg_G
-        return ((h_bar if need_data else None), (g_later if need_v0 else None),
-                None, None, None, None, None, None, None, None)
+        state = {"h_bar": None, "g_later": None, "g_cur_add": None}
+
+        def walk(ts, halos, base):
+            """Steps ``m = base + j`` for ``j = len(halos) − 1 … 1`` back, from
+            ``ts[j]`` (= t_m), ``halos[j]`` and ``ts[j + 1]``."""
+            for j in range(len(halos) - 1, 0, -1):
+                m = base + j
+                state["h_bar"], g_cur, neg_G = halo_step_backward(
+                    data, ctx.slab, ctx.ring, ts[j], halos[j], ts[j + 1], ctx.inv, state["g_later"],
+                    cc_bar[m], nc_bar[m], dm, dp, h_bar=state["h_bar"], g_cur_add=state["g_cur_add"],
+                    backend=ctx.backend,
+                )
+                state["g_later"], state["g_cur_add"] = g_cur, neg_G
+
+        walk(tail, [None, *tail_halos], full * chunk)
+        for c in range(full - 1, -1, -1):  # replay each chunk from its carry, then walk it back
+            carry = carries[2 * c:2 * c + 2]
+            _, ts, halos, _ = halo_steps(data, ctx.slab, ctx.ring, *carry, ctx.inv, chunk, backend=ctx.backend,
+                                         split=ctx.split, keep=True)
+            walk([*carry, *ts], [None, *halos], c * chunk)
+            del ts, halos
+        v0, t1 = carries[:2] if full else tail[:2]
+        h_bar, g_cur, _ = halo_step_backward(  # the half-scaled first step: no t_prev, its −G is dropped
+            data, ctx.slab, ctx.ring, v0, (h0m, h0p), t1, 0.5 * ctx.inv, state["g_later"], cc_bar[0], nc_bar[0],
+            dm, dp, h_bar=state["h_bar"], g_cur_add=state["g_cur_add"], backend=ctx.backend,
+        )
+        return ((h_bar if need_data else None), (g_cur if need_v0 else None),
+                None, None, None, None, None, None, None, None, None)
+
+
+def remat_chunk_for(order: int, remat) -> int:
+    """The checkpointing chunk of a sharded sweep's gradient (the reference's
+    ``_remat_chunk_for``): ``None`` / ``"auto"`` give ⌊√steps⌋ for
+    ``steps = ceil((order − 2) / 2) ≥ 32`` (else 0), an int forces the chunk,
+    ``0`` / ``False`` turn it off."""
+    steps = max(0, (order - 1) // 2)
+    if remat is False or remat == 0:
+        return 0
+    if remat is None or remat == "auto":
+        return int(np.sqrt(steps)) if steps >= 32 else 0
+    return int(remat)
 
 
 def moments_from_sums(sums, K: int, order: int):
@@ -1442,7 +1673,8 @@ def sweep_launches(order: int) -> int:
     return 1 + max(0, (order - 2 + 1) // 2)
 
 
-def moments_fused(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optional[str] = None):
+def moments_fused(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optional[str] = None,
+                  operator_dtype=None):
     """KPM moments ``μ_m[k] = Re⟨v0_k|T_m(inv·H)|v0_k⟩`` as a ``[order, K]`` real tensor.
 
     The counterpart of ``moments_pallas_fused``: one half-scaled first step
@@ -1460,9 +1692,11 @@ def moments_fused(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optio
     chooses) or a :class:`StepPlan`; ``data`` and ``v0`` come in the original
     site order and the plan brings them into its own (inner products do not
     depend on the order, so the moments need no way back).
+    ``operator_dtype`` (``None`` or ``torch.bfloat16``, see :class:`StepPlan`)
+    stores the operator in the bf16 form for the sweep.
     """
     K = v0.shape[-1]
-    plan = impl if isinstance(impl, StepPlan) else StepPlan(sk, K, impl, v0)
+    plan = impl if isinstance(impl, StepPlan) else StepPlan(sk, K, impl, v0, operator_dtype)
     data, v0 = plan.operator(data), plan.enter(v0)
     inv = float(inv)
 

@@ -57,7 +57,8 @@ import torch
 from ..common import resolve_device
 from .blocksparse import BLOCK, Skeleton
 from .chebyshev import jackson_kernel, spectral_bound
-from .cuda_spmm import StepPlan, filter_launches, filter_sweep
+from .cuda_spmm import (StepPlan, bf16_operator, filter_launches, filter_sweep, operator_values,
+                        resolve_operator_storage)
 
 # Expansion orders are rounded up to one of these buckets.  High buckets
 # exist because resolving dense gap-edge clusters (van Hove pile-up: level
@@ -86,23 +87,26 @@ class _FilterEngine:
     """One device-resident operator and the filter sweep on it.
 
     The block data is brought into the form of the chosen step once
-    (complex64 for the kernels, relabelled rows on the gather path) and stays
-    on the device across filter applications; each application uploads the
-    block, runs :func:`~bodge_tpu_torch.ops.cuda_spmm.filter_sweep` and
-    brings the filtered block back.
+    (complex64 for the kernels, relabelled rows on the gather path, the bf16
+    form where ``operator_dtype`` asks for it) and stays on the device across
+    filter applications; each application uploads the block, runs
+    :func:`~bodge_tpu_torch.ops.cuda_spmm.filter_sweep` and brings the
+    filtered block back.
     """
 
-    def __init__(self, data, sk: Skeleton, impl: Optional[str], width: int):
-        plan = StepPlan(sk, width, impl, data)
+    def __init__(self, data, sk: Skeleton, impl: Optional[str], width: int, operator_dtype=None):
+        plan = StepPlan(sk, width, impl, data, operator_dtype)
         self.sk = sk
         self.impl = plan.impl
+        self.operator_dtype = operator_dtype
+        self.vector_dtype = data.dtype
         self.data = plan.operator(data)
         self.launches = 0
 
     def apply(self, V: np.ndarray, coeffs: np.ndarray, inv_scale: float) -> np.ndarray:
         """Filtered block Σ_m c_m T_m(H̃) V for host ``V: [N, 4, b]``."""
-        plan = StepPlan(self.sk, V.shape[-1], self.impl, self.data)
-        v = plan.enter(torch.as_tensor(V).to(device=self.data.device, dtype=self.data.dtype))
+        plan = StepPlan(self.sk, V.shape[-1], self.impl, self.data, self.operator_dtype)
+        v = plan.enter(torch.as_tensor(V).to(device=self.data.device, dtype=self.vector_dtype))
         y = plan.leave(filter_sweep(plan, self.data, v, coeffs, inv_scale))
         self.launches += filter_launches(len(coeffs))
         return y.cpu().numpy()
@@ -252,6 +256,7 @@ def lowest_eigenstates(
     block: Optional[int] = None,
     max_block: Optional[int] = None,
     impl: Optional[str] = None,
+    operator_dtype=None,
     device=None,
     scale: Optional[float] = None,
     seed: int = 7,
@@ -267,6 +272,14 @@ def lowest_eigenstates(
 
     ``data`` is the block data as a tensor (the solve runs on its device)
     or a NumPy array (then on ``device``; ``None`` means the card).
+
+    ``operator_dtype`` (``"f32"`` / ``"bf16"``; ``None`` reads
+    ``BODGE_OPERATOR_STORAGE``) stores the filter's operator in the bf16 form
+    (the kernels' bf16 instantiations on the card).  The spectral bound is
+    taken on the operator as given; the Rayleigh–Ritz stage (and the dense
+    fallback of tiny systems) then uses the rounded operator, so that filter
+    and projection see one matrix and the result is the spectrum of the
+    rounded operator, to the solver's tolerance.
 
     Each round applies one device-side f32 Chebyshev filter sweep to a
     block of ``block`` vectors, then an exact float64 signed
@@ -300,6 +313,10 @@ def lowest_eigenstates(
         data = data.detach()
     else:
         data = torch.as_tensor(np.ascontiguousarray(data)).to(resolve_device(device))
+    storage = resolve_operator_storage(operator_dtype)
+    # The operator the filter and the Rayleigh–Ritz stage see: the rounded one
+    # under bf16 storage (its complex values are exact in the bf16 form).
+    solved = data if storage is None else operator_values(bf16_operator(data), data.dtype)
 
     # Tiny systems: the subspace would be a sizable fraction of the whole
     # space — a direct dense solve is both faster and exact.  It runs where
@@ -308,22 +325,22 @@ def lowest_eigenstates(
     if b * 4 >= dim or dim <= 512:
         from .blocksparse import ell_to_dense_torch
 
-        E, X = (t.cpu().numpy() for t in torch.linalg.eigh(ell_to_dense_torch(data, sk)))
+        E, X = (t.cpu().numpy() for t in torch.linalg.eigh(ell_to_dense_torch(solved, sk)))
         idx = np.argsort(np.abs(E), kind="stable")[:nev]
         idx = idx[np.argsort(E[idx], kind="stable")]
         info = {"iterations": 0, "residuals": np.zeros(nev), "method": "dense-fallback"}
         return (E[idx], X[:, idx], info) if full_output else (E[idx], X[:, idx])
 
-    host_data = data.cpu().numpy()  # for the float64 Rayleigh–Ritz on the host
+    host_data = solved.cpu().numpy()  # for the float64 Rayleigh–Ritz on the host
     seconds = {"bound": 0.0, "filter": 0.0, "host": 0.0}
     t_loop = time.perf_counter()
-    if scale is None:
+    if scale is None:  # on the operator as given, as the KPM calls take it
         t_start = time.perf_counter()
         scale = spectral_bound(data, sk, impl=impl)
         seconds["bound"] = time.perf_counter() - t_start
     inv_scale = 1.0 / scale
 
-    engine = _FilterEngine(data, sk, impl, b)
+    engine = _FilterEngine(solved, sk, impl, b, storage)
 
     rng = np.random.default_rng(seed)
     V = (

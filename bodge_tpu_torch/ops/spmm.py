@@ -86,7 +86,7 @@ def default_impl(tensor) -> str:
     return "cuda" if tensor.is_cuda else "plain"
 
 
-def spmm(data, sk: Skeleton, v, *, impl: Optional[str] = None):
+def spmm(data, sk: Skeleton, v, *, impl: Optional[str] = None, operator_dtype=None):
     """Dispatch SpMM by implementation name.
 
     ``None`` and the names of :data:`bodge_tpu_torch.ops.cuda_spmm.PATHS`
@@ -97,30 +97,39 @@ def spmm(data, sk: Skeleton, v, *, impl: Optional[str] = None):
     back); a ``"cuda*"`` name on a CPU tensor raises.  ``"plain"`` and
     ``"gather"`` are the gather product, ``"stencil"`` the roll formulation
     (gather on generic skeletons).
+
+    ``operator_dtype="bf16"`` multiplies with the operator in the bf16 form
+    (the kernels' bf16 instantiations on the card); ``None`` keeps the
+    complex operator, as the reference's ``spmm_gather_pallas`` does.
     """
+    from .cuda_spmm import StepPlan, bf16_operator, operator_values, resolve_operator_storage
+
+    storage = None if operator_dtype is None else resolve_operator_storage(operator_dtype)
+    if storage is not None and impl in ("gather", "plain", "stencil"):
+        data = operator_values(bf16_operator(data), v.dtype)
     if impl in ("gather", "plain") or (impl == "stencil" and not sk.stencil):
         return spmm_gather(data, sk, v)
     if impl == "stencil":
         return spmm_stencil(data, sk, v)
-    from .cuda_spmm import StepPlan
-
-    plan = StepPlan(sk, v.shape[-1], impl, v)  # raises on an unknown name
+    plan = StepPlan(sk, v.shape[-1], impl, v, storage)  # raises on an unknown name
     if plan.impl == "plain":
-        return spmm_gather(data, sk, v)
+        return spmm_gather(operator_values(plan.operator(data), v.dtype), sk, v)
     # The kernels are complex64 only; wider input is cast down and back.
     y = plan.leave(plan.spmm(plan.operator(data), plan.enter(v)))
     return y.to(v.dtype)
 
 
-def spmm_bytes(sk: Skeleton, K: int, itemsize: int) -> int:
+def spmm_bytes(sk: Skeleton, K: int, itemsize: int, operator_itemsize: int = None) -> int:
     """Minimum device-memory traffic of one SpMM pass (for roofline accounting).
 
     Counts one read of the block data, one read of the operand, and one
     write of the result; padding slots still occupy memory and are counted,
-    since the hardware must stream them.
+    since the hardware must stream them.  ``operator_itemsize`` as in
+    :func:`chebyshev_step_bytes` (2 for the bf16 form: 4 bytes a complex entry).
     """
     N, S = sk.cols.shape
-    data_bytes = N * S * BLOCK * BLOCK * itemsize
+    op_item = itemsize if operator_itemsize is None else 2 * operator_itemsize
+    data_bytes = N * S * BLOCK * BLOCK * op_item
     vec_bytes = 2 * N * BLOCK * K * itemsize
     return data_bytes + vec_bytes
 

@@ -8,6 +8,7 @@ from .cuda_sharded import (
     free_energy_kpm_sharded_cuda,
     ldos_kpm_sharded_cuda,
     moments_sharded_cuda,
+    pack_operator_sharded,
     spmm_sharded_cuda,
 )
 from .multihost import initialize_multihost, is_multihost, local_device_count
@@ -33,4 +34,5 @@ __all__ = [
     "free_energy_kpm_sharded_cuda",
     "ldos_kpm_sharded_cuda",
     "dos_kpm_sharded_cuda",
+    "pack_operator_sharded",
 ]

@@ -23,17 +23,21 @@ Entry points and the reference functions they stand for:
 
 ``impl`` is ``None`` (the kernels for CUDA tensors, their plain versions for
 CPU tensors), ``"cuda"`` or ``"plain"``.  Inputs are the whole lattice's
-(every rank takes its slab) or this rank's slabs.
+(every rank takes its slab) or this rank's slabs; the operator may also come
+as :func:`pack_operator_sharded` gives it (the reference's pre-packed
+operator), in particular in the bf16 form, which the forward halo kernels
+take as their bf16 instantiations (``ell_cheb_step_halo_bf16``,
+``ell_spmm_halo_bf16``).
 
 The interior/boundary overlap split (``overlap=True`` or
 ``BODGE_HALO_OVERLAP=1``): each step begins the exchange, launches the slab's
 interior planes ``[1, Lxl−1)``, which read no halo, ends the exchange and
 launches the two boundary planes — three launches a step, the interior one
 running while the planes travel.  Slabs thinner than three planes use one
-launch.  ``remat=`` is accepted for the reference's signature; the sweep
-keeps every vector for its backward pass, as
-:class:`~bodge_tpu_torch.ops.cuda_spmm.MomentSweep` does (√steps
-checkpointing is an open knob in ``ROADMAP.md``).
+launch.  ``remat=`` is the gradient's checkpointing schedule
+(:func:`~bodge_tpu_torch.ops.cuda_spmm.remat_chunk_for`: ``"auto"`` keeps
+O(√order) vectors for one more forward sweep, bit-equal values); the
+forward-only entry points take it for the reference's signature.
 """
 
 from __future__ import annotations
@@ -56,10 +60,14 @@ from ..ops.cuda_spmm import (
     ShardedMomentSweep,
     _resolve,
     as_kernel_operand,
+    bf16_operator,
     ell_spmm_halo,
     halo_cheb_step,
     halo_sweep,
+    is_bf16_operator,
     moments_from_sums,
+    remat_chunk_for,
+    resolve_operator_storage,
 )
 from .sharded import RowSharding, RowSum, _whole_result
 
@@ -92,14 +100,35 @@ def _check_remat(remat):
         raise ValueError(f"remat must be None, 'auto', False or an int, got {remat!r}")
 
 
+def pack_operator_sharded(rs: RowSharding, data, operator_dtype=None):
+    """This rank's slab of the ELL data ``[N, S, 4, 4]`` (NumPy or tensor, the
+    whole lattice or the slab) in the form the forward halo kernels take, on
+    the mesh's device: complex64 on the card (the complex dtype as it is on
+    the CPU), or with ``operator_dtype="bf16"`` the bf16 form
+    ``[n_local, S, 4, 4, 2]`` (:func:`~bodge_tpu_torch.ops.cuda_spmm.bf16_operator`).
+    The counterpart of the reference's ``pack_operator_sharded``; as there,
+    ``None`` means float32 storage.  The forward halo kernels read only the
+    slab's own operator rows (the neighbours' planes they need are vectors,
+    exchanged every step), so the slab is all a rank keeps."""
+    slab = rs.shard_data(data)
+    if operator_dtype is not None and resolve_operator_storage(operator_dtype) is not None:
+        return bf16_operator(slab)
+    return as_kernel_operand(slab) if slab.is_cuda else slab
+
+
 def _operands(rs: RowSharding, data, v, impl):
-    """``(backend, data slab, vector slab)`` in the backend's form (complex64 for the kernels)."""
+    """``(backend, data slab, vector slab)`` in the backend's form (complex64
+    for the kernels; an operator in the bf16 form stays so, and the plain
+    versions then take complex128 vectors, the CPU's default)."""
     data_l, v_l = rs.shard_data(data), rs.shard_vector(v)
     backend = _resolve(impl, v_l)
+    bf16 = is_bf16_operator(data_l)
     if backend == "cuda":
-        data_l, v_l = as_kernel_operand(data_l), as_kernel_operand(v_l)
-    elif v_l.dtype != data_l.dtype:
-        v_l = v_l.to(data_l.dtype)
+        v_l = as_kernel_operand(v_l)
+        if not bf16:
+            data_l = as_kernel_operand(data_l)
+    else:
+        v_l = v_l.to(torch.complex128 if bf16 else data_l.dtype)
     return backend, data_l, v_l
 
 
@@ -147,20 +176,24 @@ def moments_sharded_cuda(rs: RowSharding, data, v0, order: int, scale: float,
 
 
 def moments_sharded_ad(rs: RowSharding, data_l, v0_l, inv: float, order: int, dm, dp,
-                       overlap: Optional[bool] = None, impl: Optional[str] = None):
+                       overlap: Optional[bool] = None, impl: Optional[str] = None, remat="auto"):
     """Differentiable moments ``[order, K]`` of this rank's slabs ``data_l``,
     ``v0_l`` (rows only): :class:`ShardedMomentSweep`, then the column sums
     summed over the ranks (:class:`~bodge_tpu_torch.parallel.sharded.RowSum`,
     identity backward).  ``dm`` / ``dp`` are the operator rows of the planes
-    before and after the slab (:meth:`RowSharding.halo_rows`).  Every rank
-    must take the gradient, in step with the others."""
+    before and after the slab (:meth:`RowSharding.halo_rows`).  ``remat``:
+    the checkpointing schedule of the gradient
+    (:func:`~bodge_tpu_torch.ops.cuda_spmm.remat_chunk_for`; ``"auto"``:
+    ⌊√steps⌋ at order ≥ 66, bit-equal values either way).  Every rank must
+    take the gradient, in step with the others."""
+    _check_remat(remat)
     backend = _resolve(impl, v0_l)
     if backend == "cuda":
         data_l, v0_l, dm, dp = (as_kernel_operand(x) for x in (data_l, v0_l, dm, dp))
     split = _split(rs, overlap)
     if torch.is_grad_enabled() and (data_l.requires_grad or v0_l.requires_grad):
         sums = ShardedMomentSweep.apply(data_l, v0_l, rs.slab, rs, float(inv), order, backend, split,
-                                        dm.detach(), dp.detach())
+                                        dm.detach(), dp.detach(), remat_chunk_for(order, remat))
     else:  # three buffers, as moments_sharded_cuda
         sums, _, _ = halo_sweep(data_l, rs.slab, rs, v0_l, float(inv), order, backend=backend, split=split)
     return moments_from_sums(RowSum.apply(sums, rs), v0_l.shape[-1], order)
@@ -227,7 +260,6 @@ def spectral_bound_sharded(rs: RowSharding, data, iters: int = 60, seed: int = 0
     shape = (rs.sk.n_sites, 4, 1)
     v = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
     backend, data_l, v_l = _operands(rs, data, v, impl)
-    v_l = v_l.to(data_l.dtype)
 
     def norm(w):
         return rs.row_sum((w.real * w.real + w.imag * w.imag).sum()).sqrt()

@@ -6,7 +6,7 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``bodge_tpu_torch/csrc`` into ``build/``,
-holds each kernel against its plain PyTorch version on the card, drives six
+holds each kernel against its plain PyTorch version on the card, drives seven
 paths through the normal entry points at full size — the KPM observables
 (assemble → block SpMM → fused Chebyshev step → free energy / LDOS / LDOS map
 / DOS / apply, on 1000×1000 sites), the differentiable path (``solve_gap``
@@ -17,18 +17,21 @@ assembled, saved, loaded and evaluated through the windowed gather kernels),
 the tiled step (``impl="cuda_tiled"`` at 1000×1000 and 64×64×4) and the
 lowest-states solver (``diagonalize(method="lanczos")`` at 32×32 against three
 exact solvers; at 100×100 with magnetic impurities against shift-invert, and
-with a uniform Zeeman field, bounded, against ``eigvalsh`` on the card) and
-the row-sharded path (the halo kernels on x-slabs of the 1000×1000 operator;
+with a uniform Zeeman field, bounded, against ``eigvalsh`` on the card), the
+row-sharded path (the halo kernels on x-slabs of the 1000×1000 operator;
 the sharded KPM entry points and ``solve_gap(impl="cuda_sharded")`` in a
-world of one over NCCL; four gloo ranks sharing the card, spawned after the
-build)
+world of one over NCCL, the gradient with √steps checkpointing on and off;
+four gloo ranks sharing the card, spawned after the build) and bf16 operator
+storage (``operator_dtype="bf16"`` through the KPM entry points, the gather
+and tiled steps, a sharded world of one and the lowest-states solver: the
+seven bf16 instantiations of the forward kernels)
 — checks them against complex128 at small sizes, and exits non-zero if any
 phase fails.  Every line of output is one JSON object except the
 ``nvidia-smi`` lines; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it fails at once.  ``--quick`` stops after the small
 kernel checks (for a first look at a new kernel) and prints no result line;
-``--phases main,widths,grad,gap,dwave,generic,tiled,lowest,sharded`` runs only the
+``--phases main,widths,grad,gap,dwave,generic,tiled,lowest,bf16,sharded`` runs only the
 named phases (and prints no result line unless all ran); ``--profile`` adds a
 ``torch.profiler`` table of one gradient to the ``gap`` phase; ``--log PATH``
 also writes the JSON records of the run to ``PATH``.
@@ -48,7 +51,13 @@ plan, one gradient against complex128; ``tiled``:
 read here) and the tiled step timed at N = 10⁶ beside ``ell_cheb_step`` at
 K = 1, 8, 64, with variants of its plan; ``lowest``: the lowest-states solver
 (launch counters read here), and its kernels against their plain versions and
-timed on each run's operator at the block widths the run took.
+timed on each run's operator at the block widths the run took; ``bf16``: the
+entry points with ``operator_dtype="bf16"`` beside the float32 calls (launch
+counters read here: the bf16 instantiations, and of the float32 forward
+kernels only the spectral bounds' products), the drift of each observable,
+and the bf16 instantiations timed beside their float32 forms.  The small
+kernel checks hold the bf16 instantiations too, on the bf16 form of every
+small operator.
 """
 
 from __future__ import annotations
@@ -61,7 +70,7 @@ import sys
 import time
 import warnings
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+HBM_BYTES_PER_S = None  # the card's published memory rate, set in main (bodge_tpu_torch.utils.profiling)
 FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 # The bounded lowest-states run on the uniform 100×100 lattice (phase `lowest`).
 UNIFORM_MAX_ITER, UNIFORM_MAX_ORDER = 12, 16384  # about a minute on one H100; 8 / 8192 leaves the eigenvalues 3.7e-3 off
@@ -223,7 +232,7 @@ def main(argv) -> int:
     quick = "--quick" in argv
     profile = "--profile" in argv
     log_path = argv[argv.index("--log") + 1] if "--log" in argv else None
-    all_phases = ("main", "widths", "grad", "gap", "dwave", "generic", "tiled", "lowest", "sharded")
+    all_phases = ("main", "widths", "grad", "gap", "dwave", "generic", "tiled", "lowest", "bf16", "sharded")
     phases = tuple(argv[argv.index("--phases") + 1].split(",")) if "--phases" in argv else all_phases
     if not set(phases) <= set(all_phases):
         print(f"chip_smoke: unknown phase in {phases} (known: {all_phases})", file=sys.stderr)
@@ -248,6 +257,11 @@ def main(argv) -> int:
     from bodge_tpu_torch.ops import lanczos as lz
     from bodge_tpu_torch.ops.blocksparse import BLOCK
     from bodge_tpu_torch.ops.spmm import chebyshev_step_bytes, spmm_bytes, spmm_flops
+    from bodge_tpu_torch.utils import profiling
+    from bodge_tpu_torch.utils.trace import annotate, trace
+
+    global HBM_BYTES_PER_S
+    HBM_BYTES_PER_S = profiling.hbm_roof_for_device(0)
 
     dev = torch.device("cuda")
     c64, c128 = torch.complex64, torch.complex128
@@ -275,12 +289,7 @@ def main(argv) -> int:
     # ------------------------------------------------------------------ 1. device
     smi = nvidia_smi_line()
     print(smi, flush=True)
-    n_copy = 1 << 30  # 1 GiB each way: far beyond the L2 cache
-    src = torch.empty(n_copy, dtype=torch.uint8, device=dev)
-    dst = torch.empty_like(src)
-    copy_ms = timed_ms(lambda: dst.copy_(src), 10)
-    copy_bytes_per_s = 2 * n_copy / (copy_ms * 1e-3)  # each byte read once and written once
-    del src, dst
+    copy_bytes_per_s = profiling.measure_hbm_bandwidth(1 << 30, reps=10)  # 1 GiB each way, beyond the L2 cache
     emit({
         "phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -291,8 +300,15 @@ def main(argv) -> int:
     built = _build.build_all(verbose=True)
     ptxas = [l for log in built["log"].values() for l in log.splitlines()
              if "registers" in l or "spill" in l]
+    registers, entry = {}, None  # registers of each kernel instantiation, by its mangled name
+    for line in (l for log in built["log"].values() for l in log.splitlines()):
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry is not None and "Used" in line and "registers" in line:
+            registers[entry] = int(line.split("Used")[1].split()[0])
+            entry = None
     emit({"phase": "build", "seconds": built["seconds"], "sources": built["built"],
-          "nvcc": _build.find_nvcc(), "ptxas": ptxas})
+          "nvcc": _build.find_nvcc(), "ptxas": ptxas, "registers": registers})
 
     # ------------------------------------------------------------------ 3a. kernels, small shapes
     def random_system(shape, seed, pbc=True):
@@ -414,11 +430,45 @@ def main(argv) -> int:
                                          (h_fused - h_fused_ref).abs().max(), (neg + G).abs().max())),
         }
 
+    # The bf16 instantiations of the general product and step on the bf16 form
+    # of the same operator: against the plain versions on that form (2e-4;
+    # partials 1e-4 of the largest sum against complex128 — the rounding is the
+    # same, only float32 arithmetic differs), second launch bit-equal, out =
+    # t_prev, t_prev = 0, and each launch counted under its own name.
+    def compare_bf16(data, sk, K, seed):
+        N = sk.n_sites
+        form = ck.bf16_operator(data)
+        t_cur, t_prev = random_vector(N, K, seed), random_vector(N, K, seed + 1)
+        before = ck.launch_counts()
+        y = ck.ell_spmm(form, sk, t_cur)
+        y_again = ck.ell_spmm_bf16(form, sk, t_cur)
+        t_next, pp = ck.ell_cheb_step(form, sk, t_cur, t_prev, 0.125)
+        again, pp_again = ck.ell_cheb_step_bf16(form, sk, t_cur, t_prev.clone(), 0.125)
+        first, _ = ck.ell_cheb_step(form, sk, t_cur, None, 0.125)
+        buf = t_prev.clone()
+        aliased, pp_alias = ck.ell_cheb_step(form, sk, t_cur, buf, 0.125, out=buf)
+        torch.cuda.synchronize()
+        launched = launched_since(before)
+        y_ref = ck.ell_spmm_plain(form, sk, t_cur)
+        n_ref, _ = ck.ell_cheb_step_plain(form, sk, t_cur, t_prev, 0.125)
+        first_ref, _ = ck.ell_cheb_step_plain(form, sk, t_cur, None, 0.125)
+        _, pp_ref = ck.ell_cheb_step_plain(form, sk, t_cur.to(c128), t_prev.to(c128), 0.125)
+        sums, sums_ref = pp.double().sum(dim=0), pp_ref[0]
+        rel = float((sums - sums_ref).abs().max() / sums_ref.abs().max())
+        close = lambda a, b: torch.allclose(a, b, atol=2e-4, rtol=2e-4)
+        ok = (close(y, y_ref) and close(t_next, n_ref) and close(first, first_ref) and rel <= 1e-4
+              and torch.equal(y_again, y) and torch.equal(again, t_next) and torch.equal(pp_again, pp)
+              and torch.equal(aliased, t_next) and torch.equal(pp_alias, pp) and aliased.data_ptr() == buf.data_ptr()
+              and launched == counts(ell_spmm_bf16=2, ell_cheb_step_bf16=4))
+        return ok, {"ell_spmm_bf16": float((y - y_ref).abs().max()),
+                    "ell_cheb_step_bf16": float((t_next - n_ref).abs().max()), "bf16_partials_rel": rel}
+
     ck.reset_launch_counts()
     shapes = [(6, 5, 1), (4, 7, 1), (4, 4, 3), (3, 1, 5), (5, 6, 4), (16, 1, 1), (2, 6, 1)]
     probe_counts = [1, 3, 4, 8, 33]
     small_err = {"ell_spmm": 0.0, "ell_cheb_step": 0.0, "partials_rel": 0.0,
-                 "ell_spmm_adjoint": 0.0, "ell_block_outer": 0.0}
+                 "ell_spmm_adjoint": 0.0, "ell_block_outer": 0.0,
+                 "ell_spmm_bf16": 0.0, "ell_cheb_step_bf16": 0.0, "bf16_partials_rel": 0.0}
     cases = [(str(shape), *random_system(shape, seed=i)) for i, shape in enumerate(shapes)]
     rng = np.random.default_rng(11)
     r = np.concatenate([np.arange(23), rng.integers(0, 23, size=60)])
@@ -432,10 +482,13 @@ def main(argv) -> int:
         for K in probe_counts:
             ok, err = compare(data, sk, K, seed=100 + K)
             ok_bwd, err_bwd = compare_backward(sk, K, seed=200 + K)
+            ok_bf16, err_bf16 = compare_bf16(data, sk, K, seed=300 + K)
             err.update(err_bwd)
+            err.update(err_bf16)
             worst = {k: max(worst[k], err[k]) for k in worst}
             check(ok, f"kernel disagrees with its plain version on {name}, K={K}: {err}")
             check(ok_bwd, f"backward kernel disagrees with its plain version on {name}, K={K}: {err_bwd}")
+            check(ok_bf16, f"bf16 kernel disagrees with its plain version on {name}, K={K}: {err_bf16}")
         small_err = {k: max(small_err[k], worst[k]) for k in worst}
         emit({"phase": "kernels", "shape": name, "S": sk.n_slots, "K": probe_counts,
               "padding_slots": bool((sk.cols < 0).any()), "max_abs_err": worst})
@@ -443,7 +496,9 @@ def main(argv) -> int:
           "tolerance": {"y_t_next": "atol=rtol=2e-4 vs complex64 plain",
                         "partials": "1e-4 of the largest sum vs complex128 plain",
                         "adjoint_outer": "atol=rtol=2e-4 vs complex64 plain, non-Hermitian data, "
-                                         "accumulate off and on, second launch bit-equal"},
+                                         "accumulate off and on, second launch bit-equal",
+                        "bf16": "atol=rtol=2e-4 vs complex64 plain on the same bf16 form; partials 1e-4 "
+                                "vs complex128 plain on that form; second launch bit-equal"},
           "max_abs_err": small_err, "launches": ck.launch_counts()})
 
     # ------------------------------------------------------------------ 3a'. the gather and the tiled kernels, small shapes
@@ -489,18 +544,40 @@ def main(argv) -> int:
             lambda prev, out: cg.ell_gather_cheb_step(d, gl, t_cur, prev, 0.125, out=out),
             lambda cur, prev, dt: cg.ell_gather_cheb_step_plain(d.to(dt), gl, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
             lambda prev: ck.ell_cheb_step(d, gl.sk, t_cur, prev, 0.125), t_cur, t_prev)
+        # The bf16 instantiations on the bf16 form of the relabelled operator.
+        d16 = ck.bf16_operator(d)
+        y16 = cg.ell_gather_spmm(d16, gl, t_cur)
+        y16_again = cg.ell_gather_spmm_bf16(d16, gl, t_cur)
+        torch.cuda.synchronize()
+        y16_want = cg.ell_gather_spmm_plain(d16, gl, t_cur)
+        y16_general = ck.ell_spmm(d16, gl.sk, t_cur)
+        ok16_step, err16_step, rel16 = step_agrees(
+            lambda prev, out: cg.ell_gather_cheb_step(d16, gl, t_cur, prev, 0.125, out=out),
+            lambda cur, prev, dt: cg.ell_gather_cheb_step_plain(d16, gl, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
+            lambda prev: ck.ell_cheb_step(d16, gl.sk, t_cur, prev, 0.125), t_cur, t_prev)
+        ok16 = close(y16, y16_want) and close(y16, y16_general) and torch.equal(y16, y16_again) and ok16_step
         ok = close(y, y_want) and close(y, y_general) and close(y, y_natural) and torch.equal(y, y_again) and ok_step
-        return ok, {"ell_gather_spmm": float((y - y_want).abs().max()), "ell_gather_cheb_step": err_step,
-                    "gather_partials_rel": rel}
+        return ok and ok16, {"ell_gather_spmm": float((y - y_want).abs().max()), "ell_gather_cheb_step": err_step,
+                             "gather_partials_rel": rel, "ell_gather_spmm_bf16": float((y16 - y16_want).abs().max()),
+                             "ell_gather_cheb_step_bf16": err16_step, "gather_bf16_partials_rel": rel16}
 
-    def compare_tiled(data, sk, K, seed, tile=None):
+    def compare_tiled(data, sk, K, seed, tile=None, bf16=False):
+        """The tiled step on ``data`` (with ``bf16``: its bf16 instantiation on
+        the bf16 form, against the plain version and the general bf16 step on
+        that form)."""
         N = sk.n_sites
         t_cur, t_prev = random_vector(N, K, seed), random_vector(N, K, seed + 1)
+        if bf16:
+            data = ck.bf16_operator(data)
+            as_dt = lambda dt: data
+        else:
+            as_dt = lambda dt: data.to(dt)
         ok, err, rel = step_agrees(
             lambda prev, out: ck.stencil_cheb_step_tiled(data, sk, t_cur, prev, 0.125, out=out, tile=tile),
-            lambda cur, prev, dt: ck.stencil_cheb_step_tiled_plain(data.to(dt), sk, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
+            lambda cur, prev, dt: ck.stencil_cheb_step_tiled_plain(as_dt(dt), sk, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
             lambda prev: ck.ell_cheb_step(data, sk, t_cur, prev, 0.125), t_cur, t_prev)
-        return ok, {"stencil_cheb_step_tiled": err, "tiled_partials_rel": rel}
+        suffix = "_bf16" if bf16 else ""
+        return ok, {"stencil_cheb_step_tiled" + suffix: err, "tiled" + suffix + "_partials_rel": rel}
 
     def ring_skeleton(n):
         i = np.arange(n)
@@ -522,7 +599,8 @@ def main(argv) -> int:
                     ("generic 10x40", bs.skeleton_from_lattice(CubicLattice((10, 40, 1)))),
                     ("generic 12x9", bs.skeleton_from_lattice(CubicLattice((12, 9, 1)))),
                     (f"pairs(23, S={sk_pairs.n_slots})", sk_pairs)]
-    gather_err = {"ell_gather_spmm": 0.0, "ell_gather_cheb_step": 0.0, "gather_partials_rel": 0.0}
+    gather_err = {"ell_gather_spmm": 0.0, "ell_gather_cheb_step": 0.0, "gather_partials_rel": 0.0,
+                  "ell_gather_spmm_bf16": 0.0, "ell_gather_cheb_step_bf16": 0.0, "gather_bf16_partials_rel": 0.0}
     # Each case at the planned tile; T = 32 (pairs(23): N smaller than one tile,
     # and not a multiple of it); runs of one tile and of five (more tiles than
     # the ring has stages); T = 160; and the T whose ring comes closest to the
@@ -551,13 +629,15 @@ def main(argv) -> int:
               "padding_slots": bool((sk.cols < 0).any()),
               "plans_T_TK_depth_run_ctas_threads_smem": plans, "max_abs_err": worst})
     check(above_48k and near_limit, "no gather case with a ring of 48-56 KB, or none near 227 KB")
-    tiled_err = {"stencil_cheb_step_tiled": 0.0, "tiled_partials_rel": 0.0}
+    tiled_err = {"stencil_cheb_step_tiled": 0.0, "tiled_partials_rel": 0.0,
+                 "stencil_cheb_step_tiled_bf16": 0.0, "tiled_bf16_partials_rel": 0.0}
     sk = bs.skeleton((5, 6, 4))  # a ring of six rows of 24 + 8 sites: 52 KB, past the 48 KB default
     for K in (8, 33):
         check(48 * 1024 < ck.tile_plan(sk, K, tile=(24, 5, 6))["smem_bytes"] + 2 * ck.TILED_THREADS * 4 <= 56 * 1024,
               "tile (24, 5, 6) is not 48-56 KB")
-        ok, err = compare_tiled(random_blocks(sk, 650), sk, K, seed=750 + K, tile=(24, 5, 6))
-        check(ok, f"tiled kernel disagrees on (5, 6, 4) with a 52 KB ring, K={K}: {err}")
+        for bf16 in (False, True):
+            ok, err = compare_tiled(random_blocks(sk, 650), sk, K, seed=750 + K, tile=(24, 5, 6), bf16=bf16)
+            check(ok, f"tiled kernel disagrees on (5, 6, 4) with a 52 KB ring, K={K}, bf16={bf16}: {err}")
     # The seven stencil skeletons and three more (Lx = 1 with y and z, all
     # extents 2), periodic and open, K up to 64, at the planned tile and at
     # three forced ones: strips of 2 (every halo wraps modulo M) in runs of 3
@@ -577,7 +657,9 @@ def main(argv) -> int:
             for K in tiled_counts:
                 for tile in [None, *forced]:
                     ok, err = compare_tiled(data, sk, K, seed=700 + K, tile=tile)
-                    check(ok, f"tiled kernel disagrees on {shape} {label}, K={K}, tile={tile}: {err}")
+                    ok16, err16 = compare_tiled(data, sk, K, seed=800 + K, tile=tile, bf16=True)
+                    err.update(err16)
+                    check(ok and ok16, f"tiled kernel disagrees on {shape} {label}, K={K}, tile={tile}: {err}")
                     worst = {k: max(worst[k], err[k]) for k in worst}
         tiled_err = {k: max(tiled_err[k], worst[k]) for k in worst}
         emit({"phase": "kernels", "shape": str(shape), "S": sk.n_slots, "K": tiled_counts,
@@ -588,7 +670,9 @@ def main(argv) -> int:
         fail("the tiled step accepted a generic skeleton")
     except ValueError:
         pass
-    emit({"phase": "kernels", "held": ["ell_gather_spmm", "ell_gather_cheb_step", "stencil_cheb_step_tiled"],
+    emit({"phase": "kernels", "held": ["ell_gather_spmm", "ell_gather_cheb_step", "stencil_cheb_step_tiled",
+                                       "ell_gather_spmm_bf16", "ell_gather_cheb_step_bf16",
+                                       "stencil_cheb_step_tiled_bf16"],
           "gather_shapes": len(gather_cases), "tiled_shapes": len(tiled_shapes),
           "tolerance": {"against_plain_and_general": "atol=rtol=2e-4 vs complex64 plain and vs ell_spmm / ell_cheb_step",
                         "partials": "1e-4 of the largest sum vs complex128 plain", "repeat": "second launch bit-equal"},
@@ -679,7 +763,30 @@ def main(argv) -> int:
                   and close(neg, -G) and close(h_fused, h_fused_want)
                   and close(adj_fused, adj_fused_want) and adj_fused.data_ptr() == abuf.data_ptr())
         bit_equal = bit_equal and torch.equal(adj, adj_whole) and torch.equal(h, h_whole)
-        return ok and ok_bwd, bit_equal, {
+        # The forward forms' bf16 instantiations on the bf16 form of the slab's rows.
+        f_l, f_whole = ck.bf16_operator(d_l), ck.bf16_operator(data)
+        y16 = ck.ell_spmm_halo(f_l, slab, v_l, hm, hp)
+        y16_again = ck.ell_spmm_halo_bf16(f_l, slab, v_l, hm, hp)
+        t16, pp16 = ck.ell_cheb_step_halo(f_l, slab, v_l, hm, hp, tp_l, 0.125)
+        buf16 = tp_l.clone()
+        t16_alias, pp16_alias = ck.ell_cheb_step_halo_bf16(f_l, slab, v_l, hm, hp, buf16, 0.125, out=buf16)
+        torch.cuda.synchronize()
+        y16_plain = ck.ell_spmm_halo_plain(f_l, slab, v_l, hm, hp)
+        t16_plain, _ = ck.ell_cheb_step_halo_plain(f_l, slab, v_l, hm, hp, tp_l, 0.125)
+        _, pp16_128 = ck.ell_cheb_step_halo_plain(f_l, slab, v_l.to(c128), hm.to(c128), hp.to(c128), tp_l.to(c128),
+                                                  0.125)
+        y16_whole = ck.ell_spmm(f_whole, sk, v)[r]
+        t16_whole = ck.ell_cheb_step(f_whole, sk, v, t_prev, 0.125)[0][r]
+        sums16, want16 = pp16.double().sum(dim=0), pp16_128[0]
+        rel16 = float((sums16 - want16).abs().max() / want16.abs().max())
+        ok16 = (close(y16, y16_plain) and close(y16, y16_whole) and torch.equal(y16, y16_again)
+                and close(t16, t16_plain) and close(t16, t16_whole) and rel16 <= 1e-4
+                and torch.equal(t16_alias, t16) and torch.equal(pp16_alias, pp16))
+        bit_equal = bit_equal and torch.equal(y16, y16_whole) and torch.equal(t16, t16_whole)
+        return ok and ok_bwd and ok16, bit_equal, {
+            "ell_spmm_halo_bf16": float(max((y16 - y16_plain).abs().max(), (y16 - y16_whole).abs().max())),
+            "ell_cheb_step_halo_bf16": float(max((t16 - t16_plain).abs().max(), (t16 - t16_whole).abs().max())),
+            "halo_bf16_partials_rel": rel16,
             "ell_spmm_halo": float(max((y - y_plain).abs().max(), (y - y_whole).abs().max())),
             "ell_cheb_step_halo": float(max((t - t_plain).abs().max(), (t - t_whole[r]).abs().max())),
             "halo_partials_rel": rel,
@@ -689,7 +796,8 @@ def main(argv) -> int:
 
     ck.reset_launch_counts()
     halo_err = dict.fromkeys(("ell_spmm_halo", "ell_cheb_step_halo", "halo_partials_rel",
-                              "ell_spmm_adjoint_halo", "ell_block_outer_halo"), 0.0)
+                              "ell_spmm_adjoint_halo", "ell_block_outer_halo", "ell_spmm_halo_bf16",
+                              "ell_cheb_step_halo_bf16", "halo_bf16_partials_rel"), 0.0)
     all_bit_equal = True
     for i, shape in enumerate(shapes):
         sk = bs.skeleton(shape)
@@ -707,7 +815,7 @@ def main(argv) -> int:
         emit({"phase": "kernels", "shape": str(shape), "S": sk.n_slots, "K": probe_counts, "Lxl": [1, 2, 3, shape[0]],
               "boundaries": ["periodic", "open"], "max_abs_err": worst})
     emit({"phase": "kernels", "held": ["ell_spmm_halo", "ell_cheb_step_halo", "ell_spmm_adjoint_halo",
-                                       "ell_block_outer_halo"],
+                                       "ell_block_outer_halo", "ell_spmm_halo_bf16", "ell_cheb_step_halo_bf16"],
           "halo_shapes": len(shapes), "rows_of_whole_lattice_kernels_bit_equal": all_bit_equal,
           "tolerance": {"against_plain_and_whole": "atol=rtol=2e-4 vs complex64 plain and vs the rows of "
                                                    "ell_spmm / ell_cheb_step / ell_spmm_adjoint / ell_block_outer",
@@ -1973,6 +2081,12 @@ def main(argv) -> int:
         import torch.distributed as dist
         from bodge_tpu_torch.parallel import (RowSharding, dos_kpm_sharded_cuda, free_energy_kpm_sharded_cuda,
                                               initialize_multihost, ldos_kpm_sharded_cuda, make_row_mesh)
+        from bodge_tpu_torch.parallel.cuda_sharded import moments_sharded_ad
+
+        def replayed(order):
+            """Steps the gradient's backward pass replays under remat="auto" (the objective's schedule)."""
+            chunk, steps = ck.remat_chunk_for(order, "auto"), ck.sweep_launches(order) - 1
+            return (steps // chunk) * chunk if 0 < chunk < steps else 0
 
         phase_t0 = time.perf_counter()
         rows_out = {}
@@ -2182,11 +2296,12 @@ def main(argv) -> int:
             grad_wall = time.perf_counter() - t0
             per_gradient = launched_since(before)
             sweep = ck.sweep_launches(512)
-            check(per_gradient == counts(ell_cheb_step_halo=sweep, ell_spmm_adjoint_halo=sweep,
+            check(per_gradient == counts(ell_cheb_step_halo=sweep + replayed(512), ell_spmm_adjoint_halo=sweep,
                                          ell_block_outer_halo=sweep),
                   f"one sharded gradient launched {per_gradient}")
             expected["ell_spmm_halo"] += 60  # the objective's spectral bound
-            expected["ell_cheb_step_halo"] += 2 * sweep  # the warm-up value and the gradient's forward sweep
+            # the warm-up value, the gradient's forward sweep and the steps its backward pass replays
+            expected["ell_cheb_step_halo"] += 2 * sweep + replayed(512)
             expected["ell_spmm_adjoint_halo"] += sweep
             expected["ell_block_outer_halo"] += sweep
             del F_total
@@ -2196,9 +2311,9 @@ def main(argv) -> int:
                                         impl="cuda_sharded", **kw_gap)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated() / 1e9
+            peak = peak_gap = torch.cuda.max_memory_allocated() / 1e9
             expected["ell_spmm_halo"] += 60
-            expected["ell_cheb_step_halo"] += (steps + 1) * sweep
+            expected["ell_cheb_step_halo"] += (steps + 1) * sweep + steps * replayed(512)
             expected["ell_spmm_adjoint_halo"] += steps * sweep
             expected["ell_block_outer_halo"] += steps * sweep
             diff = abs(float(np.real(delta[0])) - gap_delta)
@@ -2218,7 +2333,7 @@ def main(argv) -> int:
                 value = F_total(x.to(c64))
                 (grad,) = torch.autograd.grad(value, x)
                 order = kw["order"]
-                expected["ell_cheb_step_halo"] += ck.sweep_launches(order)
+                expected["ell_cheb_step_halo"] += ck.sweep_launches(order) + replayed(order)
                 expected["ell_spmm_adjoint_halo"] += ck.sweep_launches(order)
                 expected["ell_block_outer_halo"] += ck.sweep_launches(order)
                 world_one[name] = (float(value.detach()), grad.cpu().numpy())
@@ -2226,6 +2341,40 @@ def main(argv) -> int:
             sharded_launches = ck.launch_counts()  # read right after the path
             check(sharded_launches == expected, f"sharded path launched {sharded_launches}, expected {expected}")
             emit({"phase": "sharded", "launches": sharded_launches, "expected": expected})
+
+            # The gradient at 512², order 512, K = 8 with √steps checkpointing off
+            # and on (the objective's "auto": chunks of 15): peak memory, seconds a
+            # gradient (an iteration of solve_gap is one gradient and a few small
+            # passes), and the gradients bit-equal.  Off, on, on, off.
+            rs_m = RowSharding(sk_m, mesh)
+            coeffs = torch.linspace(1.0, -1.0, 512, device=dev, dtype=torch.float32)
+            z = torch.as_tensor(kpm.rademacher_probes(N_m, 8, 11, np.complex64) / np.sqrt(4 * N_m), device=dev)
+
+            def sharded_gradient(remat):
+                delta = torch.full((N_m,), 0.3, device=dev, requires_grad=True)
+                data = sc.data_with_onsite_swave(metal.data, delta.to(c64))
+                dm, dp = data[(Lx_m - 1) * P_m:].detach(), data[:P_m].detach()  # the ring of one
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                mu = moments_sharded_ad(rs_m, data, z, 1.0 / scale_s, 512, dm, dp, remat=remat)
+                (g,) = torch.autograd.grad((coeffs * mu.sum(dim=1)).sum(), delta)
+                torch.cuda.synchronize()
+                return g, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+            remat_runs = {False: [], "auto": []}
+            grads = {}
+            for remat in (False, "auto", "auto", False):
+                g, wall, peak = sharded_gradient(remat)
+                remat_runs[remat].append({"s_per_gradient": wall, "peak_device_GB": peak})
+                grads[remat] = g
+            emit({"phase": "sharded", "gradient": "512x512, order 512, K = 8, world of one: remat off and 'auto'",
+                  "chunk_auto": ck.remat_chunk_for(512, "auto"), "replayed_steps": replayed(512),
+                  "off": remat_runs[False], "auto": remat_runs["auto"],
+                  "gradients_bit_equal": bool(torch.equal(grads[False], grads["auto"])),
+                  "solve_gap_peak_device_GB": peak_gap})
+            check(torch.equal(grads[False], grads["auto"]), "the gradient with remat differs from the one without")
+            del grads
         finally:
             dist.destroy_process_group()
 
@@ -2262,6 +2411,279 @@ def main(argv) -> int:
         emit({"phase": "sharded", "wall_s": time.perf_counter() - phase_t0})
         return sharded_launches, rows_out
 
+    # ------------------------------------------------------------------ 13. bf16 operator storage
+    def phase_bf16():
+        """bf16 operator storage at full width (launch counters read here): the
+        KPM entry points on swave_superconductor((1000,1000,1)) with
+        operator_dtype="bf16" beside the float32 calls, apply, the tiled step,
+        the generic sheet through the gather step, a world of one through
+        pack_operator_sharded, and diagonalize(method="lanczos", k=4) at 32×32
+        against eigvalsh of the rounded operator; then the seven bf16
+        instantiations timed at the path's shapes beside their float32 forms, and
+        one call traced with utils.trace."""
+        from bodge_tpu_torch.parallel import (RowSharding, free_energy_kpm_sharded_cuda, make_row_mesh,
+                                              pack_operator_sharded, spmm_sharded_cuda)
+
+        phase_t0 = time.perf_counter()
+        energies = np.linspace(-1.0, 1.0, 41)
+        sites = [(100 + 50 * i, 100 + 50 * j, 0) for i in range(4) for j in range(4)]
+        big = swave_superconductor((1000, 1000, 1))
+        sk = big.skeleton
+        N, S = sk.cols.shape
+        sheet = swave_on(HoleSheet(1024, 256, 60))
+        sk_s = sheet.skeleton
+        small = Hamiltonian(CubicLattice((32, 32, 1)), device=dev)  # phase lowest's 32×32 lattice
+        small.assemble(onsite=lambda ci: (-0.5 + 0.08 * np.cos(2.39996 * ci[:, 0] + 1.1 * ci[:, 1]))[:, None, None] * σ0,
+                       hopping=lambda ci, cj: -1.0 * σ0, pairing_onsite=lambda ci: 0.2 * jσ2)
+        scale = kpm.spectral_bound(big.data, sk)
+        scale_s = kpm.spectral_bound(sheet.data, sk_s)
+        rs = RowSharding(sk, make_row_mesh())  # a world of one without a process group: the ring is a local copy
+        v8, v8_s = random_vector(N, 8, 71), random_vector(sk_s.n_sites, 8, 72)
+        steps, kw, k = ck.sweep_launches, dict(method="kpm", order=256, samples=8), 4
+        # label: (the call at an operator_dtype, the launches its bf16 call makes, their probe width K)
+        calls = {
+            "free_energy(T=0.01, order=256, samples=8)": (
+                lambda dt: big.free_energy(0.01, operator_dtype=dt, **kw),
+                {"ell_cheb_step_bf16": steps(256), "ell_spmm": 60}, 8),
+            "ldos((500,500,0), order=512)": (
+                lambda dt: big.ldos((500, 500, 0), energies, method="kpm", order=512, scale=scale, operator_dtype=dt),
+                {"ell_cheb_step_bf16": steps(512)}, 4),
+            "ldos_map(16 sites, order=512)": (
+                lambda dt: big.ldos_map(sites, energies, method="kpm", order=512, scale=scale, operator_dtype=dt),
+                {"ell_cheb_step_bf16": steps(512)}, 64),
+            "dos(order=256, samples=8)": (
+                lambda dt: big.dos(energies, order=256, samples=8, scale=scale, operator_dtype=dt),
+                {"ell_cheb_step_bf16": steps(256)}, 8),
+            "apply(K=8)": (lambda dt: big.apply(v8, operator_dtype=dt), {"ell_spmm_bf16": 1}, 8),
+            "free_energy(T=0.01, order=256, samples=8, impl='cuda_tiled')": (
+                lambda dt: big.free_energy(0.01, scale=scale, impl="cuda_tiled", operator_dtype=dt, **kw),
+                {"stencil_cheb_step_tiled_bf16": steps(256)}, 8),
+            "sheet: free_energy(T=0.05, order=256, samples=8)": (
+                lambda dt: sheet.free_energy(0.05, scale=scale_s, operator_dtype=dt, **kw),
+                {"ell_gather_cheb_step_bf16": steps(256)}, 8),
+            "sheet: apply(K=8)": (lambda dt: sheet.apply(v8_s, operator_dtype=dt), {"ell_gather_spmm_bf16": 1}, 8),
+            "world of one: free_energy_kpm_sharded_cuda(pack_operator_sharded(...))": (
+                lambda dt: free_energy_kpm_sharded_cuda(rs, pack_operator_sharded(rs, big.data, dt), 0.01, scale,
+                                                        order=256, samples=8),
+                {"ell_cheb_step_halo_bf16": steps(256)}, 8),
+            "world of one: spmm_sharded_cuda(pack_operator_sharded(...), K=8)": (
+                lambda dt: spmm_sharded_cuda(rs, pack_operator_sharded(rs, big.data, dt), v8),
+                {"ell_spmm_halo_bf16": 1}, 8),
+        }
+        f32 = {label: fn(None) for label, (fn, _, _) in calls.items()}  # beside the path, not in its read
+        torch.cuda.synchronize()
+
+        ck.reset_launch_counts()
+        got, walls, per_call = {}, {}, {}
+        for label, (fn, want, _) in calls.items():
+            before = ck.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with annotate(f"bf16: {label}"):
+                got[label] = fn("bf16")
+                torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+            per_call[label] = launched_since(before)
+            check(per_call[label] == counts(**want), f"bf16 {label} launched {per_call[label]}, expected {want}")
+        label_l = "32x32: diagonalize(method='lanczos', k=4, operator_dtype='bf16')"
+        before = ck.launch_counts()
+        t0 = time.perf_counter()
+        with annotate(f"bf16: {label_l}"):
+            E16, X16 = small.diagonalize(method="lanczos", k=k, format="raw", operator_dtype="bf16")
+        walls[label_l] = time.perf_counter() - t0
+        per_call[label_l] = launched_since(before)
+        bf16_launches = ck.launch_counts()  # read right after the path
+        lz_steps = per_call[label_l]["ell_cheb_step_bf16"]
+        check(lz_steps > 0 and per_call[label_l] == counts(ell_cheb_step_bf16=lz_steps, ell_spmm=60),
+              f"bf16 lanczos launched {per_call[label_l]}: bf16 steps and the float32 bound's 60 products only")
+        float32_forward = {n: v for n, v in bf16_launches.items() if v and not n.endswith("_bf16")}
+        check(float32_forward == {"ell_spmm": 120}, f"float32 launches in the bf16 path beyond the bounds': {float32_forward}")
+
+        # Held: each observable finite and of the float32 call's shape, the s-wave gap
+        # visible; the drift of each against the float32 call; the world of one against
+        # the single-device bf16 calls; the lowest states against eigvalsh of the rounded
+        # operator (float64, on the card) to the solver's tolerance.
+        mid, outside = len(energies) // 2, np.abs(energies) >= 0.5
+        drift = {}
+        for label in calls:
+            a, b = got[label], f32[label]
+            if isinstance(a, float):
+                check(math.isfinite(a), f"bf16 {label}: {a}")
+                drift[label] = {"value_bf16": a, "value_float32": b, "rel": abs(a - b) / abs(b)}
+            else:
+                a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+                b = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+                check(a.shape == b.shape and np.isfinite(a).all(), f"bf16 {label}: wrong shape or not finite")
+                drift[label] = {"max_abs": float(np.abs(a - b).max()),
+                                "rel_to_max": float(np.abs(a - b).max() / np.abs(b).max())}
+        rho, rho_map = got["ldos((500,500,0), order=512)"], got["ldos_map(16 sites, order=512)"]
+        check(rho.min() >= -1e-6 and rho[mid] < 0.1 * rho[outside].mean(), "bf16 LDOS shows no s-wave gap")
+        check(bool((rho_map[:, mid] < 0.1 * rho_map[:, outside].mean(axis=1)).all()), "bf16 LDOS map shows no gap")
+        F16 = got["free_energy(T=0.01, order=256, samples=8)"]
+        sharded_rel = abs(got["world of one: free_energy_kpm_sharded_cuda(pack_operator_sharded(...))"] - F16) / abs(F16)
+        tiled_rel = abs(got["free_energy(T=0.01, order=256, samples=8, impl='cuda_tiled')"] - F16) / abs(F16)
+        y16, y16_sh = got["apply(K=8)"], got["world of one: spmm_sharded_cuda(pack_operator_sharded(...), K=8)"]
+        check(sharded_rel <= 1e-5 and tiled_rel <= 1e-5, f"bf16 F: sharded {sharded_rel}, tiled {tiled_rel} apart")
+        check(torch.allclose(y16_sh, y16, atol=2e-4, rtol=2e-4), "bf16 sharded product differs from apply")
+        sharded_product_bit_equal = bool(torch.equal(y16_sh, y16))
+        check(max(d.get("rel", d.get("rel_to_max", 0.0)) for d in drift.values()) <= 5e-2,
+              f"bf16 drift beyond 5e-2 of the float32 result: {drift}")
+        rounded = ck.operator_values(ck.bf16_operator(small.data), c128)
+        E_r = torch.linalg.eigvalsh(bs.ell_to_dense_torch(rounded, small.skeleton))
+        E_f = torch.linalg.eigvalsh(small.matrix("dense_torch").to(c128))
+        want_r, want_f = (E[E > 0][:k].cpu().numpy() for E in (E_r, E_f))
+        lowest = {"vs_eigvalsh_of_rounded": float(np.abs(E16 - want_r).max()),
+                  "vs_float32_spectrum": float(np.abs(E16 - want_f).max()),
+                  "rounded_vs_float32_spectrum": float(np.abs(want_r - want_f).max())}
+        check(lowest["vs_eigvalsh_of_rounded"] <= 1e-6, f"bf16 lowest states off the rounded operator's: {lowest}")
+        del rounded, E_r, E_f
+
+        # The seven bf16 instantiations at the path's shapes, each beside its
+        # float32 form on the same operands: float32, bf16, bf16, float32.
+        rows, kernel_ms = {}, {}
+        form = ck.bf16_operator(big.data)
+        lib = "none (no torch call takes a bf16 (re, im) operator; the float32 kernel beside it is the yardstick)"
+
+        def measure(name, name32, label, sk_m, K, fn16, fn32, plain16, nbytes, err, reps=20):
+            a32, a16 = timed_ms(fn32, reps), timed_ms(fn16, reps)
+            plain = timed_ms(plain16, 3) if plain16 is not None else None
+            b16, b32 = timed_ms(fn16, reps), timed_ms(fn32, reps)
+            row = bound_row(name, label, sk_m, K, min(a16, b16), plain, nbytes, spmm_flops(sk_m, K), err, None, lib,
+                            [a16, b16])
+            row.update(float32_form=name32, float32_ms=min(a32, b32), float32_runs_ms=[a32, b32],
+                       ratio_to_float32=min(a16, b16) / min(a32, b32))
+            emit({"phase": "bf16", "timing": name, "K": K, "ms": row["ms"], "float32_ms": row["float32_ms"],
+                  "ratio_to_float32": row["ratio_to_float32"], "bound_ms": row["bound_ms"],
+                  "share_of_bound": row["bound_ms"] / row["ms"]})
+            kernel_ms[(name, K)] = row["ms"]
+            return row
+
+        label = "swave 1000x1000x1"
+        for K in (8, 1, 4, 64):
+            t_cur, t_prev = random_vector(N, K, 73), random_vector(N, K, 74)
+            out = torch.empty_like(t_cur)
+            t16, _ = ck.ell_cheb_step(form, sk, t_cur, t_prev, 0.125)
+            t16_plain, _ = ck.ell_cheb_step_plain(form, sk, t_cur, t_prev, 0.125)
+            err = float((t16 - t16_plain).abs().max())
+            check(torch.allclose(t16, t16_plain, atol=2e-4, rtol=2e-4), f"ell_cheb_step_bf16 at 10^6, K={K}: {err}")
+            del t16, t16_plain
+            row = measure("ell_cheb_step_bf16", "ell_cheb_step", label, sk, K,
+                          lambda: ck.ell_cheb_step(form, sk, t_cur, t_prev, 0.125, out=out),
+                          lambda: ck.ell_cheb_step(big.data, sk, t_cur, t_prev, 0.125, out=out),
+                          (lambda: ck.ell_cheb_step_plain(form, sk, t_cur, t_prev, 0.125)) if K <= 8 else None,
+                          chebyshev_step_bytes(sk, K, 8, operator_itemsize=2), err, reps=20 if K < 64 else 5)
+            if K == 8:
+                rows["ell_cheb_step_bf16"] = row
+            if K in (8, 1):
+                y16, y16_plain = ck.ell_spmm(form, sk, t_cur), ck.ell_spmm_plain(form, sk, t_cur)
+                err = float((y16 - y16_plain).abs().max())
+                check(torch.allclose(y16, y16_plain, atol=2e-4, rtol=2e-4), f"ell_spmm_bf16 at 10^6, K={K}: {err}")
+                del y16, y16_plain
+                row = measure("ell_spmm_bf16", "ell_spmm", label, sk, K, lambda: ck.ell_spmm(form, sk, t_cur),
+                              lambda: ck.ell_spmm(big.data, sk, t_cur), lambda: ck.ell_spmm_plain(form, sk, t_cur),
+                              spmm_bytes(sk, K, 8, operator_itemsize=2), err)
+                if K == 8:
+                    rows["ell_spmm_bf16"] = row
+            if K == 8:
+                # The tiled step and the halo forms (the whole lattice as one slab, the world of one's form).
+                t16, _ = ck.stencil_cheb_step_tiled(form, sk, t_cur, t_prev, 0.125)
+                t16_plain, _ = ck.stencil_cheb_step_tiled_plain(form, sk, t_cur, t_prev, 0.125)
+                err = float((t16 - t16_plain).abs().max())
+                check(torch.allclose(t16, t16_plain, atol=2e-4, rtol=2e-4), f"tiled bf16 step at 10^6: {err}")
+                del t16, t16_plain
+                rows["stencil_cheb_step_tiled_bf16"] = measure(
+                    "stencil_cheb_step_tiled_bf16", "stencil_cheb_step_tiled", label, sk, K,
+                    lambda: ck.stencil_cheb_step_tiled(form, sk, t_cur, t_prev, 0.125, out=out),
+                    lambda: ck.stencil_cheb_step_tiled(big.data, sk, t_cur, t_prev, 0.125, out=out),
+                    lambda: ck.stencil_cheb_step_tiled_plain(form, sk, t_cur, t_prev, 0.125),
+                    chebyshev_step_bytes(sk, K, 8, operator_itemsize=2), err)
+                whole = ck.halo_slab(sk, 0, sk.shape[0])
+                P = whole.plane
+                hm, hp = t_cur[(sk.shape[0] - 1) * P:].clone(), t_cur[:P].clone()
+                halo_16 = N * S * 64 + 2 * P * 4 * K * 8  # the slab's bf16 operator rows and the two halo planes
+                t16, _ = ck.ell_cheb_step_halo(form, whole, t_cur, hm, hp, t_prev, 0.125)
+                t16_plain, _ = ck.ell_cheb_step_halo_plain(form, whole, t_cur, hm, hp, t_prev, 0.125)
+                y16 = ck.ell_spmm_halo(form, whole, t_cur, hm, hp)
+                y16_plain = ck.ell_spmm_halo_plain(form, whole, t_cur, hm, hp)
+                errs = {"step": float((t16 - t16_plain).abs().max()), "product": float((y16 - y16_plain).abs().max())}
+                check(torch.allclose(t16, t16_plain, atol=2e-4, rtol=2e-4)
+                      and torch.allclose(y16, y16_plain, atol=2e-4, rtol=2e-4), f"bf16 halo forms at 10^6: {errs}")
+                del t16, t16_plain, y16, y16_plain
+                label_h = "swave 1000x1000x1, whole lattice as one slab"
+                rows["ell_cheb_step_halo_bf16"] = measure(
+                    "ell_cheb_step_halo_bf16", "ell_cheb_step_halo", label_h, sk, K,
+                    lambda: ck.ell_cheb_step_halo(form, whole, t_cur, hm, hp, t_prev, 0.125, out=out),
+                    lambda: ck.ell_cheb_step_halo(big.data, whole, t_cur, hm, hp, t_prev, 0.125, out=out),
+                    lambda: ck.ell_cheb_step_halo_plain(form, whole, t_cur, hm, hp, t_prev, 0.125),
+                    halo_16 + 3 * N * 4 * K * 8, errs["step"])
+                rows["ell_spmm_halo_bf16"] = measure(
+                    "ell_spmm_halo_bf16", "ell_spmm_halo", label_h, sk, K,
+                    lambda: ck.ell_spmm_halo(form, whole, t_cur, hm, hp, out=out),
+                    lambda: ck.ell_spmm_halo(big.data, whole, t_cur, hm, hp, out=out),
+                    lambda: ck.ell_spmm_halo_plain(form, whole, t_cur, hm, hp),
+                    halo_16 + 2 * N * 4 * K * 8, errs["product"])
+                del hm, hp
+            del t_cur, t_prev, out
+        # The gather step on the sheet, relabelled, at K = 8.
+        K, N_s, S_s = 8, sk_s.n_sites, sk_s.n_slots
+        gl = cg.plan_gather(sk_s, K)
+        d_rel = gl.relabel(sheet.data).contiguous()
+        f_rel = ck.bf16_operator(d_rel)
+        t_cur, t_prev = random_vector(N_s, K, 75), random_vector(N_s, K, 76)
+        out = torch.empty_like(t_cur)
+        t16, _ = cg.ell_gather_cheb_step(f_rel, gl, t_cur, t_prev, 0.125)
+        t16_plain, _ = cg.ell_gather_cheb_step_plain(f_rel, gl, t_cur, t_prev, 0.125)
+        y16, y16_plain = cg.ell_gather_spmm(f_rel, gl, t_cur), cg.ell_gather_spmm_plain(f_rel, gl, t_cur)
+        errs = {"step": float((t16 - t16_plain).abs().max()), "product": float((y16 - y16_plain).abs().max())}
+        check(torch.allclose(t16, t16_plain, atol=2e-4, rtol=2e-4) and torch.allclose(y16, y16_plain, atol=2e-4, rtol=2e-4),
+              f"bf16 gather kernels on the sheet: {errs}")
+        del t16, t16_plain, y16, y16_plain
+        rel_bytes, label_s = N_s * S_s * 4, "HoleSheet(1024, 256, 60), relabelled"
+        rows["ell_gather_cheb_step_bf16"] = measure(
+            "ell_gather_cheb_step_bf16", "ell_gather_cheb_step", label_s, sk_s, K,
+            lambda: cg.ell_gather_cheb_step(f_rel, gl, t_cur, t_prev, 0.125, out=out),
+            lambda: cg.ell_gather_cheb_step(d_rel, gl, t_cur, t_prev, 0.125, out=out),
+            lambda: cg.ell_gather_cheb_step_plain(f_rel, gl, t_cur, t_prev, 0.125),
+            chebyshev_step_bytes(sk_s, K, 8, operator_itemsize=2) + rel_bytes, errs["step"], reps=50)
+        rows["ell_gather_spmm_bf16"] = measure(
+            "ell_gather_spmm_bf16", "ell_gather_spmm", label_s, sk_s, K,
+            lambda: cg.ell_gather_spmm(f_rel, gl, t_cur), lambda: cg.ell_gather_spmm(d_rel, gl, t_cur),
+            lambda: cg.ell_gather_spmm_plain(f_rel, gl, t_cur),
+            spmm_bytes(sk_s, K, 8, operator_itemsize=2) + rel_bytes, errs["product"], reps=50)
+        del d_rel, f_rel, t_cur, t_prev, out, form
+
+        # Each call's wall, launches and device ms (launches × the kernel's ms at
+        # the call's width in this run; the bound's float32 products at K = 1 from
+        # phase widths' shape are not timed here and left out), and its drift.
+        for label, (_, want, K) in calls.items():
+            dev_ms = sum(n * kernel_ms.get((name, K), float("nan")) for name, n in want.items() if name.endswith("_bf16"))
+            emit({"phase": "bf16", "call": label, "wall_s": walls[label], "launches": want, "K": K,
+                  "device_ms_bf16_kernels": dev_ms, "busy_share": dev_ms / 1e3 / walls[label], "drift": drift[label]})
+        emit({"phase": "bf16", "call": label_l, "wall_s": walls[label_l], "launches": per_call[label_l],
+              "E": E16.tolist(), **lowest, "tolerance": 1e-6})
+        emit({"phase": "bf16", "checks": {"sharded_F_rel_vs_single": sharded_rel, "tiled_F_rel_vs_general": tiled_rel,
+                                          "sharded_product_bit_equal_to_apply": sharded_product_bit_equal},
+              "launches": bf16_launches, "float32_forward_launches": float32_forward})
+
+        # One call under utils.trace: the profiler's device time of the bf16 ldos.
+        trace_dir = os.path.join(str(_build.build_dir()), "traces", "bf16_ldos")
+        with trace(trace_dir) as prof:
+            with annotate("bf16: traced ldos"):
+                calls["ldos((500,500,0), order=512)"][0]("bf16")
+                torch.cuda.synchronize()
+        # Self device time by event: the kernels, the copies, and the span's own GPU-side record.
+        top = sorted(((e.key[:80], (getattr(e, "self_device_time_total", 0) or 0) / 1e3, e.count)
+                      for e in prof.key_averages()), key=lambda t: -t[1])
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            span = "bf16: traced ldos" in f.read()
+        emit({"phase": "bf16", "trace": trace_dir, "annotated_span_in_trace": span,
+              "profiler_ell_kernel_ms": sum(ms for key, ms, _ in top if "ell_kernel" in key),
+              "profiler_top_self_device_ms_count": top[:8],
+              "expected_device_ms": steps(512) * kernel_ms[("ell_cheb_step_bf16", 4)]})
+        check(span, "the annotated span is not in the trace file")
+        emit({"phase": "bf16", "wall_s": time.perf_counter() - phase_t0})
+        return bf16_launches, rows
+
     results = {}
     if "main" in phases:
         results["main"] = phase_main()
@@ -2274,7 +2696,7 @@ def main(argv) -> int:
     if "dwave" in phases:
         phase_dwave()
     for name, phase in (("generic", phase_generic), ("tiled", phase_tiled), ("lowest", phase_lowest),
-                        ("sharded", phase_sharded)):
+                        ("bf16", phase_bf16), ("sharded", phase_sharded)):
         if name in phases:
             results[name] = phase()
 
@@ -2292,8 +2714,9 @@ def main(argv) -> int:
     # forward kernels at the KPM path's shape (N = 10⁶), the backward kernels at
     # the differentiable path's (N = 262144), the gather kernels at the generic
     # sheet's, the tiled step at N = 10⁶, the halo forms at the row-sharded
-    # path's (the whole lattice as one slab: the world of one's form);
-    # `launches` adds the six paths' reads.
+    # path's (the whole lattice as one slab: the world of one's form), the bf16
+    # instantiations at those shapes on the bf16 form; `launches` adds the seven
+    # paths' reads.
     replaces = {
         "ell_spmm": "bodge_tpu/ops/pallas_spmm.py:440",  # also :985 (plane layout)
         "ell_cheb_step": "bodge_tpu/ops/pallas_spmm.py:468",  # also :1081 (plane layout)
@@ -2307,16 +2730,22 @@ def main(argv) -> int:
         "ell_spmm_adjoint_halo": "bodge_tpu/ops/pallas_spmm.py:1449",  # the halo VJPs' vector cotangent (also :1430)
         "ell_block_outer_halo": "bodge_tpu/ops/pallas_spmm.py:1449",  # the halo VJPs' operator cotangent (also :1430)
     }
+    for name in ("ell_spmm", "ell_cheb_step", "ell_spmm_halo", "ell_cheb_step_halo", "ell_gather_spmm",
+                 "ell_gather_cheb_step", "stencil_cheb_step_tiled"):
+        replaces[name + "_bf16"] = replaces[name]  # the bf16 operator storage of the same Pallas kernel
     sources = dict.fromkeys(ck.KERNELS, "bodge_tpu_torch/csrc/ell_spmm.cu")
     sources["ell_block_outer"] = "bodge_tpu_torch/csrc/ell_block_outer.cu"
     sources["ell_gather_spmm"] = sources["ell_gather_cheb_step"] = "bodge_tpu_torch/csrc/ell_gather.cu"
     sources["stencil_cheb_step_tiled"] = "bodge_tpu_torch/csrc/stencil_tiled.cu"
     sources["ell_block_outer_halo"] = "bodge_tpu_torch/csrc/ell_block_outer.cu"
+    sources["ell_gather_spmm_bf16"] = sources["ell_gather_cheb_step_bf16"] = "bodge_tpu_torch/csrc/ell_gather.cu"
+    sources["stencil_cheb_step_tiled_bf16"] = "bodge_tpu_torch/csrc/stencil_tiled.cu"
     paths = {"kpm_observables": "main", "solve_gap": "gap", "generic_lattice": "generic",
-             "tiled_step": "tiled", "lowest_states": "lowest", "row_sharded": "sharded"}
+             "tiled_step": "tiled", "lowest_states": "lowest", "bf16_storage": "bf16", "row_sharded": "sharded"}
     kernels = []
     for name in ck.KERNELS:
-        row = next(results[p][1][name] for p in ("main", "gap", "generic", "tiled", "sharded") if name in results[p][1])
+        row = next(results[p][1][name] for p in ("main", "gap", "generic", "tiled", "sharded", "bf16")
+                   if name in results[p][1])
         by_path = {label: results[p][0][name] for label, p in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],

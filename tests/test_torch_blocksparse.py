@@ -129,6 +129,7 @@ def test_import_leaves_jax_out():
         "import bodge_tpu_torch.ops.banded, bodge_tpu_torch.ops.cuda_gather\n"
         "import bodge_tpu_torch.ops.lanczos, bodge_tpu_torch.utils.serialization\n"
         "import bodge_tpu_torch.parallel, bodge_tpu_torch.parallel.cuda_sharded\n"
+        "import bodge_tpu_torch.utils.profiling, bodge_tpu_torch.utils.trace\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'jaxlib' or m == 'bodge_tpu' or m.startswith('bodge_tpu.')]\n"
         "assert not bad, bad\n"

@@ -46,9 +46,11 @@ from bodge_tpu_torch.parallel import (
     make_row_mesh,
     moments_sharded,
     moments_sharded_cuda,
+    pack_operator_sharded,
     spmm_sharded,
     spmm_sharded_cuda,
 )
+from bodge_tpu_torch.parallel.cuda_sharded import moments_sharded_ad
 
 # One intra-op thread: the suite runs several workers side by side, and idle
 # OpenMP threads of a multi-threaded torch would spin against them.
@@ -123,6 +125,9 @@ def _rank(rank, world, port, task, queue):
         rs2 = RowSharding(sk, make_row_mesh(devices="cpu", probe_shards=2))
         out["mesh2"] = dict(rs2.mesh.shape)
         out["moments_2x2"] = moments_sharded_cuda(rs2, data, v, ORDER, SCALE).numpy()
+        packed = pack_operator_sharded(rs, data, "bf16")
+        out["bf16_slab"] = (tuple(packed.shape), str(packed.dtype))
+        out["moments_bf16"] = moments_sharded_cuda(rs, packed, v, ORDER, SCALE, overlap=True).numpy()
         with pytest.raises(ValueError, match="rows only"):
             spmm_sharded_cuda(rs2, data, v)
         metal = normal_metal(T, device="cpu")
@@ -273,6 +278,59 @@ def test_sharded_objective_matches_reference_and_one_rank(four_ranks, pairing):
         assert abs(value - v_j) <= 1e-8 * abs(v_j)
         assert np.abs(grad - g_j).max() <= 1e-8 * np.abs(g_j).max()
     assert np.abs(g_j).max() > 1e-3  # a gradient worth comparing
+
+
+def test_bf16_slabs_match_the_whole_lattice(four_ranks):
+    """Four ranks on ``pack_operator_sharded(..., "bf16")`` slabs (the halo
+    step's plain version on the bf16 form, overlap split on) against the whole
+    lattice's bf16 moments of the port's single-device sweep: 1e-10."""
+    task, out, _ = four_ranks
+    sk = tbs.skeleton(SHAPE)
+    assert out["bf16_slab"] == ((sk.n_sites // 4, sk.n_slots, 4, 4, 2), "torch.bfloat16")
+    want = tkpm.moments(torch.as_tensor(task["data"]), sk, task["v"], ORDER, SCALE, operator_dtype="bf16").numpy()
+    assert np.abs(out["moments_bf16"] - want).max() <= 1e-10 * np.abs(want).max()
+    assert np.abs(want - out[("moments_cuda", False)]).max() > 1e-6 * np.abs(want).max()  # the form was used
+
+
+def test_remat_gradients_bit_equal_and_saved_vectors_bounded():
+    """The sharded sweep's gradient in a world of one on 8×8, order 66 (32
+    steps): bit-equal for ``remat`` off, ``"auto"`` (chunks of ⌊√32⌋ = 5) and
+    3, and the tensors the sweep saves for its backward pass (counted by
+    ``saved_tensors_hooks``) number O(steps / chunk + chunk), not O(steps)."""
+    shape, order = (8, 8, 1), 66
+    system = T.Hamiltonian(T.CubicLattice(shape), device="cpu")
+    system.assemble(onsite=lambda ci: -0.3 * T.σ0, pairing_onsite=lambda ci: 0.25 * T.jσ2,
+                    hopping=lambda ci, cj: np.where((np.abs(ci - cj).max(axis=1) == 1)[:, None, None], -T.σ0, 0))
+    rs = RowSharding(system.skeleton, make_row_mesh(devices="cpu"))
+    before, after = rs.halo_rows()
+    z = torch.as_tensor(np.random.default_rng(8).normal(size=(64, 4, 2)) + 0j)
+    w = torch.linspace(1.0, -0.5, order, dtype=torch.float64)
+    steps = ck.sweep_launches(order) - 1
+    assert ck.remat_chunk_for(order, "auto") == 5 and ck.remat_chunk_for(order, None) == 5
+    assert ck.remat_chunk_for(order, False) == 0 and ck.remat_chunk_for(order, 3) == 3
+    assert ck.remat_chunk_for(60, "auto") == 0  # fewer than 32 steps
+    grads, saved = {}, {}
+    for remat in (False, "auto", 3):
+        data, v0 = system.data.clone().requires_grad_(True), z.clone().requires_grad_(True)
+        count = [0]
+
+        def pack(t):
+            count[0] += 1
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            mu = moments_sharded_ad(rs, data, v0, 1.0 / 6.0, order, data[before].detach(), data[after].detach(),
+                                    remat=remat)
+        grads[remat] = torch.autograd.grad((w[:, None] * mu).sum(), (data, v0))
+        saved[remat] = count[0]
+    for remat in ("auto", 3):
+        for got, want in zip(grads[remat], grads[False]):
+            assert torch.equal(got, want)
+    assert saved[False] >= 3 * steps
+    for remat, chunk in (("auto", 5), (3, 3)):
+        assert saved[remat] <= 2 * (steps // chunk + chunk) + 12, saved
+    with pytest.raises(ValueError, match="remat"):
+        moments_sharded_ad(rs, system.data, z, 0.1, order, system.data[before], system.data[after], remat="always")
 
 
 def test_one_rank_mesh_and_row_sharding_checks():
