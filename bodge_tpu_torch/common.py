@@ -124,17 +124,28 @@ Coords = Tuple[Coord, Coord]
 # --------------------------------------------------------------------------
 # Matrix-format aliases (parity with bodge/common.py:19-25).  We re-export
 # the SciPy sparse types because `matrix(format=...)` hands back SciPy
-# objects for interoperability, exactly like the reference does.
+# objects for interoperability, exactly like the reference does.  They are
+# looked up at first use (module __getattr__): importing scipy.sparse takes
+# about half a second, which every process importing the package — each
+# rank of a process group among them — would otherwise pay.
 # --------------------------------------------------------------------------
-import scipy.sparse as _sp
-
 Matrix = np.ndarray
-CooMatrix = _sp.coo_matrix
-DiaMatrix = _sp.dia_matrix
-BsrMatrix = _sp.bsr_matrix
-CsrMatrix = _sp.csr_matrix
-CscMatrix = _sp.csc_matrix
-SpMatrix = _sp.spmatrix
+_SCIPY_ALIASES = {
+    "CooMatrix": "coo_matrix",
+    "DiaMatrix": "dia_matrix",
+    "BsrMatrix": "bsr_matrix",
+    "CsrMatrix": "csr_matrix",
+    "CscMatrix": "csc_matrix",
+    "SpMatrix": "spmatrix",
+}
+
+
+def __getattr__(name):
+    if name in _SCIPY_ALIASES:
+        import scipy.sparse
+
+        return getattr(scipy.sparse, _SCIPY_ALIASES[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 # --------------------------------------------------------------------------
 # Fundamental constants (parity with bodge/common.py:28-61).
@@ -207,6 +218,18 @@ def default_cdtype(device=None):
 def default_rdtype(device=None):
     """The default real dtype matching :func:`default_cdtype`."""
     return np.float32 if default_cdtype(device) == np.complex64 else np.float64
+
+
+def device_pauli(dtype=None, device=None):
+    """The Pauli matrices (σ0..σ3) stacked as ``[4, 2, 2]``, a tensor on
+    ``device`` (``None``: the card, as :func:`resolve_device`) of ``dtype``
+    (default :func:`default_cdtype` of that device): constants for assembly
+    callables written in ``torch``, made once instead of per call."""
+    import torch
+
+    device = resolve_device(device)
+    dtype = torch_dtype(dtype or default_cdtype(device))
+    return torch.as_tensor(np.stack([σ0, σ1, σ2, σ3])).to(device=device, dtype=dtype)
 
 
 def torch_dtype(dtype):

@@ -33,10 +33,20 @@ relabelling; ARPACK with a sparse LU) on data pulled from the device once;
 ``method="lanczos"`` filters a block of vectors on the device with the fused
 Chebyshev step and does the Rayleigh–Ritz algebra on the host in float64.
 ``save`` / ``load`` exchange checkpoints with ``bodge_tpu``.
+
+Host-side assembly (data on the CPU) and its Hermiticity gate go through the
+native C++ tier (:mod:`bodge_tpu_torch.native`) where it builds, and through
+``torch`` otherwise; assembly on the card is always the indexed ``torch``
+writes.  The façade's own calls always compute on the complex operator:
+complex arithmetic is native on the card.  :meth:`Hamiltonian.device_operator`
+hands out the planar split-complex form under ``BODGE_PLANAR=1``
+(:func:`use_planar_device_path`) for callers of the planar entry points
+(:mod:`bodge_tpu_torch.ops.planar`), which give the complex calls' results.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -51,6 +61,7 @@ from .common import (
     torch_dtype,
     typecheck,
 )
+from . import native
 from .lattice import CubicLattice, Lattice
 from .ops import blocksparse as bs
 from .ops import chebyshev
@@ -59,6 +70,16 @@ from .ops.blocksparse import BLOCK, Skeleton
 from .ops.spmm import spmm as _spmm
 
 HERMITICITY_TOL = 1e-6
+
+
+def use_planar_device_path() -> bool:
+    """Whether the device representation is the planar (split-complex
+    float32) form: ``BODGE_PLANAR=1`` / ``0`` as in the reference, and False
+    by default — complex arithmetic is native on the card (the reference
+    defaults to True only on a TPU).  :meth:`Hamiltonian.device_operator` and
+    :func:`bodge_tpu_torch.ops.chebyshev.default_impl` read it; the façade's
+    own calls compute on the complex operator either way."""
+    return os.environ.get("BODGE_PLANAR") == "1"
 
 
 class Hamiltonian:
@@ -114,6 +135,20 @@ class Hamiltonian:
     def host_data(self) -> np.ndarray:
         """The complex block data as a host NumPy array."""
         return self._data.detach().cpu().numpy()
+
+    def device_operator(self):
+        """The operator in the device representation, cached per version: the
+        complex block tensor on the Hamiltonian's device, or its planar form
+        ``[2, N, S, 4, 4]`` float32 there under :func:`use_planar_device_path`."""
+        from .ops import planar as pl_ops
+
+        kind = "planar" if use_planar_device_path() else "complex"
+        cache = getattr(self, "_dev_cache", None)
+        if cache is not None and cache[0] == self._version and cache[1] == kind:
+            return cache[2]
+        op = pl_ops.to_planar(self._data) if kind == "planar" else self._data
+        self._dev_cache = (self._version, kind, op)
+        return op
 
     @typecheck
     def index(self, row: Coord, col: Coord) -> Index:
@@ -221,7 +256,9 @@ class Hamiltonian:
         the Hamiltonian's own device, ``device=False`` on a host copy that
         is uploaded in one transfer.  Either way, and for generic
         (non-stencil) lattices too, the data ends on the Hamiltonian's
-        device.
+        device.  Host writes on a stencil skeleton go through the native tier's fused
+        scatter (:func:`bodge_tpu_torch.native.assemble_scatter`) where it
+        builds: the same values, bit for bit.
         """
         sk = self._sk
         if isinstance(self.lattice, CubicLattice):
@@ -286,12 +323,21 @@ class Hamiltonian:
                     slot_terms.append((s, mask, hop, pair, pair_rev))
 
         d = self._data if device else self._data.cpu()
+        if d.device.type == "cpu" and d.is_contiguous() and sk.stencil and self._native_host():
+            self._scatter_native(d, onsite_v, pair_onsite_v, slot_terms, reset)
+            return self._finish_assembly(d, check)
 
         def up(v):
-            return torch.as_tensor(v).to(d.device)
+            # A broadcast of one site is a read-only view: torch must not wrap it.
+            return torch.as_tensor(np.require(v, requirements="W")).to(d.device)
 
         def dagger(v):
             return v.transpose(-1, -2).conj()
+
+        def neg_conj(v):
+            # −v*, written so that a zero entry gets the sign NumPy and C++
+            # give it (torch's vectorised complex negation returns +0.0).
+            return torch.complex(-v.real, v.imag)
 
         if reset:
             d.zero_()
@@ -300,7 +346,7 @@ class Hamiltonian:
             if onsite_v is not None:
                 v = up(onsite_v)
                 d[rows_t, slot_t, 0:2, 0:2] = v
-                d[rows_t, slot_t, 2:4, 2:4] = -v.conj()
+                d[rows_t, slot_t, 2:4, 2:4] = neg_conj(v)
             if pair_onsite_v is not None:
                 v = up(pair_onsite_v)
                 d[rows_t, slot_t, 0:2, 2:4] = v
@@ -310,19 +356,46 @@ class Hamiltonian:
             if hop is not None:
                 v = up(hop)
                 d[:, s, 0:2, 0:2] = torch.where(m, v, d[:, s, 0:2, 0:2])
-                d[:, s, 2:4, 2:4] = torch.where(m, -v.conj(), d[:, s, 2:4, 2:4])
+                d[:, s, 2:4, 2:4] = torch.where(m, neg_conj(v), d[:, s, 2:4, 2:4])
             if pair is not None and pair_rev is not None:
                 d[:, s, 0:2, 2:4] = torch.where(m, up(pair), d[:, s, 0:2, 2:4])
                 d[:, s, 2:4, 0:2] = torch.where(m, dagger(up(pair_rev)), d[:, s, 2:4, 0:2])
+        return self._finish_assembly(d, check)
 
+    def _finish_assembly(self, d, check: bool) -> "Hamiltonian":
         self._data = d.to(self.device)
         self._version += 1
         if check:
             self._check_hermitian()
         return self
 
+    def _native_host(self) -> bool:
+        """Whether host-resident block data goes through the native tier."""
+        return self.dtype in (np.complex64, np.complex128) and native.available()
+
+    def _scatter_native(self, d, onsite_v, pair_onsite_v, slot_terms, reset: bool) -> None:
+        """The symmetry writes of :meth:`assemble` on host data ``d`` of a
+        stencil skeleton, in one call of the native fused scatter: the
+        per-slot terms stacked into its ``[S-1, N, 2, 2]`` layout (slots that
+        are padding on every row stay zero and are never written)."""
+        N, S = self._sk.cols.shape
+
+        def stacked(k):
+            if not slot_terms or slot_terms[0][2 + k] is None:
+                return None
+            out = np.zeros((S - 1, N, 2, 2), self.dtype)
+            for s, _mask, *terms in slot_terms:
+                out[s - 1] = terms[k]
+            return out
+
+        native.assemble_scatter(d, self._sk.cols, onsite=onsite_v, pair_onsite=pair_onsite_v,
+                                hop=stacked(0), pair=stacked(1), pair_rev=stacked(2), reset=reset)
+
     def _hermiticity_error(self) -> float:
-        """Max |H − H†|, reduced on the device and moved to the host once."""
+        """Max |H − H†|: on the host by the native tier when the data lies on
+        the CPU, else reduced on the device and moved to the host once."""
+        if self._data.device.type == "cpu" and self._native_host():
+            return native.herm_error(self._data, self._sk.cols, self._sk.trans_slot)
         return float(bs.hermiticity_error(self._data, self._sk))
 
     def _check_hermitian(self) -> None:
@@ -338,10 +411,11 @@ class Hamiltonian:
 
         ``"dense"`` → NumPy array; ``"bsr"``/``"csr"``/``"csc"``/``"coo"`` →
         SciPy sparse with explicit zeros eliminated (parity with
-        ``bodge/hamiltonian.py:128-155``); ``"dense_torch"`` → dense tensor
-        on the Hamiltonian's device.
+        ``bodge/hamiltonian.py:128-155``); ``"dense_torch"`` (or the
+        reference's name ``"dense_jnp"``) → dense tensor on the Hamiltonian's
+        device.
         """
-        if format == "dense_torch":
+        if format in ("dense_torch", "dense_jnp"):
             return bs.ell_to_dense_torch(self._data, self._sk)
 
         if format == "dense":

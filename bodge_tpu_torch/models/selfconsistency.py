@@ -29,7 +29,9 @@ Chebyshev scale another implementation used; the Chebyshev scale gets no
 gradient (it is fixed once per objective in the reference too); the
 row-sharded objective is ``impl="cuda_sharded"`` (the reference's
 ``"pallas_sharded"``) or ``"plain_sharded"``, and it inserts the field into
-each rank's slab of the natural ELL data (no packed insert).
+each rank's slab of the natural ELL data with the port's counterparts of the
+reference's packed inserts
+(:func:`~bodge_tpu_torch.ops.cuda_spmm.plane_packed_insert_swave` / ``_bond``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from ..common import jσ2
 from ..ops import blocksparse as bs
 from ..ops.blocksparse import BLOCK, Skeleton
 from ..ops.chebyshev import _KERNELS, chebyshev_coefficients, rademacher_probes, spectral_bound
-from ..ops.cuda_spmm import moments_fused_ad, resolve_path
+from ..ops.cuda_spmm import (insert_onsite_pairing, moments_fused_ad, plane_packed_insert_bond,
+                              plane_packed_insert_swave, resolve_path)
 from ..ops.dense import free_energy_from_spectrum
 from ..ops.spmm import spmm
 
@@ -71,18 +74,8 @@ def data_with_onsite_swave(base_data, delta, sk: Optional[Skeleton] = None):
     given there and the field goes to that slot; the reference writes slot 0
     on every skeleton, which on a generic lattice is a neighbour's block.
     """
-    delta = torch.as_tensor(delta, device=base_data.device)
-    blk = (delta[:, None, None] * _like(jσ2, base_data)).to(base_data.dtype)
-    blkH = blk.transpose(-1, -2).conj()
-    data = base_data.clone()
-    if sk is None or sk.stencil:
-        data[:, 0, 0:2, 2:4] = blk
-        data[:, 0, 2:4, 0:2] = blkH
-    else:
-        rows, slots = _diagonal_slots(sk, base_data.device)
-        data[rows, slots, 0:2, 2:4] = blk
-        data[rows, slots, 2:4, 0:2] = blkH
-    return data
+    diag = (slice(None), 0) if sk is None or sk.stencil else _diagonal_slots(sk, base_data.device)
+    return insert_onsite_pairing(base_data, delta, diag)
 
 
 def _diagonal_slots(sk: Skeleton, device):
@@ -202,15 +195,8 @@ def data_with_bond_singlet(base_data, delta_site, sk: Skeleton, struct, rows=Non
     With ``rows`` (global row indices), ``base_data`` holds those rows only
     and ``delta_site`` is the whole field.
     """
-    struct = np.asarray(struct)
-    struct_t = _like(struct, base_data)
-    structH = _like(np.conj(np.swapaxes(struct[np.asarray(sk.trans_slot)], -1, -2)), base_data)
     delta_site = torch.as_tensor(delta_site, device=base_data.device)
-    m = bond_field(delta_site, sk, struct, rows).to(base_data.dtype)
-    data = base_data.clone()
-    data[:, :, 0:2, 2:4] = m[:, :, None, None] * struct_t[None]
-    data[:, :, 2:4, 0:2] = m[:, :, None, None] * structH[None]
-    return data
+    return plane_packed_insert_bond(base_data, bond_field(delta_site, sk, struct, rows), sk, struct)
 
 
 def _bond_weights(struct) -> np.ndarray:
@@ -480,11 +466,12 @@ def _make_total_free_energy_sharded(system, V: float, T: float, order: int, samp
     dev = rs.device
     base = system.data.detach()[torch.as_tensor(rows, device=system.data.device)].to(dev)
 
+    rows_t = torch.as_tensor(rows, device=dev)
     if struct is None:
-        insert = lambda b, delta: data_with_onsite_swave(b, delta[torch.as_tensor(rows, device=dev)])
+        insert = lambda b, delta: plane_packed_insert_swave(b, delta[rows_t], sk)
         penalty = lambda delta: (delta.abs() ** 2).sum() / V
     else:
-        insert = lambda b, delta: data_with_bond_singlet(b, delta, sk, struct, rows)
+        insert = lambda b, delta: plane_packed_insert_bond(b, bond_field(delta, sk, struct, rows), sk, struct)
         penalty = lambda delta: _bond_penalty(bond_field(delta, sk, struct), struct, V)
 
     def slabs(data_ext):

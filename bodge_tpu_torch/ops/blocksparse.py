@@ -33,7 +33,6 @@ from dataclasses import dataclass, field
 from typing import Tuple
 
 import numpy as np
-import scipy.sparse as sp
 
 BLOCK = 4  # 4×4 blocks: Nambu ⊗ Spin.
 
@@ -205,8 +204,31 @@ def skeleton_from_pairs(n_sites: int, rows: np.ndarray, cols: np.ndarray) -> Ske
     slot_pos = np.arange(len(r)) - starts[r]
     cols_arr[r, slot_pos] = c
 
-    # Hermitian-mirror slot for every entry: position of (c, r), found by a
-    # searchsorted over the (row, col)-sorted pair list.
+    # Hermitian-mirror slot for every entry: position of (c, r).  The native
+    # tier resolves mirrors in parallel C++; without it, a searchsorted over
+    # the (row, col)-sorted pair list.
+    from .. import native
+
+    if native.available():
+        trans = native.mirror_slots(cols_arr)  # raises ValueError on an asymmetric skeleton
+    else:
+        trans = mirror_slots_sorted(r, c, slot_pos, n_sites, S)
+
+    return Skeleton(
+        shape=(n_sites, 1, 1),
+        slots=(),
+        cols=cols_arr,
+        trans_slot=trans,
+        nnz_blocks=len(r),
+        stencil=False,
+    )
+
+
+def mirror_slots_sorted(r, c, slot_pos, n_sites: int, S: int) -> np.ndarray:
+    """Hermitian-mirror slots ``[n_sites, S]`` of the (row, col)-sorted pair
+    list ``(r, c)`` at slots ``slot_pos``, by a searchsorted for each pair's
+    mirror: the NumPy version of :func:`bodge_tpu_torch.native.mirror_slots`.
+    Raises ``ValueError`` if some block has no mirror."""
     keys = r.astype(np.int64) * n_sites + c.astype(np.int64)
     mirror_keys = c.astype(np.int64) * n_sites + r.astype(np.int64)
     idx = np.searchsorted(keys, mirror_keys)
@@ -218,15 +240,7 @@ def skeleton_from_pairs(n_sites: int, rows: np.ndarray, cols: np.ndarray) -> Ske
         )
     trans = np.zeros((n_sites, S), dtype=np.int32)
     trans[r, slot_pos] = slot_pos[idx].astype(np.int32)
-
-    return Skeleton(
-        shape=(n_sites, 1, 1),
-        slots=(),
-        cols=cols_arr,
-        trans_slot=trans,
-        nnz_blocks=len(r),
-        stencil=False,
-    )
+    return trans
 
 
 def skeleton_from_lattice(lattice) -> Skeleton:
@@ -296,8 +310,10 @@ def _sorted_block_lists(sk: Skeleton):
     return indptr, indices, rows_sel, slots_sel
 
 
-def ell_to_bsr(data: np.ndarray, sk: Skeleton) -> sp.bsr_matrix:
+def ell_to_bsr(data: np.ndarray, sk: Skeleton) -> "scipy.sparse.bsr_matrix":
     """Convert ELL block data ``[N, S, 4, 4]`` to a SciPy BSR matrix."""
+    import scipy.sparse as sp
+
     indptr, indices, rows_sel, slots_sel = _sorted_block_lists(sk)
     blocks = np.asarray(data)[rows_sel, slots_sel]
     dim = sk.matrix_dim
@@ -327,7 +343,10 @@ def dense_to_ell(dense: np.ndarray, sk: Skeleton) -> np.ndarray:
 
 
 def ell_to_dense_torch(data, sk: Skeleton):
-    """Densification of a ``torch`` block tensor on its own device.
+    """Densification of a ``torch`` block tensor on its own device: the
+    counterpart of the reference's ``ell_to_dense_jnp``
+    (``Hamiltonian.matrix(format="dense_jnp")`` is a synonym of
+    ``"dense_torch"``).
 
     Differentiable: the blocks are gathered and written with indexed
     operations of ``torch``, so gradients flow from the dense matrix back to

@@ -26,7 +26,11 @@ kernels on a stencil skeleton, the windowed gather kernels on a generic one
 (``"cuda_gather"``), the tiled step under ``BODGE_PLANE_TILED=1``
 (``"cuda_tiled"``); a ``"cuda*"`` name on a CPU tensor raises; ``"plain"``,
 ``"stencil"`` and ``"gather"`` stay forceable for cross-checks and keep the
-tensor's own precision.  ``operator_dtype="bf16"`` (or
+tensor's own precision.  ``data`` may also be the planar form ``[2, N, S, 4,
+4]`` float32 of :mod:`bodge_tpu_torch.ops.planar`, as in the reference: each
+entry point turns it into complex64 once and runs the complex path on it
+(:func:`default_impl` is ``"planar"`` under ``BODGE_PLANAR=1``; ``"planar"``
+and ``"auto"`` mean ``None`` for the step).  ``operator_dtype="bf16"`` (or
 ``BODGE_OPERATOR_STORAGE=bf16``, read where the argument is ``None``) stores
 the operator in the bf16 form for the moment sweep — half the operator's
 bytes; vectors and sums stay in the vectors' precision — as the reference's
@@ -49,9 +53,33 @@ import torch
 from ..common import numpy_dtype
 from .blocksparse import BLOCK, Skeleton
 from .cuda_spmm import StepPlan, bf16_operator, moments_fused, operator_values, resolve_operator_storage
+from .planar import complex_operator
 from .spmm import spmm
 
 DEFAULT_ORDER = 512
+
+
+def default_impl() -> str:
+    """The implementation ``impl=None`` stands for in the KPM entry points:
+    ``"planar"`` under :func:`~bodge_tpu_torch.hamiltonian.use_planar_device_path`
+    (``BODGE_PLANAR=1``: the operator crosses the planar boundary and the
+    sweep runs the complex kernels on its complex form), else ``"auto"``: the
+    step :func:`~bodge_tpu_torch.ops.cuda_spmm.resolve_path` chooses from the
+    tensor's device and the skeleton."""
+    from ..hamiltonian import use_planar_device_path
+
+    return "planar" if use_planar_device_path() else "auto"
+
+
+def _resolve_impl(impl):
+    return default_impl() if impl in (None, "auto") else impl
+
+
+def _operator_and_impl(data, impl):
+    """``(operator, impl)`` as the sweeps take them: a planar operator in its
+    complex form, and ``"auto"`` / ``"planar"`` as ``None``."""
+    impl = _resolve_impl(impl)
+    return complex_operator(data), (None if impl in ("auto", "planar") else impl)
 
 
 def _as_tensor(v, like):
@@ -78,6 +106,7 @@ def spectral_bound(
     The start vector is complex normal, drawn with NumPy from ``seed`` or
     with ``torch.randn`` from ``generator`` when one is given.
     """
+    data, impl = _operator_and_impl(data, impl)
     shape = (sk.n_sites, BLOCK, 1)
     if generator is not None:
         v = torch.randn(shape, dtype=torch.complex128, generator=generator,
@@ -204,6 +233,7 @@ def moments(data, sk: Skeleton, v0, order: int, scale: float, impl: Optional[str
     on the card, the plain versions on its exact upcast on the CPU; the
     ``"stencil"`` / ``"gather"`` scans multiply with the same rounded blocks.
     """
+    data, impl = _operator_and_impl(data, impl)
     v0 = _as_tensor(v0, data)
     inv = 1.0 / float(scale)
     storage = resolve_operator_storage(operator_dtype)
@@ -346,6 +376,7 @@ def ldos_kpm_sites(
     Returns ``[n_sites, n_energies]`` (electron component, as in
     :func:`ldos_kpm`).
     """
+    data, impl = _operator_and_impl(data, impl)
     order, kernel, scale = _kpm_setup(data, sk, order, kernel, scale, eta, impl)
     site_indices = np.asarray(site_indices, dtype=np.int64)
     v0 = ldos_site_probes(sk.n_sites, site_indices, numpy_dtype(data.dtype))
@@ -373,6 +404,7 @@ def dos_kpm(
     ``samples`` Rademacher vectors give an unbiased stochastic estimate.
     Counts all 4N Nambu⊗Spin orbitals (particle-hole symmetric around ε = 0).
     """
+    data, impl = _operator_and_impl(data, impl)
     order, kernel, scale = _kpm_setup(data, sk, order, kernel, scale, eta, impl)
     N = sk.n_sites
     dtype = numpy_dtype(data.dtype)
@@ -422,6 +454,7 @@ def trace_function(
     Otherwise a Hutchinson estimator with ``samples`` Rademacher vectors is
     used — unbiased, with O(1/√samples) stochastic error.
     """
+    data, impl = _operator_and_impl(data, impl)
     coeffs = chebyshev_coefficients(lambda x: fn(scale * x), order)
     coeffs = coeffs * _KERNELS[kernel](order)
     N = sk.n_sites
@@ -461,6 +494,7 @@ def free_energy_kpm(
     T = float(temperature)
     if T < 0:
         raise ValueError("Expected non-negative temperature!")
+    data, impl = _operator_and_impl(data, impl)
     if scale is None:
         scale = spectral_bound(data, sk, impl=impl)
 

@@ -130,6 +130,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..common import jσ2
 from . import _build
 from .blocksparse import BLOCK, Skeleton
 from .spmm import default_impl, spmm_gather, spmm_stencil
@@ -191,6 +192,84 @@ def operator_values(data, dtype):
     if is_bf16_operator(data):
         return torch.view_as_complex(data.float().contiguous()).to(dtype)
     return data
+
+
+# --------------------------------------------------------------------------
+# Pairing-field inserts into an operator form (the reference's packed inserts).
+# --------------------------------------------------------------------------
+def _write_blocks(b, index, value):
+    """``b[index] = value``: in ``b``'s dtype for the complex operator; for the
+    bf16 form the (re, im) pairs rounded to bfloat16, as the reference rounds
+    its float32 planes."""
+    if is_bf16_operator(b):
+        b[index] = torch.view_as_real(value.to(torch.complex64).resolve_conj()).to(torch.bfloat16)
+    else:
+        b[index] = value.to(b.dtype)
+
+
+def _insert_dtype(b):
+    return b.dtype if b.is_complex() else torch.complex64
+
+
+def plane_packed_insert_swave(b, delta_real, sk: Skeleton):
+    """Insert an on-site s-wave field Δ_i·jσ2 into the diagonal blocks of an
+    operator form: the counterpart of the reference's insert into its
+    plane-packed operator (``bodge_tpu/ops/pallas_spmm.py:521``).
+
+    ``b`` is the complex ELL data ``[n, S, 4, 4]`` of a stencil skeleton — the
+    whole lattice or a rank's slab with its halo rows, in any row order — or
+    its bf16 form ``[n, S, 4, 4, 2]`` (:func:`bf16_operator`); ``delta_real``
+    holds the field on the same ``n`` rows (real, or complex as
+    :func:`~bodge_tpu_torch.models.selfconsistency.solve_gap` passes it).  All
+    eight pairing positions of slot 0 are written, zeros included: Δ·jσ2 at
+    rows 0:2 × columns 2:4 and its conjugate transpose at rows 2:4 × columns
+    0:2.  Returns a new tensor; differentiable in the field.
+    """
+    if not sk.stencil:
+        raise ValueError("plane_packed_insert_swave needs a stencil skeleton (the diagonal block at slot 0)")
+    return insert_onsite_pairing(b, delta_real, (slice(None), 0))
+
+
+def insert_onsite_pairing(b, delta, diag):
+    """``b`` with Δ_i·jσ2 and its conjugate transpose written into the pairing
+    sub-blocks of the diagonal blocks ``b[diag]`` (``(slice(None), 0)`` on a
+    stencil skeleton, ``(rows, slots)`` on a generic one), for any operator
+    form of :func:`plane_packed_insert_swave`.  A new tensor; differentiable."""
+    cdt = _insert_dtype(b)
+    delta = torch.as_tensor(delta, device=b.device)
+    blk = (delta[:, None, None] * torch.as_tensor(np.asarray(jσ2)).to(device=b.device, dtype=cdt)).to(cdt)
+    out = b.clone()
+    _write_blocks(out, (*diag, slice(0, 2), slice(2, 4)), blk)
+    _write_blocks(out, (*diag, slice(2, 4), slice(0, 2)), blk.transpose(-1, -2).conj())
+    return out
+
+
+def plane_packed_insert_bond(b, m, sk: Skeleton, struct):
+    """Insert a bond pairing field into an operator form: the counterpart of
+    the reference's ``plane_packed_insert_bond``
+    (``bodge_tpu/ops/pallas_spmm.py:556``).
+
+    ``m: [n, S]`` holds the amplitude per (row, slot) of ``b``'s rows (zero
+    where the field does not reach; :func:`~bodge_tpu_torch.models.selfconsistency.bond_field`
+    makes it from a site field) and ``struct: [S, 2, 2]`` the per-slot
+    structure.  The pairing block of slot s is ``m·struct[s]``; its partner
+    ``m·struct[trans_slot[s]]†``, so the operator stays Hermitian for a
+    symmetric ``m``.  All pairing positions of every slot are written, zeros
+    included.  ``b`` takes the forms of :func:`plane_packed_insert_swave`.
+    Returns a new tensor; differentiable in ``m``.
+    """
+    if not sk.stencil:
+        raise ValueError("plane_packed_insert_bond needs a stencil skeleton (one structure per slot)")
+    cdt = _insert_dtype(b)
+    struct = np.asarray(struct)
+    like = lambda a: torch.as_tensor(np.asarray(a)).to(device=b.device, dtype=cdt)
+    struct_t = like(struct)
+    structH = like(np.conj(np.swapaxes(struct[np.asarray(sk.trans_slot)], -1, -2)))
+    m = torch.as_tensor(m, device=b.device).to(cdt)
+    out = b.clone()
+    _write_blocks(out, (slice(None), slice(None), slice(0, 2), slice(2, 4)), m[:, :, None, None] * struct_t[None])
+    _write_blocks(out, (slice(None), slice(None), slice(2, 4), slice(0, 2)), m[:, :, None, None] * structH[None])
+    return out
 
 
 def _require_complex_operator(data, what: str):

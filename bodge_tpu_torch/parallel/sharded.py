@@ -43,6 +43,7 @@ from ..common import numpy_dtype
 from ..ops.blocksparse import Skeleton
 from ..ops.chebyshev import _KERNELS, _doubled_moment_scan, chebyshev_coefficients, rademacher_probes
 from ..ops.cuda_spmm import HaloSlab, ell_spmm_halo, halo_slab
+from ..ops.planar import complex_operator, is_planar
 
 AXIS = "rows"
 PROBE_AXIS = "probes"
@@ -221,8 +222,9 @@ class RowSharding:
     def shard_data(self, data):
         """This rank's slab ``[n_local, S, 4, 4]`` of the host ELL data
         ``[N, S, 4, 4]`` (NumPy or tensor; a slab is taken as it is), on the
-        mesh's device."""
-        return self._local_rows(data)
+        mesh's device; a planar operator ``[2, N, S, 4, 4]``
+        (:mod:`bodge_tpu_torch.ops.planar`) in its complex64 form."""
+        return self._local_rows(complex_operator(data))
 
     def halo_rows(self):
         """Global row indices of the x-planes before and after the slab (ring
@@ -381,6 +383,8 @@ class Replicated(torch.autograd.Function):
 
 
 def _numpy_dtype(data):
+    if is_planar(data):
+        return np.dtype(np.complex64)
     return numpy_dtype(data.dtype) if isinstance(data, torch.Tensor) else np.asarray(data).dtype
 
 

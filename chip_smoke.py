@@ -6,7 +6,7 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``bodge_tpu_torch/csrc`` into ``build/``,
-holds each kernel against its plain PyTorch version on the card, drives seven
+holds each kernel against its plain PyTorch version on the card, drives eight
 paths through the normal entry points at full size — the KPM observables
 (assemble → block SpMM → fused Chebyshev step → free energy / LDOS / LDOS map
 / DOS / apply, on 1000×1000 sites), the differentiable path (``solve_gap``
@@ -24,15 +24,19 @@ world of one over NCCL, the gradient with √steps checkpointing on and off;
 four gloo ranks sharing the card, spawned after the build) and bf16 operator
 storage (``operator_dtype="bf16"`` through the KPM entry points, the gather
 and tiled steps, a sharded world of one and the lowest-states solver: the
-seven bf16 instantiations of the forward kernels)
-— checks them against complex128 at small sizes, and exits non-zero if any
-phase fails.  Every line of output is one JSON object except the
+seven bf16 instantiations of the forward kernels) and the planar entry points
+(``BODGE_PLANAR=1`` through the façade via ``device_operator()``, bit for bit
+against the complex calls with the same launches) — checks them against
+complex128 at small sizes, and exits non-zero if any phase fails.  Beside the
+card it holds the native host tier (``bodge_tpu_torch.native``, built with
+``g++``) against the ``torch`` path on CPU tensors, and runs the four examples
+of ``examples/torch_*.py`` as a user would.  Every line of output is one JSON object except the
 ``nvidia-smi`` lines; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it fails at once.  ``--quick`` stops after the small
 kernel checks (for a first look at a new kernel) and prints no result line;
-``--phases main,widths,grad,gap,dwave,generic,tiled,lowest,bf16,sharded`` runs only the
-named phases (and prints no result line unless all ran); ``--profile`` adds a
+``--phases main,widths,grad,gap,dwave,generic,tiled,lowest,bf16,sharded,native,planar,examples``
+runs only the named phases (and prints no result line unless all ran); ``--profile`` adds a
 ``torch.profiler`` table of one gradient to the ``gap`` phase; ``--log PATH``
 also writes the JSON records of the run to ``PATH``.
 
@@ -55,9 +59,16 @@ timed on each run's operator at the block widths the run took; ``bf16``: the
 entry points with ``operator_dtype="bf16"`` beside the float32 calls (launch
 counters read here: the bf16 instantiations, and of the float32 forward
 kernels only the spectral bounds' products), the drift of each observable,
-and the bf16 instantiations timed beside their float32 forms.  The small
-kernel checks hold the bf16 instantiations too, on the bf16 form of every
-small operator.
+and the bf16 instantiations timed beside their float32 forms; ``native``:
+host assembly and gate at 10⁶ sites and the mirror search of the generic sheet,
+each against the ``torch`` / NumPy path (bit-equal, both walls, the host's CPU
+model); ``planar``: the planar façade calls at 1000×1000 (launch counters read
+here), the conversion's time and memory, the planar dense spectra at 16×16, a
+planar operator through the sharded free energy, and the sharded ``solve_gap``
+at 512² against the field write before the packed inserts; ``examples``: the
+four example scripts as subprocesses, each ending in its JSON result line.
+The small kernel checks hold the bf16 instantiations too, on the bf16 form of
+every small operator.
 """
 
 from __future__ import annotations
@@ -232,7 +243,8 @@ def main(argv) -> int:
     quick = "--quick" in argv
     profile = "--profile" in argv
     log_path = argv[argv.index("--log") + 1] if "--log" in argv else None
-    all_phases = ("main", "widths", "grad", "gap", "dwave", "generic", "tiled", "lowest", "bf16", "sharded")
+    all_phases = ("main", "widths", "grad", "gap", "dwave", "generic", "tiled", "lowest", "bf16", "sharded",
+                  "native", "planar", "examples")
     phases = tuple(argv[argv.index("--phases") + 1].split(",")) if "--phases" in argv else all_phases
     if not set(phases) <= set(all_phases):
         print(f"chip_smoke: unknown phase in {phases} (known: {all_phases})", file=sys.stderr)
@@ -2684,6 +2696,314 @@ def main(argv) -> int:
         emit({"phase": "bf16", "wall_s": time.perf_counter() - phase_t0})
         return bf16_launches, rows
 
+    # ------------------------------------------------------------------ 14. the native host tier
+    def cpu_model() -> str:
+        """The host's CPU: lscpu's or /proc/cpuinfo's model name, else its vendor,
+        family and model numbers; with the cores and torch's threads."""
+        fields = {}
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        except (OSError, subprocess.TimeoutExpired):
+            out = ""
+        if os.path.exists("/proc/cpuinfo"):
+            with open("/proc/cpuinfo") as f:
+                out += "\n" + f.read()
+        for line in out.splitlines():
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip().lower(), value.strip())
+        name = fields.get("model name") or " ".join(
+            f"{k} {fields[k]}" for k in ("vendor_id", "vendor id", "cpu family", "model") if fields.get(k)) or "unknown"
+        return f"{name}, {os.cpu_count()} cores, torch threads {torch.get_num_threads()}"
+
+    def bits(t):
+        """The bit patterns of a complex tensor (so that -0.0 and 0.0 differ)."""
+        return torch.view_as_real(t).view(torch.int32 if t.dtype == c64 else torch.int64)
+
+    def phase_native():
+        """The native host tier (bodge_tpu_torch.native, g++ at first use): host
+        assembly + Hermiticity gate of the 1000×1000 s-wave system on CPU tensors
+        against the torch path, herm_error against blocksparse.hermiticity_error,
+        and the mirror search of the 1024×256 hole sheet against the searchsorted
+        path — bit-equal, and both walls, beside the host's CPU model."""
+        from unittest import mock
+
+        from bodge_tpu_torch import native
+
+        phase_t0 = time.perf_counter()
+        t0 = time.perf_counter()
+        check(native.available(), "the native library did not build (its error is on stderr)")
+        t_build = time.perf_counter() - t0
+
+        def host_system(use_native):
+            with mock.patch.object(native, "available", return_value=use_native):
+                t0 = time.perf_counter()
+                system = Hamiltonian(CubicLattice((1000, 1000, 1)), dtype=np.complex64, device="cpu")
+                t_new = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                system.assemble(onsite=lambda ci: -0.5 * σ0, pairing_onsite=lambda ci: 0.3 * jσ2,
+                                hopping=lambda ci, cj: np.where(
+                                    (np.abs(ci - cj).max(axis=1) == 1)[:, None, None], -1.0 * σ0, 0),
+                                check=False)
+                t_assemble = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                err = system._hermiticity_error()
+                t_gate = time.perf_counter() - t0
+            return system, {"hamiltonian_s": t_new, "assemble_s": t_assemble, "gate_s": t_gate,
+                            "assemble_and_gate_s": t_assemble + t_gate, "hermiticity_error": err}
+
+        walls = []  # torch, native, native, torch
+        for use in (False, True, True, False):
+            system, wall = host_system(use)
+            walls.append({"path": "native" if use else "torch", **wall})
+            if use:
+                native_data = system.data
+            else:
+                torch_data = system.data
+            del system
+        same = bool(torch.equal(bits(native_data), bits(torch_data)))
+        emit({"phase": "native", "call": "swave 1000x1000 on CPU tensors (complex64): assemble + gate",
+              "host_cpu": cpu_model(), "build_s": t_build, "walls": walls, "data_bit_equal": same})
+        check(same, "the native host assembly differs from the torch path")
+        check(all(w["hermiticity_error"] == 0.0 for w in walls), f"gate: {walls}")
+
+        sk = bs.skeleton((1000, 1000, 1))
+        broken = native_data.clone()
+        broken[12345, 1, 0, 1] += 0.5
+        errs = {}
+        for label, d in (("hermitian", native_data), ("one block broken", broken)):
+            t0 = time.perf_counter()
+            e_native = native.herm_error(d, sk.cols, sk.trans_slot)
+            t_native = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            e_torch = float(bs.hermiticity_error(d, sk))
+            t_torch = time.perf_counter() - t0
+            errs[label] = {"native": e_native, "torch": e_torch, "native_s": t_native, "torch_s": t_torch}
+        emit({"phase": "native", "call": "herm_error against blocksparse.hermiticity_error (CPU, 10^6 sites)",
+              **errs})
+        check(errs["hermitian"]["native"] == 0.0 == errs["hermitian"]["torch"]
+              and abs(errs["one block broken"]["native"] - errs["one block broken"]["torch"]) <= 1e-6
+              and errs["one block broken"]["native"] > 0.4, f"herm_error: {errs}")
+        del native_data, torch_data, broken
+
+        sheet = HoleSheet(1024, 256, 60)
+        skeleton_walls, built = [], {}  # searchsorted, native, native, searchsorted
+        for use in (False, True, True, False):
+            with mock.patch.object(native, "available", return_value=use):
+                t0 = time.perf_counter()
+                built[use] = bs.skeleton_from_lattice(sheet)
+                skeleton_walls.append({"path": "native" if use else "searchsorted", "s": time.perf_counter() - t0})
+        cols = built[True].cols
+        r, slot_pos = np.nonzero(cols >= 0)  # the (row, col)-sorted pair list: a row's slots go by column
+        mirror_walls = []  # the mirror search alone: searchsorted, native, native, searchsorted
+        for use in (False, True, True, False):
+            t0 = time.perf_counter()
+            trans = (native.mirror_slots(cols) if use
+                     else bs.mirror_slots_sorted(r, cols[r, slot_pos], slot_pos, *cols.shape))
+            mirror_walls.append({"path": "native" if use else "searchsorted", "s": time.perf_counter() - t0})
+            check(np.array_equal(trans, built[False].trans_slot), "mirror slots differ between the paths")
+        same = (np.array_equal(built[True].trans_slot, built[False].trans_slot)
+                and np.array_equal(built[True].cols, built[False].cols))
+        emit({"phase": "native", "call": "skeleton_from_lattice(HoleSheet(1024, 256, 60)): mirror slots",
+              "N": sheet.size, "S": int(cols.shape[1]), "skeleton_walls": skeleton_walls,
+              "mirror_search_walls": mirror_walls, "bit_equal": bool(same), "host_cpu": cpu_model()})
+        check(same, "the native mirror slots differ from the searchsorted path")
+        emit({"phase": "native", "wall_s": time.perf_counter() - phase_t0})
+
+    # ------------------------------------------------------------------ 15. the planar entry points
+    def phase_planar():
+        """The planar entry points at 1000×1000 on device_operator() under
+        BODGE_PLANAR=1 (free_energy / ldos / dos through the KPM functions,
+        apply through spmm_planar) against the façade's complex calls:
+        bit-equal results, equal launches (launch counters read here), and the
+        façade unchanged by the flag; the conversion's
+        time and memory; the planar dense spectra at 16×16; a planar operator
+        through the sharded free energy; and solve_gap(impl="cuda_sharded") at
+        512² in a world of one against the same solve with the pre-insert
+        field write."""
+        import contextlib
+
+        import torch.distributed as dist
+        from unittest import mock
+
+        from bodge_tpu_torch.hamiltonian import use_planar_device_path
+        from bodge_tpu_torch.ops import planar as pl
+        from bodge_tpu_torch.parallel import (RowSharding, free_energy_kpm_sharded_cuda, initialize_multihost,
+                                              make_row_mesh)
+
+        phase_t0 = time.perf_counter()
+        energies = np.linspace(-1.0, 1.0, 41)
+        big = swave_superconductor((1000, 1000, 1))
+        sk = big.skeleton
+        scale = kpm.spectral_bound(big.data, sk)
+        v = random_vector(sk.n_sites, 8, 77)
+        centre = big.lattice[(500, 500, 0)]
+        calls = (  # (label, the façade's complex call, the planar entry point on op)
+            ("free_energy(T=0.01, order=256, samples=8)",
+             lambda: big.free_energy(0.01, method="kpm", order=256, samples=8),
+             lambda op: kpm.free_energy_kpm(op, sk, 0.01, order=256, samples=8)),
+            ("ldos((500,500,0), order=512)",
+             lambda: big.ldos((500, 500, 0), energies, method="kpm", order=512, scale=scale),
+             lambda op: kpm.ldos_kpm(op, sk, centre, energies, order=512, scale=scale)),
+            ("dos(order=256, samples=8)", lambda: big.dos(energies, order=256, samples=8, scale=scale),
+             lambda op: kpm.dos_kpm(op, sk, energies, order=256, samples=8, scale=scale)),
+            ("apply(K=8)", lambda: big.apply(v),
+             lambda op: pl.from_planar(pl.spmm_planar(op, sk, pl.to_planar(v)))),
+        )
+
+        def run_calls(op=None):
+            out, launched, walls = {}, {}, {}
+            for label, facade, planar in calls:
+                before = ck.launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[label] = facade() if op is None else planar(op)
+                torch.cuda.synchronize()
+                walls[label] = time.perf_counter() - t0
+                launched[label] = launched_since(before)
+            return out, launched, walls
+
+        check(not use_planar_device_path() and kpm.default_impl() == "auto", "BODGE_PLANAR is set before the phase")
+        complex_out, complex_launches, complex_walls = run_calls()  # complex, planar, planar, complex
+        os.environ["BODGE_PLANAR"] = "1"
+        try:
+            check(use_planar_device_path() and kpm.default_impl() == "planar", "BODGE_PLANAR=1 not read")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            op = big.device_operator()
+            torch.cuda.synchronize()
+            t_convert = time.perf_counter() - t0
+            conversion = {"to_planar_s": t_convert,
+                          "planar_operator_MB": op.numel() * op.element_size() / 1e6,
+                          "peak_extra_MB": (torch.cuda.max_memory_allocated() - base) / 1e6,
+                          "from_planar_ms": timed_ms(lambda: pl.from_planar(op), 20),
+                          "cached": big.device_operator() is op}
+            check(op.shape == (2, *big.data.shape) and op.dtype == torch.float32 and conversion["cached"],
+                  f"device_operator(): {op.shape} {op.dtype}")
+            ck.reset_launch_counts()
+            planar_out, planar_launches, planar_walls = run_calls(op)
+            planar_path = ck.launch_counts()  # read right after the planar path
+            planar_again, _, planar_walls_again = run_calls(op)
+            complex_again, _, complex_walls_again = run_calls()  # the façade under the flag
+        finally:
+            del os.environ["BODGE_PLANAR"]
+        same = {}
+        for label, *_ in calls:
+            a = complex_out[label]
+            if isinstance(a, torch.Tensor):
+                same[label] = all(bool(a.dtype == b.dtype and torch.equal(bits(a), bits(b)))
+                                  for b in (planar_out[label], planar_again[label], complex_again[label]))
+            else:
+                same[label] = all(bool(np.array_equal(np.asarray(a), np.asarray(b)))
+                                  for b in (planar_out[label], planar_again[label], complex_again[label]))
+        emit({"phase": "planar", "call": "planar entry points on device_operator() under BODGE_PLANAR=1 at "
+                                         "1000x1000 against the facade's complex calls (and the facade again "
+                                         "under the flag)",
+              "conversion": conversion, "walls_in_order": {"complex": complex_walls, "planar": planar_walls,
+                                                           "planar again": planar_walls_again,
+                                                           "complex again": complex_walls_again},
+              "launches": planar_launches, "complex_launches": complex_launches, "bit_equal": same})
+        check(all(same.values()), f"planar calls differ from the complex calls: {same}")
+        check(planar_launches == complex_launches, "planar calls launched otherwise than the complex calls")
+        check(planar_path["ell_cheb_step"] > 0 and planar_path["ell_spmm"] > 0, "the planar path launched no kernel")
+
+        small = swave_superconductor((16, 16, 1))
+        dp = pl.to_planar(small.data)
+        H = small.matrix("dense_jnp")
+        E_ref, X_ref = torch.linalg.eigh(H)
+        E_v = pl.eigvalsh_planar(dp, small.skeleton)
+        E, X = pl.eigh_planar(dp, small.skeleton)
+        gap = E_ref[E_ref > 0].min()
+        edge = (E_ref > 0) & (E_ref < gap + 1e-3)  # the gap-edge multiplet
+        proj = lambda Y: Y[:, edge] @ Y[:, edge].conj().T
+        dense = {"eigvalsh_max_abs": float((E_v - torch.linalg.eigvalsh(H)).abs().max()),
+                 "eigh_values_max_abs": float((E - E_ref).abs().max()),
+                 "residual_max_abs": float((H @ X - X * E).abs().max()),
+                 "gap_edge_projector_max_abs": float((proj(X) - proj(X_ref)).abs().max()),
+                 "gap_edge_multiplet": int(edge.sum())}
+        emit({"phase": "planar", "call": "eigvalsh_planar / eigh_planar at 16x16 against torch.linalg.eigh",
+              "tolerance": "1e-5 (float32 eigensolver on the same complex64 matrix)", **dense})
+        check(dense["eigvalsh_max_abs"] <= 1e-5 and dense["eigh_values_max_abs"] <= 1e-5
+              and dense["residual_max_abs"] <= 1e-4 and dense["gap_edge_projector_max_abs"] <= 1e-4,
+              f"planar dense spectra: {dense}")
+
+        def pre_insert_write(b, delta, sk):
+            """The objective's on-site field write before the packed inserts, restated."""
+            blk = (delta[:, None, None] * torch.as_tensor(np.asarray(jσ2)).to(device=b.device, dtype=b.dtype)).to(b.dtype)
+            out = b.clone()
+            out[:, 0, 0:2, 2:4] = blk
+            out[:, 0, 2:4, 0:2] = blk.transpose(-1, -2).conj()
+            return out
+
+        metal = normal_metal((512, 512, 1))
+        kw_gap = dict(V=2.5, temperature=0.0, method="kpm", order=512, samples=8, impl="cuda_sharded")
+        steps = 10
+        check(initialize_multihost(f"localhost:{free_port()}", 1, 0, backend="nccl"), "no process group")
+        try:
+            rs = RowSharding(sk, make_row_mesh())
+            F_c = free_energy_kpm_sharded_cuda(rs, big.data, 0.01, scale, order=256, samples=8)
+            F_p = free_energy_kpm_sharded_cuda(rs, op, 0.01, scale, order=256, samples=8)
+            del op
+            gaps = {}
+            for label in ("inserts", "pre-insert write", "inserts again"):
+                patch = contextlib.nullcontext()
+                if label == "pre-insert write":
+                    patch = mock.patch.object(sc, "plane_packed_insert_swave", pre_insert_write)
+                with patch:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    delta, F_gap = sc.solve_gap(metal, uniform=True, delta0=0.3, steps=steps,
+                                                learning_rate=0.08 / metal.skeleton.n_sites, **kw_gap)
+                    torch.cuda.synchronize()
+                    gaps[label] = (delta, F_gap, (time.perf_counter() - t0) / (steps + 1))
+        finally:
+            dist.destroy_process_group()
+        equal = bool(all(np.array_equal(gaps[k][0], gaps["inserts"][0]) and gaps[k][1] == gaps["inserts"][1]
+                         for k in gaps))
+        emit({"phase": "planar", "call": f"world of one (nccl): free_energy_kpm_sharded_cuda on the planar operator; "
+                                         f"solve_gap(normal_metal((512,512,1)), V=2.5, uniform, order=512, "
+                                         f"samples=8, impl='cuda_sharded'), {steps} steps",
+              "sharded_F_complex": F_c, "sharded_F_planar": F_p, "sharded_bit_equal": F_c == F_p,
+              "delta": {k: float(np.real(g[0][0])) for k, g in gaps.items()},
+              "F_total": {k: g[1] for k, g in gaps.items()},
+              "seconds_per_iteration": {k: g[2] for k, g in gaps.items()},
+              "delta_and_F_bit_equal_to_pre_insert_write": equal})
+        check(F_c == F_p, f"the sharded free energy on the planar operator differs: {F_p} against {F_c}")
+        check(equal, "the sharded solve_gap through the inserts differs from the pre-insert write")
+        emit({"phase": "planar", "wall_s": time.perf_counter() - phase_t0})
+        return planar_path, {}
+
+    # ------------------------------------------------------------------ 16. the examples
+    def phase_examples():
+        """The four examples of the port as a user runs them (one process each, on
+        the card), at reduced arguments where they are large: each must exit 0
+        and end with its JSON result line."""
+        runs = (
+            ("torch_edge_states_map.py", []),
+            ("torch_generic_lattice.py", []),
+            ("torch_self_consistent_gap.py", ["--steps", "100", "--profile-steps", "150"]),
+            ("torch_weak_scaling.py", ["--reps", "2"]),
+        )
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+        phase_t0 = time.perf_counter()
+        for script, args in runs:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, os.path.join(root, "examples", script), *args], env=env,
+                                  cwd=root, capture_output=True, text=True, timeout=300)
+            wall = time.perf_counter() - t0
+            lines = proc.stdout.strip().splitlines()
+            try:
+                result = json.loads(lines[-1])
+            except (IndexError, ValueError):
+                result = None
+            emit({"phase": "examples", "script": f"examples/{script}", "args": args, "wall_s": wall,
+                  "exit_code": proc.returncode, "result": result,
+                  **({"stderr_tail": proc.stderr[-2000:]} if proc.returncode else {})})
+            check(proc.returncode == 0 and isinstance(result, dict) and result.get("example") == script[:-3],
+                  f"examples/{script} failed (exit {proc.returncode})")
+        emit({"phase": "examples", "wall_s": time.perf_counter() - phase_t0})
+
     results = {}
     if "main" in phases:
         results["main"] = phase_main()
@@ -2696,7 +3016,8 @@ def main(argv) -> int:
     if "dwave" in phases:
         phase_dwave()
     for name, phase in (("generic", phase_generic), ("tiled", phase_tiled), ("lowest", phase_lowest),
-                        ("bf16", phase_bf16), ("sharded", phase_sharded)):
+                        ("bf16", phase_bf16), ("sharded", phase_sharded), ("native", phase_native),
+                        ("planar", phase_planar), ("examples", phase_examples)):
         if name in phases:
             results[name] = phase()
 
@@ -2715,8 +3036,8 @@ def main(argv) -> int:
     # the differentiable path's (N = 262144), the gather kernels at the generic
     # sheet's, the tiled step at N = 10⁶, the halo forms at the row-sharded
     # path's (the whole lattice as one slab: the world of one's form), the bf16
-    # instantiations at those shapes on the bf16 form; `launches` adds the seven
-    # paths' reads.
+    # instantiations at those shapes on the bf16 form; `launches` adds the eight
+    # paths' reads (the planar calls' too).
     replaces = {
         "ell_spmm": "bodge_tpu/ops/pallas_spmm.py:440",  # also :985 (plane layout)
         "ell_cheb_step": "bodge_tpu/ops/pallas_spmm.py:468",  # also :1081 (plane layout)
@@ -2741,7 +3062,8 @@ def main(argv) -> int:
     sources["ell_gather_spmm_bf16"] = sources["ell_gather_cheb_step_bf16"] = "bodge_tpu_torch/csrc/ell_gather.cu"
     sources["stencil_cheb_step_tiled_bf16"] = "bodge_tpu_torch/csrc/stencil_tiled.cu"
     paths = {"kpm_observables": "main", "solve_gap": "gap", "generic_lattice": "generic",
-             "tiled_step": "tiled", "lowest_states": "lowest", "bf16_storage": "bf16", "row_sharded": "sharded"}
+             "tiled_step": "tiled", "lowest_states": "lowest", "bf16_storage": "bf16", "row_sharded": "sharded",
+             "planar_entry_points": "planar"}
     kernels = []
     for name in ck.KERNELS:
         row = next(results[p][1][name] for p in ("main", "gap", "generic", "tiled", "sharded", "bf16")

@@ -120,13 +120,17 @@ def test_lowest_eigenstates_match_one_reference_run(bound_states):
 
 
 def test_degenerate_gap_edge_shell():
-    """The clean lattice's gap edge is a degenerate ±Δ shell: |E| = gap and
-    true-eigenvector residuals, whatever signs the shell's members take."""
+    """The clean lattice's gap edge is a degenerate ±Δ shell (48 states): |E| =
+    gap and true-eigenvector residuals, whatever signs the shell's members take.
+    The default block starts narrower than the shell and has to grow past it."""
     st = swave_system(T, SHAPE, device="cpu")
     _, E_all = lowest_reference(st, 8)
     gap = np.abs(E_all).min()
+    assert np.sum(np.abs(np.abs(E_all) - gap) < 1e-9) == 48
     E, X, info = tlz.lowest_eigenstates(st.data, st.skeleton, 8, full_output=True, seed=3)
     assert info["converged"], info
+    blocks = [h[4] for h in info["history"]]
+    assert blocks[0] < 48 < blocks[-1], blocks
     np.testing.assert_allclose(np.abs(E), gap, atol=1e-6)
     dense = st.matrix("dense")
     assert np.linalg.norm(dense @ X - X * E[None, :], axis=0).max() < 1e-3 * np.abs(E_all).max()
