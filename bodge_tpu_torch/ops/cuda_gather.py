@@ -15,16 +15,23 @@ product):
   ``Re⟨t_cur,t_cur⟩`` and ``Re⟨t_next,t_cur⟩`` per probe column.
 
 Both are CUDA C++ in ``csrc/ell_gather.cu`` (replacing ``_gather_kernel``
-under ``spmm_gather_packed``, ``pallas_gather.py:261``): one thread block per
-SM and column tile (``TK`` probe columns) walks a run of ``run`` relabelled
-rows in tiles of ``T``; the window ``[a − bwb, a + T + bwb)`` of vector rows
-slides through a ring in shared memory, the rows of the next ``depth`` tiles
-copied in by ``cp.async`` while a tile is computed, and each thread finds its
-neighbours there through a per-(site, slot) offset ``rel[n, s] = column − n``
-(int32 in ``[−bwb, bwb]``; :data:`PAD_REL` marks a padding slot).  What bounds
-them: bytes — the operator, the offsets (in place of ``cols``) and the vectors
-once; a block copies its run and ``2·bwb`` rows once, so each vector row
-crosses from L2 to the SMs about ``1 + 2·bwb/run`` times instead of ``S``.
+under ``spmm_gather_packed``, ``pallas_gather.py:261``): each run of ``run``
+relabelled rows and each column tile has one SM, which walks the run in tiles
+of ``T``; the window ``[a − bwb, a + T + bwb)`` of vector rows slides through
+a ring in shared memory, the rows of the next ``depth`` tiles copied in while
+a tile is computed, and each thread finds its neighbours there through a
+per-(site, slot) offset ``rel[n, s] = column − n`` (int32 in ``[−bwb, bwb]``;
+:data:`PAD_REL` marks a padding slot).  Two forms (``layout.cluster``): one
+thread block a run with ``TK`` probe columns, the operator read from device
+memory (the complex64 operator's plan); or, for the bf16 operator where it
+fits, a cluster of two blocks that split ``2·TK`` columns, the room the
+halved ring rows free holding ``depth + 1`` stages of a tile's operator rows
+(multicast to both blocks by bulk copies) and offsets, filled by a producer
+warp ahead of the consumers.  What bounds them: bytes — the operator, the
+offsets (in place of ``cols``) and the vectors once; a run copies its rows
+and ``2·bwb`` more once, so each vector row crosses from L2 to the SMs about
+``1 + 2·bwb/run`` times instead of ``S`` — and, in the one-block form, the
+chain of round trips a tile takes to read its operator.
 
 Order.  Everything these functions take — ``data``, vectors, partial sums —
 is in *relabelled* order: relabelled row ``r`` holds original site
@@ -63,6 +70,10 @@ MIN_TILE = 32
 MAX_WINDOW_TK = 8  # probe columns per window; more columns go to gridDim.y
 THREADS = 1024  # threads a block at most: one block an SM
 MAX_DEPTH = 2  # tiles in flight at most (MAX_DEPTH in the kernel)
+CLUSTER_CONSUMERS = 512  # consumer threads a block of the cluster form at most (beside a producer warp)
+CLUSTER_MIN_TILE = 64  # rows a tile of the cluster form at least, unless forced
+CLUSTER_STAGES = 3  # operator stages of the cluster form (depth + 1) where a forced tile names none
+BF16_BLOCK_BYTES = 64  # a 4x4 block in the bf16 form
 
 
 @dataclass(frozen=True, eq=False)  # identity hash: usable as a cache key
@@ -82,8 +93,15 @@ class GatherLayout:
         depth: tiles in flight while one is computed (0: none).
         run: relabelled rows a thread block walks, ``ctas`` blocks a column
             tile (``ceil(N / run)``: one wave, a block an SM).
-        threads: threads a block.
-        smem_bytes: the ring's shared memory, ``ring`` rows.
+        threads: threads a block (the cluster form: its consumers, beside
+            one producer warp).
+        smem_bytes: the block's shared memory: the ring of ``ring`` rows
+            (and, in the cluster form, the stages and their barriers).
+        cluster: 1 (one block a run, ``TK`` columns) or 2 (a pair of
+            blocks a run, ``TK`` columns each, the operator staged).
+        stage_bytes: bytes of one stage of the cluster form (a tile's
+            operator rows and offsets; ``depth + 1`` stages); 0 otherwise.
+            The cluster form takes the operator in the bf16 form only.
     """
 
     sk: Skeleton
@@ -100,6 +118,8 @@ class GatherLayout:
     ctas: int
     threads: int
     smem_bytes: int
+    cluster: int = 1
+    stage_bytes: int = 0
 
     @property
     def window(self) -> int:
@@ -112,7 +132,13 @@ class GatherLayout:
         return 2 * self.bwb + (self.depth + 1) * self.T
 
     def device_rel(self, device):
-        return self.sk._device_copy("gather_rel", device, lambda: self.rel)
+        """``rel`` on ``device``, its rows padded with :data:`PAD_REL` to a
+        multiple of 4 (the cluster form copies a tile's offsets in 16-byte units)."""
+        def make():
+            pad = -len(self.rel) % 4
+            return np.concatenate([self.rel, np.full((pad, self.rel.shape[1]), PAD_REL, dtype=np.int32)])
+
+        return self.sk._device_copy("gather_rel", device, make)
 
     def device_window_index(self, device):
         """``[N, S]`` int64 rows named by ``rel`` (padding mapped to the row itself)."""
@@ -177,9 +203,77 @@ def _feasible(bwb: int, TK: int, T: int) -> bool:
     return T <= (SMEM_LIMIT - TREE_BYTES) // ((BLOCK * TK + 2) * 8) - 2 * bwb
 
 
-def _launch_plan(N: int, bwb: int, K: int, tile=None):
-    """``(T, TK, depth, run, ctas, threads, smem_bytes)`` or ``None`` when no
-    window fits.
+class LaunchPlan(tuple):
+    """``(T, TK, depth, run, ctas, threads, smem_bytes)``, with ``cluster``
+    (1 or 2) and ``stage_bytes`` beside the tuple."""
+
+    def __new__(cls, values, cluster: int = 1, stage_bytes: int = 0):
+        plan = super().__new__(cls, values)
+        plan.cluster, plan.stage_bytes = cluster, stage_bytes
+        return plan
+
+
+def _cluster_smem(bwb: int, TK: int, K: int, T: int, stages: int, slots: int) -> int:
+    """Shared memory of a block of the cluster form (the kernel's layout):
+    the ring, ``stages`` stages of a tile's bf16 operator rows and offsets,
+    then two mbarriers a stage."""
+    round16 = lambda v: -(-v // 16) * 16
+    rel_off = round16((2 * bwb + stages * T) * _site_bytes(TK, K)) + stages * T * slots * BF16_BLOCK_BYTES
+    return round16(rel_off + stages * T * slots * 4) + 16 * stages
+
+
+def _cluster_plan(N: int, bwb: int, K: int, slots: int, tile=None):
+    """The cluster form's :class:`LaunchPlan` for a bf16 operator, or ``None``
+    where it does not apply (``K = 1``: no columns to split) or does not fit.
+
+    The pair splits a column tile of ``min(probe_tile(K), 8)`` columns, ``TK``
+    each.  For 3 and for 2 stages, ``T`` is the largest multiple of 32 up to
+    ``512 / TK`` (or the lattice, rounded up to 32) whose ring and stages
+    fit, at least :data:`CLUSTER_MIN_TILE` (shorter tiles lose to the
+    one-block form); of the two the plan with more rows in flight,
+    ``(stages − 1)·T``, wins, a tie to the longer tile.  ``tile``
+    forces ``T``, ``(T, run)`` or ``(T, run, stages)`` (``run`` ``None``:
+    planned; :data:`CLUSTER_STAGES` stages unless given), each a multiple of
+    4 rows.  ``threads`` counts the consumers.  Runs: one pair for every two
+    SMs, rounded up to a multiple of 4 rows.
+    """
+    forced = (tile,) if isinstance(tile, int) else tuple(tile or ())
+    T_forced, run_forced, stages_forced = (forced + (None, None, None))[:3]
+    tkc = min(ck.probe_tile(K), MAX_WINDOW_TK)
+    if tkc < 2:
+        return None
+    TK = tkc // 2
+    fits = lambda T, stages: _cluster_smem(bwb, TK, K, T, stages, slots) <= SMEM_LIMIT
+    if T_forced is not None:
+        T, stages = int(T_forced), stages_forced or CLUSTER_STAGES
+        if T % 4 or (run_forced is not None and run_forced % 4) or not fits(T, stages):
+            return None
+    else:
+        plans = []
+        for stages in (3, 2):
+            T = min(CLUSTER_CONSUMERS // TK, max(CLUSTER_MIN_TILE, -(-N // 32) * 32)) // 32 * 32
+            while T >= CLUSTER_MIN_TILE and not fits(T, stages):
+                T -= 32
+            if T >= CLUSTER_MIN_TILE:
+                plans.append(((stages - 1) * T, T, stages))
+        if not plans:
+            return None
+        _, T, stages = max(plans)
+    threads = min(CLUSTER_CONSUMERS, max(32, 1 << (T * TK - 1).bit_length()))
+    pairs = max(1, ck.sm_count() // (2 * -(-K // tkc)))
+    run = max(T, -(-N // pairs // 4) * 4) if run_forced is None else int(run_forced)
+    return LaunchPlan((T, TK, stages - 1, run, -(-N // run), threads, _cluster_smem(bwb, TK, K, T, stages, slots)),
+                      cluster=2, stage_bytes=T * slots * (BF16_BLOCK_BYTES + 4))
+
+
+def _launch_plan(N: int, bwb: int, K: int, tile=None, operator_dtype=None, slots: int = 0):
+    """A :class:`LaunchPlan` ``(T, TK, depth, run, ctas, threads, smem_bytes)``
+    or ``None`` when no window fits.
+
+    For a bf16 ``operator_dtype`` (``slots`` slots a row) the cluster form
+    (:func:`_cluster_plan`) where it applies and fits; otherwise, and for
+    the complex64 operator, the one-block form, by the rules below.  Whether
+    a plan exists at all depends on the one-block rule alone.
 
     TK is the widest (at most :data:`MAX_WINDOW_TK`) whose window fits with
     ``T = MIN_TILE`` (or the forced ``T``), by the rule of :func:`_feasible`.
@@ -187,9 +281,10 @@ def _launch_plan(N: int, bwb: int, K: int, tile=None):
     in flight (``depth``) where that fits, else the largest ``T`` with one in
     flight, else the window alone (``depth = 0``).  The run gives every
     SM one block: ``run = max(T, ceil(N / (sms // column tiles)))``.
-    ``tile`` forces ``T``, or ``(T, run)`` both.
+    ``tile`` forces ``T``, or ``(T, run)`` both (``(T, run, stages)``: the
+    cluster form's stages too).
     """
-    T_forced, run_forced = (tile, None) if tile is None or isinstance(tile, int) else tuple(tile)
+    T_forced, run_forced = (tile, None) if tile is None or isinstance(tile, int) else tuple(tile)[:2]
     tk_cap = min(ck.probe_tile(K), MAX_WINDOW_TK)
     for TK in (8, 4, 2, 1):
         if TK > tk_cap or not _feasible(bwb, TK, MIN_TILE if T_forced is None else T_forced):
@@ -210,39 +305,55 @@ def _launch_plan(N: int, bwb: int, K: int, tile=None):
         blocks = max(1, ck.sm_count() // -(-K // TK))
         run = max(T, -(-N // blocks)) if run_forced is None else int(run_forced)
         ring = 2 * bwb + (depth + 1) * T
-        return T, TK, depth, run, -(-N // run), threads, ring * site
+        if _is_bf16(operator_dtype):
+            clustered = _cluster_plan(N, bwb, K, slots, tile)
+            if clustered is not None:
+                return clustered
+        return LaunchPlan((T, TK, depth, run, -(-N // run), threads, ring * site))
     return None
 
 
-def _layout(sk: Skeleton, K: int, relabelled, tile) -> Optional[GatherLayout]:
+def _is_bf16(operator_dtype) -> bool:
+    """Whether ``operator_dtype`` names the bf16 form (``None``: complex64;
+    otherwise the names :func:`~bodge_tpu_torch.ops.cuda_spmm.resolve_operator_storage` takes)."""
+    return operator_dtype is not None and ck.resolve_operator_storage(operator_dtype) is not None
+
+
+def _layout(sk: Skeleton, K: int, relabelled, tile, bf16: bool) -> Optional[GatherLayout]:
     rank, inv_rank, bwb, sk_r, rel = relabelled
-    launch = _launch_plan(sk.n_sites, bwb, K, tile)
+    launch = _launch_plan(sk.n_sites, bwb, K, tile, "bf16" if bf16 else None, sk.n_slots)
     if launch is None:
         return None
     T, TK, depth, run, ctas, threads, smem = launch
     return GatherLayout(sk=sk_r, source=sk, rank=rank, inv_rank=inv_rank, bwb=bwb, rel=rel, K=K, T=T, TK=TK,
-                        depth=depth, run=run, ctas=ctas, threads=threads, smem_bytes=smem)
+                        depth=depth, run=run, ctas=ctas, threads=threads, smem_bytes=smem, cluster=launch.cluster,
+                        stage_bytes=launch.stage_bytes)
 
 
 @functools.lru_cache(maxsize=256)
-def plan_gather(sk: Skeleton, K: int, tile: Optional[int] = None) -> Optional[GatherLayout]:
-    """Gather-kernel plan for ``K`` probe columns, or ``None`` when the window
-    of ``T + 2·bwb`` sites does not fit shared memory even at ``TK = 1``.
+def plan_gather(sk: Skeleton, K: int, tile: Optional[int] = None, operator_dtype=None) -> Optional[GatherLayout]:
+    """Gather-kernel plan for ``K`` probe columns and the operator form
+    ``operator_dtype`` (``None``: complex64; ``"bf16"`` / ``torch.bfloat16``:
+    the bf16 form, which may take the cluster form), or ``None`` when the
+    window of ``T + 2·bwb`` sites does not fit shared memory even at
+    ``TK = 1`` — the same answer for either form.
 
-    ``tile`` forces ``T``, or ``(T, run)`` (for measurements).  Plans are cached per
-    ``(skeleton, K, tile)``, and every plan of one skeleton shares the
+    ``tile`` forces ``T``, ``(T, run)`` or, for the cluster form, ``(T, run,
+    stages)`` (for measurements).  Plans are cached per
+    ``(skeleton, K, tile, form)``, and every plan of one skeleton shares the
     relabelled skeleton, so device copies are made once.
     """
     if sk.n_sites < 1 or K < 1:
         return None
-    return _layout(sk, int(K), _rcm_relabelled(sk), tile)
+    return _layout(sk, int(K), _rcm_relabelled(sk), tile, _is_bf16(operator_dtype))
 
 
 def layout_from_rank(sk: Skeleton, rank, bwb: int, K: int, tile=None):
-    """A :class:`GatherLayout` on a relabelling computed elsewhere (``rank[i]`` =
-    new index of site ``i``, ``bwb`` its block bandwidth), or ``None`` when no
-    window fits.  Raises ``ValueError`` if a neighbour lies outside the band."""
-    return _layout(sk, int(K), _relabelled(sk, rank, bwb), tile)
+    """A :class:`GatherLayout` (the complex64 operator's plan) on a relabelling
+    computed elsewhere (``rank[i]`` = new index of site ``i``, ``bwb`` its
+    block bandwidth), or ``None`` when no window fits.  Raises ``ValueError``
+    if a neighbour lies outside the band."""
+    return _layout(sk, int(K), _relabelled(sk, rank, bwb), tile, False)
 
 
 def supported_gather(sk: Skeleton, K: int = 4) -> bool:
@@ -281,7 +392,9 @@ def ell_gather_spmm(data, gl: GatherLayout, v, *, impl: Optional[str] = None):
 
     On a CUDA tensor this launches the kernel (complex64, contiguous
     tensors; anything else raises; ``data`` in the bf16 form: the bf16
-    instantiation, counted as :func:`ell_gather_spmm_bf16`).  On a CPU
+    instantiation, counted as :func:`ell_gather_spmm_bf16`; a layout in the
+    cluster form, ``plan_gather(..., operator_dtype="bf16")``, takes the bf16
+    form only and refuses a complex64 operator).  On a CPU
     tensor, or with ``impl="plain"``, it is :func:`ell_gather_spmm_plain`.
     """
     _check_layout(gl)
@@ -294,7 +407,7 @@ def ell_gather_spmm(data, gl: GatherLayout, v, *, impl: Optional[str] = None):
     with torch.cuda.device(v.device):
         err = lib.ell_gather_spmm_launch(
             data.data_ptr(), int(bf16), rel.data_ptr(), v.data_ptr(), y.data_ptr(), N, S, K, gl.TK, gl.T,
-            gl.bwb, gl.depth, gl.run, gl.ctas, gl.threads, torch.cuda.current_stream().cuda_stream,
+            gl.bwb, gl.depth, gl.run, gl.ctas, gl.threads, gl.cluster, torch.cuda.current_stream().cuda_stream,
         )
     ck._raise_on(err, "ell_gather_spmm_bf16" if bf16 else "ell_gather_spmm")
     (ell_gather_spmm_bf16 if bf16 else ell_gather_spmm).launches += 1
@@ -342,7 +455,7 @@ def ell_gather_cheb_step(
         err = lib.ell_gather_cheb_step_launch(
             data.data_ptr(), int(bf16), rel.data_ptr(), t_cur.data_ptr(), ck._ptr(t_prev), out.data_ptr(),
             partials.data_ptr(), float(inv), N, S, K, gl.TK, gl.T, gl.bwb, gl.depth, gl.run, gl.ctas,
-            gl.threads, torch.cuda.current_stream().cuda_stream,
+            gl.threads, gl.cluster, torch.cuda.current_stream().cuda_stream,
         )
     ck._raise_on(err, "ell_gather_cheb_step_bf16" if bf16 else "ell_gather_cheb_step")
     (ell_gather_cheb_step_bf16 if bf16 else ell_gather_cheb_step).launches += 1

@@ -386,8 +386,8 @@ def _library():
             "ell_cheb_step_launch": (spmm, [p, i, p, p, p, p, p, f, ll, i, i, i, p]),
             "ell_spmm_adjoint_launch": (spmm, [p, p, p, i, p, p, f, p, p, p, p, p, ll, i, i, i, p]),
             "ell_block_outer_launch": (outer, [p, p, p, p, p, p, f, i, ll, i, i, i, p]),
-            "ell_gather_spmm_launch": (gather, [p, i, p, p, p, ll, i, i, i, i, i, i, ll, i, i, p]),
-            "ell_gather_cheb_step_launch": (gather, [p, i, p, p, p, p, p, f, ll, i, i, i, i, i, i, ll, i, i, p]),
+            "ell_gather_spmm_launch": (gather, [p, i, p, p, p, ll, i, i, i, i, i, i, ll, i, i, i, p]),
+            "ell_gather_cheb_step_launch": (gather, [p, i, p, p, p, p, p, f, ll, i, i, i, i, i, i, ll, i, i, i, p]),
             "stencil_cheb_step_tiled_launch": (
                 tiled, [p, i, p, p, p, p, f, i, i, i, i, i, i, i, i, i, i, i, ip, ip, p]),
         }
@@ -1346,7 +1346,7 @@ class StepPlan:
         if self.kind == "gather":
             from . import cuda_gather as cg
 
-            self.layout = cg.plan_gather(sk, K)
+            self.layout = cg.plan_gather(sk, K, operator_dtype=operator_dtype)
             self.sk = self.layout.sk
             self._step, self._plain_step, self._product = (
                 cg.ell_gather_cheb_step, cg.ell_gather_cheb_step_plain, cg.ell_gather_spmm)

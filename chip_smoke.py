@@ -59,7 +59,10 @@ timed on each run's operator at the block widths the run took; ``bf16``: the
 entry points with ``operator_dtype="bf16"`` beside the float32 calls (launch
 counters read here: the bf16 instantiations, and of the float32 forward
 kernels only the spectral bounds' products), the drift of each observable,
-and the bf16 instantiations timed beside their float32 forms; ``native``:
+and the bf16 instantiations timed beside their float32 forms (the bf16 gather
+pair, in the cluster form of its plan, also beside ``ell_spmm_bf16`` /
+``ell_cheb_step_bf16`` on the same relabelled operator, with its plan, and
+its step's partials repeated bit for bit); ``native``:
 host assembly and gate at 10⁶ sites and the mirror search of the generic sheet,
 each against the ``torch`` / NumPy path (bit-equal, both walls, the host's CPU
 model); ``planar``: the planar façade calls at 1000×1000 (launch counters read
@@ -68,7 +71,9 @@ planar operator through the sharded free energy, and the sharded ``solve_gap``
 at 512² against the field write before the packed inserts; ``examples``: the
 four example scripts as subprocesses, each ending in its JSON result line.
 The small kernel checks hold the bf16 instantiations too, on the bf16 form of
-every small operator.
+every small operator (the gather pair on the bf16 operator's plans: the
+cluster form at the planned and forced tiles and stage counts, near 227 KB
+and at 48-56 KB of shared memory).
 """
 
 from __future__ import annotations
@@ -540,8 +545,11 @@ def main(argv) -> int:
               and torch.equal(aliased, t_next) and torch.equal(pp_alias, pp) and aliased.data_ptr() == buf.data_ptr())
         return ok, float((t_next - want).abs().max()), rel
 
-    def compare_gather(sk, gl, data, K, seed):
-        """``data`` in the original order; everything else in relabelled order."""
+    def compare_gather(sk, gl, data, K, seed, gl16=None):
+        """``data`` in the original order; everything else in relabelled order.
+        The bf16 instantiations run on ``gl16``, the bf16 operator's plan
+        (by default the planned one at this K: the cluster form where it fits)."""
+        gl16 = gl16 or cg.plan_gather(sk, K, operator_dtype="bf16")
         N = sk.n_sites
         d = gl.relabel(data).contiguous()
         t_cur, t_prev = random_vector(N, K, seed), random_vector(N, K, seed + 1)
@@ -558,15 +566,15 @@ def main(argv) -> int:
             lambda prev: ck.ell_cheb_step(d, gl.sk, t_cur, prev, 0.125), t_cur, t_prev)
         # The bf16 instantiations on the bf16 form of the relabelled operator.
         d16 = ck.bf16_operator(d)
-        y16 = cg.ell_gather_spmm(d16, gl, t_cur)
-        y16_again = cg.ell_gather_spmm_bf16(d16, gl, t_cur)
+        y16 = cg.ell_gather_spmm(d16, gl16, t_cur)
+        y16_again = cg.ell_gather_spmm_bf16(d16, gl16, t_cur)
         torch.cuda.synchronize()
-        y16_want = cg.ell_gather_spmm_plain(d16, gl, t_cur)
-        y16_general = ck.ell_spmm(d16, gl.sk, t_cur)
+        y16_want = cg.ell_gather_spmm_plain(d16, gl16, t_cur)
+        y16_general = ck.ell_spmm(d16, gl16.sk, t_cur)
         ok16_step, err16_step, rel16 = step_agrees(
-            lambda prev, out: cg.ell_gather_cheb_step(d16, gl, t_cur, prev, 0.125, out=out),
-            lambda cur, prev, dt: cg.ell_gather_cheb_step_plain(d16, gl, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
-            lambda prev: ck.ell_cheb_step(d16, gl.sk, t_cur, prev, 0.125), t_cur, t_prev)
+            lambda prev, out: cg.ell_gather_cheb_step(d16, gl16, t_cur, prev, 0.125, out=out),
+            lambda cur, prev, dt: cg.ell_gather_cheb_step_plain(d16, gl16, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
+            lambda prev: ck.ell_cheb_step(d16, gl16.sk, t_cur, prev, 0.125), t_cur, t_prev)
         ok16 = close(y16, y16_want) and close(y16, y16_general) and torch.equal(y16, y16_again) and ok16_step
         ok = close(y, y_want) and close(y, y_general) and close(y, y_natural) and torch.equal(y, y_again) and ok_step
         return ok and ok16, {"ell_gather_spmm": float((y - y_want).abs().max()), "ell_gather_cheb_step": err_step,
@@ -596,15 +604,21 @@ def main(argv) -> int:
         j = (i + 1) % n
         return bs.skeleton_from_pairs(n, np.concatenate([i, i, j]), np.concatenate([i, j, i]))
 
-    def gather_tile_between(sk, K, lo, hi):
-        """A forced tile T whose ring takes lo < bytes <= hi of shared memory at
-        the planned TK (the largest such T), or None."""
-        gl = cg.plan_gather(sk, K)
-        for T in range(6000, 0, -1):
-            plan = cg._launch_plan(sk.n_sites, gl.bwb, K, T)
-            if plan is not None and plan[1] == gl.TK and lo < plan[6] <= hi:
+    def gather_tile_between(sk, K, lo, hi, operator_dtype=None):
+        """A forced tile T whose block takes lo < bytes <= hi of shared memory
+        in the planned form and TK (the largest such T), or None."""
+        gl = cg.plan_gather(sk, K, operator_dtype=operator_dtype)
+        for T in range(6000, 0, -4 if gl.cluster == 2 else -1):
+            plan = cg._launch_plan(sk.n_sites, gl.bwb, K, T, operator_dtype, sk.n_slots)
+            if plan is not None and plan.cluster == gl.cluster and plan[1] == gl.TK and lo < plan[6] <= hi:
                 return T
         return None
+
+    def plan_of(gl):
+        """A gather plan as it is printed beside its kernels."""
+        return {"cluster": gl.cluster, "stages": gl.depth + 1 if gl.cluster == 2 else None, "depth": gl.depth,
+                "T": gl.T, "TK": gl.TK, "run": gl.run, "ctas": gl.ctas, "threads": gl.threads,
+                "smem_bytes": gl.smem_bytes, "stage_bytes": gl.stage_bytes}
 
     ck.reset_launch_counts()
     gather_cases = [("ring(300)", ring_skeleton(300)),
@@ -617,8 +631,13 @@ def main(argv) -> int:
     # and not a multiple of it); runs of one tile and of five (more tiles than
     # the ring has stages); T = 160; and the T whose ring comes closest to the
     # 227 KB a block may use.  One ring of 48-56 KB (the launch raises the
-    # 48 KB default) must be among them.
+    # 48 KB default) must be among them.  The bf16 instantiations run on the
+    # bf16 operator's plan at the same tile (the cluster form where it fits,
+    # with two and four stages besides the planned count), and at the tiles
+    # whose cluster-form block comes closest to 227 KB and takes 48-56 KB.
     above_48k = near_limit = False
+    above_48k16 = near_limit16 = False
+    cluster_cases = 0
     for name, sk in gather_cases:
         data = random_blocks(sk, 400)  # not Hermitian, padding slots filled with garbage
         worst = dict.fromkeys(gather_err, 0.0)
@@ -627,20 +646,32 @@ def main(argv) -> int:
             tiles = [None, 32, (32, 32), (32, 160), 160, gather_tile_between(sk, K, 220 * 1024, cg.SMEM_LIMIT)]
             if name == "ring(300)":
                 tiles.append(gather_tile_between(sk, K, 48 * 1024, 56 * 1024))
-            for tile in tiles:
+            tiles16 = [(tile, tile) for tile in tiles] + [(None, (64, None, 2)), (None, (32, 160, 4)),
+                       (None, gather_tile_between(sk, K, 220 * 1024, cg.SMEM_LIMIT, "bf16"))]
+            if name == "ring(300)":
+                tiles16.append((None, gather_tile_between(sk, K, 48 * 1024, 56 * 1024, "bf16")))
+            for tile, tile16 in tiles16:
                 gl = cg.plan_gather(sk, K, tile)
-                check(gl is not None, f"no gather plan for {name} at K={K}, tile={tile}")
+                gl16 = cg.plan_gather(sk, K, tile16, operator_dtype="bf16")
+                check(gl is not None and gl16 is not None, f"no gather plan for {name} at K={K}, tile={tile16}")
                 above_48k = above_48k or 48 * 1024 < gl.smem_bytes <= 56 * 1024
                 near_limit = near_limit or gl.smem_bytes > 220 * 1024
-                ok, err = compare_gather(sk, gl, data, K, seed=500 + K)
-                check(ok, f"gather kernel disagrees on {name}, K={K}, tile={tile}: {err}")
+                if gl16.cluster == 2:
+                    cluster_cases += 1
+                    above_48k16 = above_48k16 or 48 * 1024 < gl16.smem_bytes <= 56 * 1024
+                    near_limit16 = near_limit16 or gl16.smem_bytes > 220 * 1024
+                ok, err = compare_gather(sk, gl, data, K, seed=500 + K, gl16=gl16)
+                check(ok, f"gather kernel disagrees on {name}, K={K}, tile={tile}, bf16 tile={tile16}: {err}")
                 worst = {k: max(worst[k], err[k]) for k in worst}
                 plans[f"K={K},tile={tile}"] = [gl.T, gl.TK, gl.depth, gl.run, gl.ctas, gl.threads, gl.smem_bytes]
+                plans[f"K={K},bf16 tile={tile16}"] = plan_of(gl16)
         gather_err = {k: max(gather_err[k], worst[k]) for k in worst}
         emit({"phase": "kernels", "shape": name, "N": sk.n_sites, "S": sk.n_slots, "K": probe_counts, "bwb": gl.bwb,
               "padding_slots": bool((sk.cols < 0).any()),
               "plans_T_TK_depth_run_ctas_threads_smem": plans, "max_abs_err": worst})
     check(above_48k and near_limit, "no gather case with a ring of 48-56 KB, or none near 227 KB")
+    check(above_48k16 and near_limit16 and cluster_cases > 0,
+          "no cluster-form gather case of 48-56 KB, or none near 227 KB")
     tiled_err = {"stencil_cheb_step_tiled": 0.0, "tiled_partials_rel": 0.0,
                  "stencil_cheb_step_tiled_bf16": 0.0, "tiled_bf16_partials_rel": 0.0}
     sk = bs.skeleton((5, 6, 4))  # a ring of six rows of 24 + 8 sites: 52 KB, past the 48 KB default
@@ -1714,6 +1745,8 @@ def main(argv) -> int:
                 (f"torch.sparse {lib_layout} @ dense on the relabelled operator" if library is not None else
                  ("none: " + "; ".join(lib_errors) if name == "ell_gather_spmm" else "none")),
                 [first[name], second[name]])
+            rows[name]["plan"] = plan_of(gl)
+            emit({"phase": "generic", "timing": name, "plan": plan_of(gl), "ms": rows[name]["ms"]})
         emit({"phase": "generic", "comparison": "gather against general kernels, natural against relabelled order",
               "N": N, "S": S, "K": K, "natural_bwb": natural_bwb, "bwb": gl.bwb, "T": gl.T, "TK": gl.TK,
               "depth": gl.depth, "run": gl.run, "ctas": gl.ctas, "threads": gl.threads, "smem_bytes": gl.smem_bytes,
@@ -2636,33 +2669,52 @@ def main(argv) -> int:
                     halo_16 + 2 * N * 4 * K * 8, errs["product"])
                 del hm, hp
             del t_cur, t_prev, out
-        # The gather step on the sheet, relabelled, at K = 8.
+        # The gather pair on the sheet, relabelled, at K = 8: the bf16
+        # instantiations on the bf16 operator's plan (the cluster form), the
+        # float32 forms on theirs; the general bf16 kernels on the same
+        # relabelled operator (the relabelled skeleton's cols) as the yardstick.
         K, N_s, S_s = 8, sk_s.n_sites, sk_s.n_slots
-        gl = cg.plan_gather(sk_s, K)
+        gl, gl16 = cg.plan_gather(sk_s, K), cg.plan_gather(sk_s, K, operator_dtype="bf16")
         d_rel = gl.relabel(sheet.data).contiguous()
         f_rel = ck.bf16_operator(d_rel)
         t_cur, t_prev = random_vector(N_s, K, 75), random_vector(N_s, K, 76)
         out = torch.empty_like(t_cur)
-        t16, _ = cg.ell_gather_cheb_step(f_rel, gl, t_cur, t_prev, 0.125)
-        t16_plain, _ = cg.ell_gather_cheb_step_plain(f_rel, gl, t_cur, t_prev, 0.125)
-        y16, y16_plain = cg.ell_gather_spmm(f_rel, gl, t_cur), cg.ell_gather_spmm_plain(f_rel, gl, t_cur)
+        t16, pp16 = cg.ell_gather_cheb_step(f_rel, gl16, t_cur, t_prev, 0.125)
+        t16_again, pp16_again = cg.ell_gather_cheb_step(f_rel, gl16, t_cur, t_prev, 0.125)
+        t16_plain, _ = cg.ell_gather_cheb_step_plain(f_rel, gl16, t_cur, t_prev, 0.125)
+        y16, y16_plain = cg.ell_gather_spmm(f_rel, gl16, t_cur), cg.ell_gather_spmm_plain(f_rel, gl16, t_cur)
         errs = {"step": float((t16 - t16_plain).abs().max()), "product": float((y16 - y16_plain).abs().max())}
         check(torch.allclose(t16, t16_plain, atol=2e-4, rtol=2e-4) and torch.allclose(y16, y16_plain, atol=2e-4, rtol=2e-4),
               f"bf16 gather kernels on the sheet: {errs}")
-        del t16, t16_plain, y16, y16_plain
+        check(torch.equal(t16, t16_again) and torch.equal(pp16, pp16_again),
+              "the bf16 gather step's t_next or partials differ between two runs on the sheet")
+        del t16, t16_again, pp16, pp16_again, t16_plain, y16, y16_plain
         rel_bytes, label_s = N_s * S_s * 4, "HoleSheet(1024, 256, 60), relabelled"
+        yardstick = {"ell_gather_cheb_step_bf16": lambda: ck.ell_cheb_step(f_rel, gl.sk, t_cur, t_prev, 0.125, out=out),
+                     "ell_gather_spmm_bf16": lambda: ck.ell_spmm(f_rel, gl.sk, t_cur)}
+        yard_runs = {name: [timed_ms(fn, 50)] for name, fn in yardstick.items()}
         rows["ell_gather_cheb_step_bf16"] = measure(
             "ell_gather_cheb_step_bf16", "ell_gather_cheb_step", label_s, sk_s, K,
-            lambda: cg.ell_gather_cheb_step(f_rel, gl, t_cur, t_prev, 0.125, out=out),
+            lambda: cg.ell_gather_cheb_step(f_rel, gl16, t_cur, t_prev, 0.125, out=out),
             lambda: cg.ell_gather_cheb_step(d_rel, gl, t_cur, t_prev, 0.125, out=out),
-            lambda: cg.ell_gather_cheb_step_plain(f_rel, gl, t_cur, t_prev, 0.125),
+            lambda: cg.ell_gather_cheb_step_plain(f_rel, gl16, t_cur, t_prev, 0.125),
             chebyshev_step_bytes(sk_s, K, 8, operator_itemsize=2) + rel_bytes, errs["step"], reps=50)
         rows["ell_gather_spmm_bf16"] = measure(
             "ell_gather_spmm_bf16", "ell_gather_spmm", label_s, sk_s, K,
-            lambda: cg.ell_gather_spmm(f_rel, gl, t_cur), lambda: cg.ell_gather_spmm(d_rel, gl, t_cur),
-            lambda: cg.ell_gather_spmm_plain(f_rel, gl, t_cur),
+            lambda: cg.ell_gather_spmm(f_rel, gl16, t_cur), lambda: cg.ell_gather_spmm(d_rel, gl, t_cur),
+            lambda: cg.ell_gather_spmm_plain(f_rel, gl16, t_cur),
             spmm_bytes(sk_s, K, 8, operator_itemsize=2) + rel_bytes, errs["product"], reps=50)
-        del d_rel, f_rel, t_cur, t_prev, out, form
+        for name, fn in yardstick.items():
+            yard_runs[name].append(timed_ms(fn, 50))
+            rows[name].update(plan=plan_of(gl16), float32_plan=plan_of(gl),
+                              yardstick="ell_spmm_bf16" if "spmm" in name else "ell_cheb_step_bf16",
+                              yardstick_ms=min(yard_runs[name]), yardstick_runs_ms=yard_runs[name])
+            emit({"phase": "bf16", "timing": name, "plan": plan_of(gl16), "float32_plan": plan_of(gl),
+                  "ms": rows[name]["ms"], "bound_ms": rows[name]["bound_ms"],
+                  "yardstick": rows[name]["yardstick"] + " on the same relabelled operator",
+                  "yardstick_ms": rows[name]["yardstick_ms"],
+                  "ratio_to_yardstick": rows[name]["ms"] / rows[name]["yardstick_ms"]})
+        del d_rel, f_rel, t_cur, t_prev, out, form, yardstick
 
         # Each call's wall, launches and device ms (launches × the kernel's ms at
         # the call's width in this run; the bound's float32 products at K = 1 from
@@ -3075,6 +3127,7 @@ def main(argv) -> int:
             "shape": row["shape"], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            **{key: row[key] for key in ("plan", "yardstick", "yardstick_ms") if key in row},
         })
         check(sum(by_path.values()) > 0, f"{name} was launched on none of the driven paths")
     print(smi, flush=True)

@@ -24,6 +24,7 @@ from bodge_tpu.ops import chebyshev as jkpm
 from bodge_tpu.ops import pallas_spmm as pk
 from bodge_tpu_torch.ops import blocksparse as tbs
 from bodge_tpu_torch.ops import cuda_spmm as ck
+from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
 # One intra-op thread: the suite runs several workers side by side, and idle
 # OpenMP threads of a multi-threaded torch would spin against them.

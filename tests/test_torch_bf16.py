@@ -32,6 +32,7 @@ from tests.test_pallas import random_system
 from tests.test_torch_banded import one_blas_thread, single_blas_thread  # noqa: F401  (autouse fixture)
 from tests.test_torch_gather import build_ring
 from tests.test_torch_lanczos import bound_state_system
+from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
 # One intra-op thread: the suite runs several workers side by side, and idle
 # OpenMP threads of a multi-threaded torch would spin against them.
@@ -63,7 +64,7 @@ def system():
     """``(data, skeleton, the reference's skeleton)``: the reference's 6×5
     random open system, complex128."""
     _, sj = random_system(SHAPE, pbc=False, seed=3)
-    return torch.as_tensor(np.asarray(sj.host_data())), tbs.skeleton(SHAPE), sj.skeleton
+    return torch.as_tensor(np.array(sj.host_data())), tbs.skeleton(SHAPE), sj.skeleton  # a writable copy
 
 
 def test_bf16_form_is_the_reference_packing_bit_for_bit(system):

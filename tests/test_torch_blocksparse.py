@@ -13,6 +13,7 @@ import bodge_tpu_torch
 from bodge_tpu.ops import blocksparse as jbs
 from bodge_tpu_torch.ops import blocksparse as tbs
 import torch
+from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
 # One intra-op thread: the suite runs several workers side by side, and idle
 # OpenMP threads of a multi-threaded torch would spin against them.

@@ -17,6 +17,7 @@ from bodge_tpu.ops import dense as jdense
 from bodge_tpu_torch.models import systems as tsys
 from bodge_tpu_torch.ops import dense as tdense
 from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy
+from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
 # One intra-op thread: the suite runs several workers side by side, and idle
 # OpenMP threads of a multi-threaded torch would spin against them.

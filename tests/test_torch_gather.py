@@ -31,6 +31,7 @@ from bodge_tpu_torch.ops import cuda_spmm as ck
 from bodge_tpu_torch.ops.spmm import spmm as tspmm
 from bodge_tpu_torch.utils.convert import gather_layout_from_numpy, tensor_from_numpy
 from tests.test_torch_banded import ring_lattice, single_blas_thread  # noqa: F401  (autouse fixture)
+from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
 # One intra-op thread: the suite runs several workers side by side, and idle
 # OpenMP threads of a multi-threaded torch would spin against them.
@@ -238,7 +239,7 @@ def test_total_free_energy_on_ring():
     diag = np.argmax(sk.cols == np.arange(N)[:, None], axis=1)
     assert (diag != 0).any()  # the diagonal is not slot 0 here
     np.testing.assert_allclose(inserted[np.arange(N), diag, 0, 3].numpy(), x0)
-    theirs = np.asarray(jsc.data_with_onsite_swave(jnp.asarray(sj.data), jnp.asarray(x0, dtype=jnp.complex128)))
+    theirs = np.array(jsc.data_with_onsite_swave(jnp.asarray(sj.data), jnp.asarray(x0, dtype=jnp.complex128)))
     assert float(tbs.hermiticity_error(torch.as_tensor(theirs), sk)) > 0.1  # the reference's caveat
 
     kw = dict(V=1.5, temperature=0.1, method="kpm", order=64, samples=8, seed=5, scale=6.0)
@@ -317,3 +318,59 @@ def test_launch_plan_feasibility_unchanged(Ks):
     # The sheet's shape (bwb 293 after RCM): tiles of 128 rows, one in flight, 1901 rows a block.
     assert cg._launch_plan(250855, 293, 8) == (128, 8, 1, 1901, 132, 1024, 229024)
     assert cg._launch_plan(23, 10, 3, (32, 8))[3:5] == (8, 3)  # forced T and run: three blocks
+
+
+@pytest.mark.parametrize("Ks", [(1, 3), (8, 33)])
+def test_bf16_plan_feasibility_unchanged_and_cluster_fits(Ks):
+    """Plan only: the bf16 operator's plan exists exactly where the complex64
+    plan does (``supported_gather`` answers by the window rule alone).  Where
+    it takes the cluster form, a pair of blocks splits the column tile (``TK``
+    each), every block's ring, stages and barriers fit shared memory beside
+    its consumers (at most 512, whole warps) and its producer warp, tiles and
+    runs are whole multiples of 4 rows, and the pairs fill an H100's 132 SMs
+    at most once; elsewhere it is the complex64 plan itself."""
+    S = 5
+    for K, bwb, tile in itertools.product(Ks, range(0, 3000, 13), (None, 32, 160)):
+        plan32 = cg._launch_plan(250855, bwb, K, tile)
+        plan = cg._launch_plan(250855, bwb, K, tile, "bf16", S)
+        assert (plan is None) == (plan32 is None)
+        if plan is None:
+            continue
+        if plan.cluster == 1:
+            assert plan == plan32 and plan.stage_bytes == 0
+            continue
+        T, TK, depth, run, ctas, threads, smem = plan
+        assert K >= 2 and TK == min(ck.probe_tile(K), 8) // 2 and (tile is None or T == tile)
+        assert smem == cg._cluster_smem(bwb, TK, K, T, depth + 1, S) <= cg.SMEM_LIMIT and 1 <= depth + 1 <= 4
+        assert threads <= cg.CLUSTER_CONSUMERS and threads % 32 == 0 and T % 4 == 0 and run % 4 == 0
+        assert plan.stage_bytes == T * S * (64 + 4) and (tile is not None or T >= cg.CLUSTER_MIN_TILE)
+        assert ctas == -(-250855 // run) and 2 * ctas * -(-K // (2 * TK)) <= ck.DEFAULT_SMS
+
+
+def test_bf16_plan_at_the_sheet_and_where_it_keeps_one_block():
+    """The sheet's shape (bwb 293, S = 5, K = 8): a pair of blocks a run of
+    3804 rows, 4 columns each, tiles of 96 rows in three stages of 32 640
+    bytes, 223 824 bytes a block.  K = 1 leaves no columns to split, and a
+    band too wide for tiles of 64 rows beside the stages keeps the one-block
+    form, the complex64 plan.  A layout records its form; both forms of one
+    skeleton share the relabelled skeleton, and the sweep's plan takes the
+    operator's form."""
+    plan = cg._launch_plan(250855, 293, 8, None, "bf16", 5)
+    assert plan == (96, 4, 2, 3804, 66, 512, 223824) and plan.cluster == 2 and plan.stage_bytes == 32640
+    assert plan[6] <= 232448
+    for K, bwb in ((1, 293), (8, 600), (3, 2000)):
+        one = cg._launch_plan(250855, bwb, K, None, torch.bfloat16, 5)
+        assert one.cluster == 1 and one == cg._launch_plan(250855, bwb, K)
+    st = build_ring(T, 40, device="cpu")
+    sk = st.skeleton
+    gl, gl16 = cg.plan_gather(sk, 8), cg.plan_gather(sk, 8, operator_dtype="bf16")
+    assert (gl.cluster, gl.stage_bytes) == (1, 0)
+    assert gl16.cluster == 2 and gl16.sk is gl.sk
+    assert cg.plan_gather(sk, 8, operator_dtype="bf16") is gl16 and cg.plan_gather(sk, 1, operator_dtype="bf16").cluster == 1
+    assert ck.StepPlan(sk, 8, "plain_gather", st.data, torch.bfloat16).layout is cg.plan_gather(
+        sk, 8, operator_dtype=torch.bfloat16)
+    rel = gl16.device_rel(torch.device("cpu"))
+    assert rel.shape[0] % 4 == 0 and (rel[: sk.n_sites].numpy() == gl16.rel).all() and (rel[sk.n_sites:] == cg.PAD_REL).all()
+    v = torch.as_tensor(_vector(40, 8, 1))
+    d16 = ck.bf16_operator(gl16.relabel(st.data.to(torch.complex64)))
+    np.testing.assert_array_equal(cg.ell_gather_spmm(d16, gl16, v).numpy(), cg.ell_gather_spmm(d16, gl, v).numpy())

@@ -13,6 +13,7 @@ from bodge_tpu.models import systems as jsys
 from bodge_tpu_torch.models import systems as tsys
 from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy, to_numpy
 import torch
+from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
 # One intra-op thread: the suite runs several workers side by side, and idle
 # OpenMP threads of a multi-threaded torch would spin against them.

@@ -12,6 +12,7 @@ from bodge_tpu_torch.ops import lanczos as tlz
 import bodge_tpu_torch as T
 from tests.test_torch_banded import single_blas_thread  # noqa: F401  (autouse fixture)
 from tests.test_torch_lanczos import swave_system
+from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
 # One intra-op thread: the suite runs several workers side by side, and idle
 # OpenMP threads of a multi-threaded torch would spin against them.

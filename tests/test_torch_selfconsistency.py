@@ -18,6 +18,7 @@ from bodge_tpu.models import selfconsistency as jsc
 from bodge_tpu.ops import chebyshev as jkpm
 from bodge_tpu_torch.models import selfconsistency as tsc
 from bodge_tpu_torch.utils.convert import tensor_from_numpy
+from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
 # One intra-op thread: the suite runs several workers side by side, and idle
 # OpenMP threads of a multi-threaded torch would spin against them.

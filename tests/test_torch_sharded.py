@@ -51,6 +51,7 @@ from bodge_tpu_torch.parallel import (
     spmm_sharded_cuda,
 )
 from bodge_tpu_torch.parallel.cuda_sharded import moments_sharded_ad
+from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
 # One intra-op thread: the suite runs several workers side by side, and idle
 # OpenMP threads of a multi-threaded torch would spin against them.
@@ -214,6 +215,7 @@ def test_product_and_moments_match_reference_xla_path(four_ranks):
     ``moments_sharded`` and the fused-step forms: overlap split off and on,
     and the 2×2 rows × probes mesh.  1e-10.  And the four ranks'
     ``chebyshev_scan_sharded`` against the plain whole-lattice recursion."""
+    import jax
     import jax.numpy as jnp
     from bodge_tpu.parallel import RowSharding as JRowSharding
     from bodge_tpu.parallel import make_row_mesh as j_make_row_mesh
@@ -222,7 +224,8 @@ def test_product_and_moments_match_reference_xla_path(four_ranks):
 
     task, out, ref = four_ranks
     rs = JRowSharding(ref["sk"], j_make_row_mesh(4))
-    y = np.asarray(j_spmm(rs, jnp.asarray(task["data"]), jnp.asarray(task["v"])))
+    # One program (eagerly, each operation of the shard_map compiles alone).
+    y = np.asarray(jax.jit(lambda d, v: j_spmm(rs, d, v))(jnp.asarray(task["data"]), jnp.asarray(task["v"])))
     mu = np.asarray(j_moments(rs, jnp.asarray(task["data"]), jnp.asarray(task["v"]), ORDER, SCALE))
     for got in (out["spmm"], out[("spmm_cuda", False)], out[("spmm_cuda", True)]):
         assert np.abs(got - y).max() <= 1e-10 * np.abs(y).max()

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from tests.test_torch_tiled import check_tiled_plain_against_general
+from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
 # One intra-op thread: the suite runs several workers side by side, and idle
 # OpenMP threads of a multi-threaded torch would spin against them.
