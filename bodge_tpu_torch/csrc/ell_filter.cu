@@ -1,0 +1,310 @@
+// Chebyshev filter sweep on the block-ELL operator in one launch (sm_90a).
+//
+//   ell_cheb_filter   y = sum_{m<M} c_m T_m(inv*H) v
+//
+// by the three-term recursion t_0 = v, t_1 = inv*H t_0 (the first step
+// half-scaled with t_prev = 0), t_{m+1} = 2*inv*H t_m - t_{m-1}; a zero
+// coefficient adds nothing, and no partial sums are formed.
+//
+// It replaces the reference's whole filter scan, _filter_apply_packed
+// (bodge_tpu/ops/lanczos.py:122-143): a lax.scan whose body is one fused
+// Chebyshev step of bodge_tpu/ops/pallas_spmm.py (_flat_cheb_kernel, :468, and
+// _plane_cheb_kernel, :1081; P2/P4) plus an axpy that XLA fuses, with nothing
+// on the host between steps.  Run as a Python loop of ell_cheb_step launches
+// (ell_spmm.cu) and torch axpys, a step at the filter's sizes (N = 1024 and
+// 10 000 sites, 16-128 probe columns) costs the host's launch rate, not bytes.
+//
+// Bound: bytes a step, the same as ell_cheb_step's (ops/spmm.py:
+// chebyshev_step_bytes): the operator once, t_cur and t_prev once, t_next
+// once, over the device-memory rate; a step does about K real operations per
+// operator byte, far below the card's ridge.  At 32x32 the whole working set
+// (operator 0.66 MB, two vectors of at most 3.7 MB at K = 112) lies in the
+// 50 MB L2, so the bound is a few microseconds a step, about what one launch
+// costs: no design that launches once a step can come near it.
+//
+// What the design does about it:
+//   - One cooperative launch a sweep (cudaLaunchCooperativeKernel), steps
+//     separated by a grid-wide barrier (cooperative_groups::this_grid().sync()).
+//     The grid is at most the blocks that fit the card at once (occupancy x
+//     SMs); a launch the card cannot hold is refused, and the error returned.
+//   - Each block owns SB consecutive sites and every probe column of them; a
+//     thread owns fixed (site, column) pairs for the whole sweep, columns the
+//     fastest index, pairs dense (pair p of the block = site_local*K + k).
+//   - The block stages its sites' block rows (S blocks of 128 bytes, 64 in the
+//     bf16 form, one 16-byte pad a site against bank conflicts) and column
+//     indices into shared memory once a launch; every step reads the operator
+//     from there.
+//   - Register mode (REG, one pair a thread): t_prev, t_cur and the running
+//     sum y of the thread's pair live in registers for the whole sweep and
+//     reach memory once, y at the end.  Global mode (any number of pairs a
+//     thread): t_prev is read from the buffer t_next is written to, and y is
+//     the caller's output, read and written by the owning thread where the
+//     step's coefficient is not zero.  Either way the axpy is fused.
+//   - Coefficients are a float32 device array, uploaded once a sweep.
+//
+// Why one barrier a step is enough.  Two ping-pong buffers P0, P1: t_m lives
+// in P[m % 2] for m >= 1 (t_0 is v, never written).  Step m gathers only t_m
+// (v for m = 0) and writes t_{m+1} into P[(m + 1) % 2], only the entries of
+// the writing thread's own pairs.  That buffer last held t_{m-1}, which step
+// m - 1 gathered; the barrier between steps m - 1 and m orders every such
+// gather before any write of step m.  Step m + 1 gathers t_{m+1} after the
+// barrier between m and m + 1, which makes every write of step m visible.
+// Nobody else reads t_prev: in register mode it is in the owner's registers;
+// in global mode the owner reads its entries of t_{m-1} from P[(m + 1) % 2]
+// (from v at m = 1) before it writes t_{m+1} over the same entries, in
+// program order.  y is touched by its owner alone.  Vectors written in the
+// launch are read with plain loads, never through the read-only path.
+//
+// Operator forms (template parameter OP, operator_form.cuh): complex64
+// (float4) and the bf16 form (uint4, upcast to float32 on load).  The product
+// is ell_kernel's of ell_spmm.cu, the same FMAs in the same order, so each
+// t_m repeats the per-step kernel's bit for bit; y is accumulated as torch's
+// axpy (acc.add_(t, alpha=c)) rounds it, the product and then the sum each
+// rounded (__fmul_rn, __fadd_rn: never contracted into one FMA), so the sweep
+// repeats the per-step path's result bit for bit, and the solver that adapts
+// its filter to it takes the same rounds.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "operator_form.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int BLOCKS_PER_SM = 4;  // at most 64 registers a thread
+constexpr int BLK = 4;            // 4x4 blocks: Nambu x spin
+
+struct Args {
+  const void* data;       // [N, S, 4, 4] complex64 or [N, S, 4, 4, 2] bf16
+  const int* cols;        // [N, S], negative = padding
+  const float2* v;        // [N, 4, K], t_0
+  const float* coeffs;    // [M]
+  float2* p0;             // [N, 4, K] scratch: t_m for even m >= 2
+  float2* p1;             // [N, 4, K] scratch: t_m for odd m
+  float2* y;              // [N, 4, K] the result
+  float inv;
+  int M;
+  long long N;
+  int S, K, SB;
+};
+
+// Bytes of shared memory a block of SB sites takes.
+size_t smem_bytes(int bf16, int SB, int S) {
+  const int per = bf16 ? opform::Op<uint4>::PER_BLOCK : opform::Op<float4>::PER_BLOCK;
+  return (size_t)SB * (S * per + 1) * 16 + (size_t)SB * S * sizeof(int);
+}
+
+__device__ __forceinline__ void cfma(float2& acc, float dre, float dim, const float2& v) {
+  acc.x = fmaf(dre, v.x, fmaf(-dim, v.y, acc.x));
+  acc.y = fmaf(dre, v.y, fmaf(dim, v.x, acc.y));
+}
+
+// acc + c*x as torch's add_(x, alpha=c) rounds it: the product, then the sum.
+__device__ __forceinline__ float2 axpy(const float2& acc, float c, const float2& x) {
+  return make_float2(__fadd_rn(acc.x, __fmul_rn(c, x.x)), __fadd_rn(acc.y, __fmul_rn(c, x.y)));
+}
+
+// Row a of a block staged in shared memory, as four complex entries.
+__device__ __forceinline__ void shared_row(const float4* blk, int a, float2 (&d)[4]) {
+  const float4 d01 = blk[2 * a];
+  const float4 d23 = blk[2 * a + 1];
+  d[0] = make_float2(d01.x, d01.y);
+  d[1] = make_float2(d01.z, d01.w);
+  d[2] = make_float2(d23.x, d23.y);
+  d[3] = make_float2(d23.z, d23.w);
+}
+
+__device__ __forceinline__ void shared_row(const uint4* blk, int a, float2 (&d)[4]) {
+  const uint4 q = blk[a];
+  d[0] = opform::bf16_pair(q.x);
+  d[1] = opform::bf16_pair(q.y);
+  d[2] = opform::bf16_pair(q.z);
+  d[3] = opform::bf16_pair(q.w);
+}
+
+// (H t)[n, :, k] of one pair from the staged block rows and column indices of
+// its site; t is read with plain loads (it may have been written in this launch).
+template <typename OP>
+__device__ __forceinline__ void product(const OP* s_site, const int* s_col, const float2* t, int S, int K,
+                                        int k, float2 (&acc)[BLK]) {
+#pragma unroll
+  for (int a = 0; a < BLK; ++a) acc[a] = make_float2(0.f, 0.f);
+  for (int s = 0; s < S; ++s) {
+    const int col = s_col[s];
+    if (col < 0) continue;  // padding slot
+    const float2* vrow = t + (size_t)col * BLK * K + k;
+    float2 vb[BLK];
+#pragma unroll
+    for (int b = 0; b < BLK; ++b) vb[b] = vrow[(size_t)b * K];
+    const OP* blk = s_site + s * opform::Op<OP>::PER_BLOCK;
+#pragma unroll
+    for (int a = 0; a < BLK; ++a) {
+      float2 d[BLK];
+      shared_row(blk, a, d);
+      cfma(acc[a], d[0].x, d[0].y, vb[0]);
+      cfma(acc[a], d[1].x, d[1].y, vb[1]);
+      cfma(acc[a], d[2].x, d[2].y, vb[2]);
+      cfma(acc[a], d[3].x, d[3].y, vb[3]);
+    }
+  }
+}
+
+template <typename OP, bool REG>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) ell_filter_kernel(const Args a) {
+  extern __shared__ uint4 smem[];  // 16-byte aligned
+  constexpr int PER = opform::Op<OP>::PER_BLOCK;
+  const int S = a.S, K = a.K;
+  const int stride = S * PER + 1;  // OP units a staged site
+  OP* s_op = reinterpret_cast<OP*>(smem);
+  int* s_cols = reinterpret_cast<int*>(s_op + (size_t)a.SB * stride);
+  const long long site0 = (long long)blockIdx.x * a.SB;
+  const int sites = (int)min((long long)a.SB, a.N - site0);
+
+  const OP* g_op = reinterpret_cast<const OP*>(a.data) + (size_t)site0 * S * PER;
+  for (int i = threadIdx.x; i < sites * S * PER; i += THREADS) {
+    const int site = i / (S * PER);
+    s_op[site * stride + (i - site * S * PER)] = __ldg(g_op + i);
+  }
+  for (int i = threadIdx.x; i < sites * S; i += THREADS) s_cols[i] = __ldg(a.cols + (size_t)site0 * S + i);
+  __syncthreads();
+
+  cg::grid_group grid = cg::this_grid();
+  const int pairs = sites * K;
+  const float two_inv = 2.0f * a.inv;
+  const float c0 = __ldg(a.coeffs);
+
+  if constexpr (REG) {
+    const int p = threadIdx.x;
+    const bool own = p < pairs;
+    const int sl = own ? p / K : 0;
+    const int k = p - sl * K;
+    const size_t base = ((size_t)(site0 + sl) * BLK) * K + k;
+    float2 prev[BLK], cur[BLK], sum[BLK];
+#pragma unroll
+    for (int r = 0; r < BLK; ++r) {
+      cur[r] = own ? __ldg(a.v + base + (size_t)r * K) : make_float2(0.f, 0.f);
+      prev[r] = make_float2(0.f, 0.f);
+      sum[r] = make_float2(__fmul_rn(c0, cur[r].x), __fmul_rn(c0, cur[r].y));
+    }
+    for (int m = 0; m + 1 < a.M; ++m) {
+      const float2* t = m == 0 ? a.v : ((m & 1) ? a.p1 : a.p0);
+      float2* out = (m & 1) ? a.p0 : a.p1;
+      const float c = __ldg(a.coeffs + m + 1);
+      const float f = m == 0 ? a.inv : two_inv;
+      if (own) {
+        float2 hv[BLK];
+        product<OP>(s_op + sl * stride, s_cols + sl * S, t, S, K, k, hv);
+#pragma unroll
+        for (int r = 0; r < BLK; ++r) {
+          float2 nx;
+          nx.x = fmaf(f, hv[r].x, -prev[r].x);
+          nx.y = fmaf(f, hv[r].y, -prev[r].y);
+          out[base + (size_t)r * K] = nx;
+          if (c != 0.f) sum[r] = axpy(sum[r], c, nx);
+          prev[r] = cur[r];
+          cur[r] = nx;
+        }
+      }
+      if (m + 2 < a.M) grid.sync();
+    }
+    if (own) {
+#pragma unroll
+      for (int r = 0; r < BLK; ++r) a.y[base + (size_t)r * K] = sum[r];
+    }
+  } else {
+    for (int p = threadIdx.x; p < pairs; p += THREADS) {
+      const int sl = p / K;
+      const size_t base = ((size_t)(site0 + sl) * BLK) * K + (p - sl * K);
+#pragma unroll
+      for (int r = 0; r < BLK; ++r) {
+        const float2 x = __ldg(a.v + base + (size_t)r * K);
+        a.y[base + (size_t)r * K] = make_float2(__fmul_rn(c0, x.x), __fmul_rn(c0, x.y));
+      }
+    }
+    for (int m = 0; m + 1 < a.M; ++m) {
+      const float2* t = m == 0 ? a.v : ((m & 1) ? a.p1 : a.p0);
+      float2* out = (m & 1) ? a.p0 : a.p1;
+      const float2* prev = m == 1 ? a.v : out;  // m >= 2: t_{m-1}'s own entries, overwritten below
+      const float c = __ldg(a.coeffs + m + 1);
+      const float f = m == 0 ? a.inv : two_inv;
+      for (int p = threadIdx.x; p < pairs; p += THREADS) {
+        const int sl = p / K;
+        const int k = p - sl * K;
+        const size_t base = ((size_t)(site0 + sl) * BLK) * K + k;
+        float2 hv[BLK];
+        product<OP>(s_op + sl * stride, s_cols + sl * S, t, S, K, k, hv);
+#pragma unroll
+        for (int r = 0; r < BLK; ++r) {
+          const size_t o = base + (size_t)r * K;
+          float2 pr = make_float2(0.f, 0.f);
+          if (m > 0) pr = prev[o];  // read before the write below
+          float2 nx;
+          nx.x = fmaf(f, hv[r].x, -pr.x);
+          nx.y = fmaf(f, hv[r].y, -pr.y);
+          out[o] = nx;
+          if (c != 0.f) a.y[o] = axpy(a.y[o], c, nx);
+        }
+      }
+      if (m + 2 < a.M) grid.sync();
+    }
+  }
+}
+
+template <typename OP, bool REG>
+void* kernel_of() {
+  return reinterpret_cast<void*>(&ell_filter_kernel<OP, REG>);
+}
+
+void* pick(int bf16, int registers) {
+  if (bf16) return registers ? kernel_of<uint4, true>() : kernel_of<uint4, false>();
+  return registers ? kernel_of<float4, true>() : kernel_of<float4, false>();
+}
+
+cudaError_t allow_smem(void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+}  // namespace
+
+// Blocks of the filter kernel one SM holds at `smem` bytes of dynamic shared
+// memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the bytes a
+// block of SB sites takes: what the caller's plan sizes the grid with.
+extern "C" int ell_cheb_filter_occupancy(int bf16, int registers, int SB, int S, int* blocks, long long* smem) {
+  if (SB < 1 || S < 1 || blocks == nullptr || smem == nullptr) return (int)cudaErrorInvalidValue;
+  *smem = (long long)smem_bytes(bf16, SB, S);
+  void* kernel = pick(bf16, registers);
+  cudaError_t err = allow_smem(kernel, (size_t)*smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, THREADS, (size_t)*smem);
+}
+
+// One sweep: ceil(N / SB) blocks of THREADS threads, each SB sites, on the
+// given stream; the coefficients, p0, p1 and y are the caller's device
+// buffers (p0 unused when M <= 2, p1 when M == 1).  `registers` != 0 asks for
+// register mode, which needs SB * K <= THREADS.  Does not synchronise,
+// allocates nothing, returns the launch's error (0 = launched):
+// cudaErrorCooperativeLaunchTooLarge where the card cannot hold the grid.
+extern "C" int ell_cheb_filter_launch(const void* data, int bf16, const void* cols, const void* v,
+                                      const void* coeffs, int M, float inv, void* p0, void* p1, void* y,
+                                      long long N, int S, int K, int SB, int registers, void* stream) {
+  if (N < 1 || S < 1 || K < 1 || M < 1 || SB < 1 || (registers && (long long)SB * K > THREADS))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (N + SB - 1) / SB;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(bf16, SB, S);
+  void* kernel = pick(bf16, registers);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  Args args = {data, (const int*)cols, (const float2*)v, (const float*)coeffs, (float2*)p0, (float2*)p1,
+               (float2*)y, inv, M, N, S, K, SB};
+  void* params[] = {&args};
+  err = cudaLaunchCooperativeKernel(kernel, dim3((unsigned)blocks), dim3(THREADS), params, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}

@@ -77,7 +77,9 @@ The tiled step, in ``csrc/stencil_tiled.cu``:
   ``impl=None`` on stencil skeletons.
 
 The kernels for generic skeletons (a sliding window of relabelled vector rows
-in shared memory) live in :mod:`.cuda_gather`.
+in shared memory) live in :mod:`.cuda_gather`, the filter sweep of the
+lowest-states solver as one launch (:func:`filter_sweep` on the general step)
+in :mod:`.cuda_filter`.
 
 Halo forms, for one x-slab of a row-sharded lattice (:class:`HaloSlab`;
 the exchange that fills the halo planes lives in
@@ -146,7 +148,9 @@ KERNELS = ("ell_spmm", "ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer",
            "ell_gather_spmm", "ell_gather_cheb_step", "stencil_cheb_step_tiled",
            "ell_spmm_halo", "ell_cheb_step_halo", "ell_spmm_adjoint_halo", "ell_block_outer_halo",
            "ell_spmm_bf16", "ell_cheb_step_bf16", "ell_spmm_halo_bf16", "ell_cheb_step_halo_bf16",
-           "ell_gather_spmm_bf16", "ell_gather_cheb_step_bf16", "stencil_cheb_step_tiled_bf16")
+           "ell_gather_spmm_bf16", "ell_gather_cheb_step_bf16", "stencil_cheb_step_tiled_bf16",
+           "ell_cheb_filter", "ell_cheb_filter_bf16")
+FILTER_KERNELS = ("ell_cheb_filter", "ell_cheb_filter_bf16")  # they also count their steps, "<name>.steps"
 PAD_COLUMN = -(2 ** 31)  # padding in a slab's column table (below every halo index)
 
 
@@ -375,8 +379,9 @@ def _library():
         _build.build_all()
         spmm, outer = _build.load("ell_spmm"), _build.load("ell_block_outer")
         gather, tiled = _build.load("ell_gather"), _build.load("stencil_tiled")
+        filt = _build.load("ell_filter")
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        ip = ctypes.POINTER(ctypes.c_int)
+        ip, llp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
         signatures = {
             "ell_spmm_halo_launch": (spmm, [p, i, p, p, p, p, p, ll, i, ll, ll, i, i, i, p]),
             "ell_cheb_step_halo_launch": (spmm, [p, i] + [p] * 7 + [f, ll, i, ll, ll, i, i, i, p]),
@@ -390,6 +395,8 @@ def _library():
             "ell_gather_cheb_step_launch": (gather, [p, i, p, p, p, p, p, f, ll, i, i, i, i, i, i, ll, i, i, i, p]),
             "stencil_cheb_step_tiled_launch": (
                 tiled, [p, i, p, p, p, p, f, i, i, i, i, i, i, i, i, i, i, i, ip, ip, p]),
+            "ell_cheb_filter_launch": (filt, [p, i, p, p, p, i, f, p, p, p, ll, i, i, i, i, p]),
+            "ell_cheb_filter_occupancy": (filt, [i, i, i, i, ip, llp]),
         }
         bound = SimpleNamespace()
         for name, (lib, argtypes) in signatures.items():
@@ -1240,6 +1247,7 @@ ell_block_outer_halo.launches = 0
 
 
 def _wrappers():
+    from .cuda_filter import ell_cheb_filter, ell_cheb_filter_bf16
     from .cuda_gather import (ell_gather_cheb_step, ell_gather_cheb_step_bf16, ell_gather_spmm,
                               ell_gather_spmm_bf16)
 
@@ -1247,18 +1255,24 @@ def _wrappers():
             ell_gather_spmm, ell_gather_cheb_step, stencil_cheb_step_tiled,
             ell_spmm_halo, ell_cheb_step_halo, ell_spmm_adjoint_halo, ell_block_outer_halo,
             ell_spmm_bf16, ell_cheb_step_bf16, ell_spmm_halo_bf16, ell_cheb_step_halo_bf16,
-            ell_gather_spmm_bf16, ell_gather_cheb_step_bf16, stencil_cheb_step_tiled_bf16)
+            ell_gather_spmm_bf16, ell_gather_cheb_step_bf16, stencil_cheb_step_tiled_bf16,
+            ell_cheb_filter, ell_cheb_filter_bf16)
 
 
 def launch_counts() -> dict:
     """``{kernel name: launches so far}`` for every kernel of the port, in the
-    order of :data:`KERNELS`."""
-    return {fn.__name__: fn.launches for fn in _wrappers()}
+    order of :data:`KERNELS`, then ``{"<name>.steps": steps so far}`` for the
+    filter kernels (:data:`FILTER_KERNELS`: Σ(order − 1) over their launches)."""
+    fns = _wrappers()
+    return {**{fn.__name__: fn.launches for fn in fns},
+            **{f"{fn.__name__}.steps": fn.steps for fn in fns if fn.__name__ in FILTER_KERNELS}}
 
 
 def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
+        if fn.__name__ in FILTER_KERNELS:
+            fn.steps = 0
 
 
 # --------------------------------------------------------------------------
@@ -1835,35 +1849,74 @@ def moments_fused_ad(data, sk: Skeleton, v0, inv: float, order: int, *,
     return _assemble_moments(mu0, mu1, sums[1:], K)[:order]
 
 
-def filter_sweep(plan: StepPlan, data, v, coeffs, inv: float):
-    """``y = Σ_m c_m T_m(inv·H) v`` by the three-term recursion on the fused step.
-
-    ``data`` and ``v`` are in ``plan``'s form (:meth:`StepPlan.operator`,
-    :meth:`StepPlan.enter`); ``coeffs`` are host numbers.  One step launch per
-    order beyond the zeroth (``len(coeffs) − 1`` in all), three vector buffers
-    and the accumulator on the device, no host synchronisation inside, any
-    block width in one launch; a zero coefficient costs no pass.  The
-    counterpart of the reference's ``_filter_apply_packed``; the step's
-    partial sums are not used here.
-    """
+def filter_recursion(step, v, coeffs, inv: float):
+    """``Σ_m c_m T_m(inv·H) v`` by the three-term recursion, one ``step`` an
+    order beyond the zeroth: ``step(t_cur, t_prev, scale, out)`` returns
+    ``2·scale·H t_cur − t_prev`` (``t_prev=None`` means zero), written into
+    ``out`` where it is not ``None`` and the step takes it.  The first step is
+    half-scaled with ``t_prev = 0``; from the third on ``t_next`` goes into
+    ``t_prev``'s buffer (the caller's ``v`` is never written), and a zero
+    coefficient costs no pass."""
     coeffs = [float(c) for c in coeffs]
     inv = float(inv)
     acc = coeffs[0] * v
     if len(coeffs) == 1:
         return acc
-    t_cur, _ = plan.step(data, v, None, 0.5 * inv, sums=False)  # half-scaled with t_prev = 0: t1 = H̃ t0
+    t_cur = step(v, None, 0.5 * inv, None)  # t1 = H̃ t0
     if coeffs[1] != 0.0:
         acc.add_(t_cur, alpha=coeffs[1])
     t_prev = v
     for m, c in enumerate(coeffs[2:]):
-        out = t_prev if (plan.backend == "cuda" and m > 0) else None  # m == 0: t_prev is the caller's v
-        t_next, _ = plan.step(data, t_cur, t_prev, inv, out=out, sums=False)
+        t_next = step(t_cur, t_prev, inv, t_prev if m > 0 else None)  # m == 0: t_prev is the caller's v
         if c != 0.0:
             acc.add_(t_next, alpha=c)
         t_prev, t_cur = t_cur, t_next
     return acc
 
 
-def filter_launches(order: int) -> int:
-    """Fused-step launches of one :func:`filter_sweep` with ``order`` coefficients."""
-    return max(0, order - 1)
+def filter_mode(plan: StepPlan, data, K: int) -> str:
+    """How :func:`filter_sweep` runs on ``plan`` at ``K`` columns:
+    ``"registers"`` or ``"global"`` (one launch of the filter kernel,
+    :func:`~bodge_tpu_torch.ops.cuda_filter.filter_plan`), ``"per_step"`` (one
+    step launch an order: the gather and tiled steps, and the general step
+    where no filter plan fits) or ``"plain"``."""
+    if plan.backend == "plain":
+        return "plain"
+    if plan.kind != "ell":
+        return "per_step"
+    from .cuda_filter import filter_plan
+
+    N, S = plan.sk.cols.shape
+    return filter_plan(N, K, S, bf16=is_bf16_operator(data), sms=sm_count())["mode"]
+
+
+def filter_sweep(plan: StepPlan, data, v, coeffs, inv: float):
+    """``y = Σ_m c_m T_m(inv·H) v``, the counterpart of the reference's
+    ``_filter_apply_packed``.
+
+    ``data`` and ``v`` are in ``plan``'s form (:meth:`StepPlan.operator`,
+    :meth:`StepPlan.enter`); ``coeffs`` are host numbers.  On the general step
+    (``plan.kind == "ell"``) this is :func:`~bodge_tpu_torch.ops.cuda_filter.ell_cheb_filter`:
+    one launch of the filter kernel on the card where its plan fits
+    (:func:`filter_mode`), the plain recursion on the CPU.  Otherwise, and
+    where no filter plan fits, it is :func:`filter_recursion` on
+    :meth:`StepPlan.step`: one step launch an order beyond the zeroth, three
+    vector buffers and the accumulator on the device, no host synchronisation
+    inside.  A zero coefficient adds nothing; no partial sums are used.
+    """
+    if plan.kind == "ell" and filter_mode(plan, data, v.shape[-1]) != "per_step":
+        from .cuda_filter import ell_cheb_filter
+
+        return ell_cheb_filter(data, plan.sk, v, coeffs, inv, impl=plan.backend)
+
+    def step(t_cur, t_prev, scale, out):
+        return plan.step(data, t_cur, t_prev, scale, out=out, sums=False)[0]
+
+    return filter_recursion(step, v, coeffs, inv)
+
+
+def filter_launches(order: int, fused: bool = False) -> int:
+    """Launches of one :func:`filter_sweep` with ``order`` coefficients: one
+    with the filter kernel (``fused``), else one step launch an order beyond
+    the zeroth."""
+    return 1 if fused else max(0, order - 1)

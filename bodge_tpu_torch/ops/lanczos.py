@@ -19,9 +19,9 @@ Methods for Large Eigenvalue Problems*, ch. 5 & 7):
     roll-off above), expanded in Chebyshev polynomials via a DCT, to a
     block of b = nev + buffer vectors.  Monotonicity guarantees the
     lowest states can never be filtered out; each application is
-    ``order − 1`` fused Chebyshev steps
-    (:func:`~bodge_tpu_torch.ops.cuda_spmm.filter_sweep`) — the identical hot
-    kernel the KPM layer uses.
+    ``order − 1`` Chebyshev steps
+    (:func:`~bodge_tpu_torch.ops.cuda_spmm.filter_sweep`) — the step the KPM
+    layer uses, here inside one launch of the filter kernel.
 3.  Orthonormalize, then Rayleigh–Ritz **in float64 on the host** against
     the exact ELL operator (one cheap host SpMM per iteration): signed
     Ritz values θ, rotated basis, per-column residuals ‖H y − θ y‖.
@@ -38,7 +38,11 @@ The filter engine is one device-resident operator in the form its step takes
 (:class:`~bodge_tpu_torch.ops.cuda_spmm.StepPlan`): the general ELL step on a
 stencil skeleton, the windowed gather step on a generic one, the tiled step
 where the caller opts in (``impl="cuda_tiled"`` or ``BODGE_PLANE_TILED=1``).
-A block of any width goes through one launch per order.
+On the general step a filter application is one launch of
+:func:`~bodge_tpu_torch.ops.cuda_filter.ell_cheb_filter` (where its plan fits:
+up to about 44 000 sites at S = 5); on the gather and tiled steps, one step
+launch per order.  ``info["step_launches"]`` counts the steps, Σ(order − 1),
+``info["filter_launches"]`` the launches that ran them.
 
 Entry points: :func:`lowest_eigenstates` (nev lowest-|ε| signed eigenpairs)
 and the ``method="lanczos"`` paths of ``Hamiltonian.diagonalize`` /
@@ -57,7 +61,7 @@ import torch
 from ..common import resolve_device
 from .blocksparse import BLOCK, Skeleton
 from .chebyshev import jackson_kernel, spectral_bound
-from .cuda_spmm import (StepPlan, bf16_operator, filter_launches, filter_sweep, operator_values,
+from .cuda_spmm import (StepPlan, bf16_operator, filter_launches, filter_mode, filter_sweep, operator_values,
                         resolve_operator_storage)
 
 # Expansion orders are rounded up to one of these buckets.  High buckets
@@ -101,14 +105,17 @@ class _FilterEngine:
         self.operator_dtype = operator_dtype
         self.vector_dtype = data.dtype
         self.data = plan.operator(data)
-        self.launches = 0
+        self.steps = 0  # of the recursion, Σ(order − 1)
+        self.launches = 0  # of the kernels that ran them: one a sweep with the filter kernel
 
     def apply(self, V: np.ndarray, coeffs: np.ndarray, inv_scale: float) -> np.ndarray:
         """Filtered block Σ_m c_m T_m(H̃) V for host ``V: [N, 4, b]``."""
         plan = StepPlan(self.sk, V.shape[-1], self.impl, self.data, self.operator_dtype)
         v = plan.enter(torch.as_tensor(V).to(device=self.data.device, dtype=self.vector_dtype))
+        fused = filter_mode(plan, self.data, V.shape[-1]) in ("registers", "global")
         y = plan.leave(filter_sweep(plan, self.data, v, coeffs, inv_scale))
-        self.launches += filter_launches(len(coeffs))
+        self.steps += max(0, len(coeffs) - 1)
+        self.launches += filter_launches(len(coeffs), fused)
         return y.cpu().numpy()
 
 
@@ -514,7 +521,8 @@ def lowest_eigenstates(
         "spmm_applications": spmm_count,
         "history": history,
         "impl": engine.impl,
-        "step_launches": engine.launches,
+        "step_launches": engine.steps,
+        "filter_launches": engine.launches,
         "seconds": seconds,
         "method": "chebyshev-filtered subspace iteration",
         "converged": converged,

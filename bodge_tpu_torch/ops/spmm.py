@@ -41,13 +41,26 @@ def spmm_gather(data, sk: Skeleton, v):
     nothing, whatever their blocks hold (the kernels skip them), so the
     gradient with respect to a padding block is zero.
     """
-    gathered = v[sk.device_safe_cols(v.device)]  # [N, S, 4, K]
+    return spmm_batched(batched_operator(data, sk), sk, v)
+
+
+def batched_operator(data, sk: Skeleton):
+    """``data`` as the left factor ``[N, 4, 4S]`` of :func:`spmm_batched`
+    (padding blocks zeroed): a caller that multiplies by one operator many
+    times forms it once."""
     if sk.has_padding:
-        data = data * sk.device_valid(v.device)[..., None, None]
-    # One batched product per row over the joint (slot, orbital) index: the
-    # sum Σ_s Σ_b data[n,s,a,b] · gathered[n,s,b,k] as [4, 4S] @ [4S, K].
+        data = data * sk.device_valid(data.device)[..., None, None]
     N, S = sk.cols.shape
-    return torch.bmm(data.transpose(1, 2).reshape(N, BLOCK, S * BLOCK), gathered.reshape(N, S * BLOCK, -1))
+    return data.transpose(1, 2).reshape(N, BLOCK, S * BLOCK)
+
+
+def spmm_batched(A, sk: Skeleton, v):
+    """:func:`spmm_gather` on the operator's :func:`batched_operator` form: one
+    batched product per row over the joint (slot, orbital) index, the sum
+    Σ_s Σ_b data[n,s,a,b] · v[cols[n,s],b,k] as [4, 4S] @ [4S, K]."""
+    N, S = sk.cols.shape
+    gathered = v[sk.device_safe_cols(v.device)]  # [N, S, 4, K]
+    return torch.bmm(A, gathered.reshape(N, S * BLOCK, -1))
 
 
 def spmm_stencil(data, sk: Skeleton, v):

@@ -17,7 +17,8 @@ assembled, saved, loaded and evaluated through the windowed gather kernels),
 the tiled step (``impl="cuda_tiled"`` at 1000×1000 and 64×64×4) and the
 lowest-states solver (``diagonalize(method="lanczos")`` at 32×32 against three
 exact solvers; at 100×100 with magnetic impurities against shift-invert, and
-with a uniform Zeeman field, bounded, against ``eigvalsh`` on the card), the
+with a uniform Zeeman field, bounded, against ``eigvalsh`` on the card; each
+filter application one cooperative launch of ``ell_cheb_filter``), the
 row-sharded path (the halo kernels on x-slabs of the 1000×1000 operator;
 the sharded KPM entry points and ``solve_gap(impl="cuda_sharded")`` in a
 world of one over NCCL, the gradient with √steps checkpointing on and off;
@@ -54,8 +55,11 @@ plan, one gradient against complex128; ``tiled``:
 ``free_energy(impl="cuda_tiled")`` against the untiled call (launch counters
 read here) and the tiled step timed at N = 10⁶ beside ``ell_cheb_step`` at
 K = 1, 8, 64, with variants of its plan; ``lowest``: the lowest-states solver
-(launch counters read here), and its kernels against their plain versions and
-timed on each run's operator at the block widths the run took; ``bf16``: the
+(launch counters read here, held to each run's history: one ``ell_cheb_filter``
+launch an application, Σ(order − 1) steps), and its kernels against their plain
+versions and timed on each run's operator at the block widths the run took (the
+filter kernel in both modes at orders 256 and 4096, beside ``ell_cheb_step``
+replayed from a CUDA graph and the per-step path it replaced); ``bf16``: the
 entry points with ``operator_dtype="bf16"`` beside the float32 calls (launch
 counters read here: the bf16 instantiations, and of the float32 forward
 kernels only the spectral bounds' products), the drift of each observable,
@@ -70,7 +74,9 @@ here), the conversion's time and memory, the planar dense spectra at 16×16, a
 planar operator through the sharded free energy, and the sharded ``solve_gap``
 at 512² against the field write before the packed inserts; ``examples``: the
 four example scripts as subprocesses, each ending in its JSON result line.
-The small kernel checks hold the bf16 instantiations too, on the bf16 form of
+The small kernel checks hold the filter kernel in both modes and both operator
+forms against its plain version and the per-step kernels, and the bf16
+instantiations too, on the bf16 form of
 every small operator (the gather pair on the bf16 operator's plans: the
 cluster form at the planned and forced tiles and stage counts, near 227 KB
 and at 48-56 KB of shared memory).
@@ -269,6 +275,7 @@ def main(argv) -> int:
     from bodge_tpu_torch.ops import _build
     from bodge_tpu_torch.ops import blocksparse as bs
     from bodge_tpu_torch.ops import chebyshev as kpm
+    from bodge_tpu_torch.ops import cuda_filter as cf
     from bodge_tpu_torch.ops import cuda_gather as cg
     from bodge_tpu_torch.ops import cuda_spmm as ck
     from bodge_tpu_torch.ops import lanczos as lz
@@ -284,8 +291,8 @@ def main(argv) -> int:
     c64, c128 = torch.complex64, torch.complex128
 
     def counts(**launched) -> dict:
-        """Launch counts of every kernel, zero where not named."""
-        return {**dict.fromkeys(ck.KERNELS, 0), **launched}
+        """Launch counts of every kernel (and the filter kernels' steps), zero where not named."""
+        return {**dict.fromkeys(ck.launch_counts(), 0), **launched}
 
     def launched_since(before: dict) -> dict:
         after = ck.launch_counts()
@@ -302,6 +309,33 @@ def main(argv) -> int:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    def graph_ms(fn, launches: int = 200) -> float:
+        """Device ms of one call of ``fn``: ``launches`` calls captured in one CUDA
+        graph, replayed three times between CUDA events, the least replay over
+        ``launches``.  The kernels' own time, without the host's launch rate.  A
+        measurement only: the port launches no graph."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()  # warm-up outside the capture (cached column tables, the library)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        best = math.inf
+        for _ in range(3):
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            best = min(best, start.elapsed_time(end) / launches)
+        del graph
+        return best
 
     # ------------------------------------------------------------------ 1. device
     smi = nvidia_smi_line()
@@ -509,7 +543,7 @@ def main(argv) -> int:
         small_err = {k: max(small_err[k], worst[k]) for k in worst}
         emit({"phase": "kernels", "shape": name, "S": sk.n_slots, "K": probe_counts,
               "padding_slots": bool((sk.cols < 0).any()), "max_abs_err": worst})
-    emit({"phase": "kernels", "held": list(ck.KERNELS), "small_shapes": len(cases),
+    emit({"phase": "kernels", "held": [n for n in ck.KERNELS if n not in ck.FILTER_KERNELS], "small_shapes": len(cases),
           "tolerance": {"y_t_next": "atol=rtol=2e-4 vs complex64 plain",
                         "partials": "1e-4 of the largest sum vs complex128 plain",
                         "adjoint_outer": "atol=rtol=2e-4 vs complex64 plain, non-Hermitian data, "
@@ -865,6 +899,85 @@ def main(argv) -> int:
                         "partials": "1e-4 of the largest sum vs complex128 plain",
                         "repeat": "second launch and the three-launch split bit-equal"},
           "max_abs_err": halo_err, "launches": ck.launch_counts()})
+
+    # ------------------------------------------------------------------ 3a'''. the filter kernel, small shapes
+    # ell_cheb_filter (and ell_cheb_filter_bf16 on the bf16 form) in each mode that
+    # fits, against: its plain version (the per-step recursion in torch, complex64,
+    # the same inputs) within 8·M·eps of scale = max|v|·Σ|c_m| — M float32 steps, each
+    # rounding its sums, in another order; and the per-step kernel path on the same
+    # block and coefficients (ell_cheb_step launches and torch axpys) bit for bit —
+    # the steps are the same FMAs and the axpy rounds as torch's does — also with
+    # the last coefficient alone (y = t_{M-1}).  A second launch repeats bit for
+    # bit; each launch is counted once with its M − 1 steps.
+    EPS32 = 2.0 ** -24
+
+    def compare_filter(data, sk, K, coeffs, inv, seed, modes=cf.MODES):
+        """``(ok, errors, modes run)`` of the checks above; a mode whose plan does
+        not fit (register mode at 100×100 widths) is skipped."""
+        N, S = sk.cols.shape
+        M = len(coeffs)
+        bf16 = ck.is_bf16_operator(data)
+        name = "ell_cheb_filter_bf16" if bf16 else "ell_cheb_filter"
+        v = random_vector(N, K, seed)
+
+        def step(t_cur, t_prev, scale, out):
+            return ck.ell_cheb_step(data, sk, t_cur, t_prev, scale, out=out)[0]
+
+        last = np.zeros(M)
+        last[-1] = 1.0
+        plain = cf.ell_cheb_filter_plain(data, sk, v, coeffs, inv)
+        per_step, per_step_last = ck.filter_recursion(step, v, coeffs, inv), ck.filter_recursion(step, v, last, inv)
+        scale = float(v.abs().max()) * float(np.abs(coeffs).sum())
+        ok, errs, ran = True, {"vs_plain_rel": 0.0, "vs_per_step_rel": 0.0}, []
+        for mode in modes:
+            try:
+                cf.filter_plan(N, K, S, bf16=bf16, mode=mode)
+            except ValueError:
+                continue
+            before = ck.launch_counts()
+            y = cf.ell_cheb_filter(data, sk, v, coeffs, inv, mode=mode)
+            y_again = cf.ell_cheb_filter(data, sk, v, coeffs, inv, mode=mode)
+            y_last = cf.ell_cheb_filter(data, sk, v, last, inv, mode=mode)
+            torch.cuda.synchronize()
+            launched = launched_since(before)
+            e_plain = float((y - plain).abs().max()) / scale
+            e_step = float((y - per_step).abs().max()) / scale
+            errs = {"vs_plain_rel": max(errs["vs_plain_rel"], e_plain),
+                    "vs_per_step_rel": max(errs["vs_per_step_rel"], e_step)}
+            ok = (ok and e_plain <= 8 * M * EPS32 and torch.equal(y, per_step) and torch.equal(y_again, y)
+                  and torch.equal(y_last, per_step_last)
+                  and launched == counts(**{name: 3, f"{name}.steps": 3 * (M - 1)}))
+            ran.append(mode)
+        return ok, errs, ran
+
+    ck.reset_launch_counts()
+    filter_err, filter_modes = {"vs_plain_rel": 0.0, "vs_per_step_rel": 0.0}, set()
+    rng = np.random.default_rng(13)
+    for name, data, sk in cases:
+        inv = 1.0 / (4 * sk.n_slots * float(data.abs().max()))  # row sums of |H| below 1: inv·H within [-1, 1]
+        for form in (data, ck.bf16_operator(data)):
+            for K in (1, 3, 18, 33):
+                for M in (1, 2, 3, 64):
+                    coeffs = rng.normal(size=M)
+                    coeffs[3::4] = 0.0  # zero coefficients add nothing
+                    ok, err, ran = compare_filter(form, sk, K, coeffs, inv, seed=400 + K)
+                    check(ok and ran, f"filter kernel on {name}, K={K}, M={M}, bf16={form is not data}: {err}, {ran}")
+                    filter_err = {k: max(filter_err[k], err[k]) for k in filter_err}
+                    filter_modes.update(ran)
+    check(filter_modes == set(cf.MODES), f"the small shapes held the filter kernel only in {filter_modes}")
+    occupancy = {}
+    for bf16 in (False, True):
+        for mode, (N_o, K_o) in (("registers", (1024, 112)), ("global", (10000, 128))):
+            plan = cf.filter_plan(N_o, K_o, 5, bf16=bf16, mode=mode)
+            occupancy[f"{mode}{'_bf16' if bf16 else ''}"] = cf.filter_occupancy(plan, 5, bf16=bf16)
+    check(min(occupancy.values()) >= cf.FILTER_BLOCKS_PER_SM,
+          f"the filter kernel holds {occupancy} blocks an SM, the plans assume {cf.FILTER_BLOCKS_PER_SM}")
+    emit({"phase": "kernels", "held": list(ck.FILTER_KERNELS), "small_shapes": len(cases), "K": [1, 3, 18, 33],
+          "orders": [1, 2, 3, 64], "modes": sorted(filter_modes), "blocks_per_sm": occupancy,
+          "tolerance": {"vs_plain": "8*M*2^-24 of max|v|*sum|c| (complex64 plain, same inputs)",
+                        "vs_per_step_kernels": "bit-equal, also with the last coefficient alone; a second "
+                                               "launch bit-equal"},
+          "max_rel_err": filter_err, "launches": ck.launch_counts()})
     if quick:
         return 0
 
@@ -961,7 +1074,7 @@ def main(argv) -> int:
         shape, and the path checked against complex128."""
         # ------------------------------------------------------------------ 4. main path, full size
         energies = np.linspace(-1.0, 1.0, 41)
-        expected = dict.fromkeys(ck.KERNELS, 0)  # the backward kernels stay at 0 on this path
+        expected = counts()  # the backward kernels stay at 0 on this path
 
         def call(label, fn, order, K, sk, bound_iters=0):
             """Run one entry point, synchronised; account for the launches it must make."""
@@ -1895,43 +2008,140 @@ def main(argv) -> int:
         return tiled_launches, rows
 
     # ------------------------------------------------------------------ 12. lowest states
+    def expected_filter(sk, history, bf16=False):
+        """Launch counts the solver's filter makes over ``history``: at each
+        application's width the filter kernel once with order − 1 steps, or, where
+        filter_plan answers "per_step", one step launch an order beyond the zeroth."""
+        name, step = ("ell_cheb_filter_bf16", "ell_cheb_step_bf16") if bf16 else ("ell_cheb_filter", "ell_cheb_step")
+        out = {name: 0, f"{name}.steps": 0, step: 0}
+        for _, order, _, _, b in history:
+            if cf.filter_plan(sk.n_sites, b, sk.n_slots, bf16=bf16)["mode"] == "per_step":
+                out[step] += order - 1
+            else:
+                out[name] += 1
+                out[f"{name}.steps"] += order - 1
+        return out
+
+    # The solver's low-pass filters at two of its orders: its first (plateau 0,
+    # width 0.09) and a sharp one of its later rounds.
+    lowpass = {256: lz._lowpass_coeffs(0.0, 0.09, 256), 4096: lz._lowpass_coeffs(2e-4, 4e-4, 4096)}
+
+    def held_at_widths(label, system, widths, tiled=False, bf16=False):
+        """The solver's kernels on ``system``'s operator (its bf16 form with
+        ``bf16``) at the widths the filter ran and K = 1 (the spectral bound's
+        product): the general product and step (and with ``tiled`` the tiled
+        step) against their plain versions with the small shapes' tolerances;
+        the filter kernel in each mode that fits (forced) at orders 256 and 4096
+        of the solver's low-pass by compare_filter.  Then at each width the
+        device ms a step: the filter kernel in each mode (one launch at order
+        4096, over its 4095 steps); ell_cheb_step from 200 launches replayed from
+        one CUDA graph; the same back to back from the host (the host's issue
+        rate: at N = 1024 not the kernel's time); the per-step path the filter
+        replaced (filter_recursion over ell_cheb_step and torch axpys at order
+        256, CUDA events around the host's loop); the step's byte bound."""
+        sk = system.skeleton
+        N_l, S = sk.cols.shape
+        form = ck.bf16_operator(system.data) if bf16 else system.data
+        inv = 1.0 / kpm.spectral_bound(system.data, sk)
+        worst, modes = {}, {}
+        for K in sorted({1, *widths}):
+            ok, err = (compare_bf16 if bf16 else compare)(system.data, sk, K, seed=900 + K)
+            check(ok, f"{label}: kernel disagrees with its plain version at K={K}: {err}")
+            if tiled:
+                ok, err_t = compare_tiled(system.data, sk, K, seed=950 + K)
+                check(ok, f"{label}: tiled kernel disagrees with its plain version at K={K}: {err_t}")
+                err.update(err_t)
+            for order, coeffs in lowpass.items():
+                ok, err_f, modes[K] = compare_filter(form, sk, K, coeffs, inv, seed=970 + K)
+                check(ok and modes[K], f"{label}: filter kernel at K={K}, order {order}: {err_f} in {modes[K]}")
+                err.update({f"filter_{order}_{key}": e for key, e in err_f.items()})
+            worst = {n: max(worst.get(n, 0.0), v) for n, v in err.items()}
+        by_width = {}
+        coeffs = lowpass[4096]
+        for K in sorted(widths):
+            v, t_prev = random_vector(N_l, K, 960), random_vector(N_l, K, 961)
+            out = torch.empty_like(v)
+
+            def one_step():
+                ck.ell_cheb_step(form, sk, v, t_prev, 0.125, out=out)
+
+            def step(t_cur, t_prev_, scale, out_):
+                return ck.ell_cheb_step(form, sk, t_cur, t_prev_, scale, out=out_)[0]
+
+            bound = chebyshev_step_bytes(sk, K, 8, operator_itemsize=2 if bf16 else None) / HBM_BYTES_PER_S * 1e3
+            row = {"plan": cf.filter_plan(N_l, K, S, bf16=bf16), "step_bound_ms": bound,
+                   "ell_cheb_step_graph_ms": graph_ms(one_step),
+                   "ell_cheb_step_host_issue_ms": timed_ms(one_step, 200),
+                   "per_step_path_ms_per_step": timed_ms(lambda: ck.filter_recursion(step, v, lowpass[256], inv), 3)
+                   / 255}
+            if tiled:
+                def tiled_step():
+                    ck.stencil_cheb_step_tiled(form, sk, v, t_prev, 0.125, out=out)
+
+                row.update(stencil_cheb_step_tiled_graph_ms=graph_ms(tiled_step),
+                           stencil_cheb_step_tiled_host_issue_ms=timed_ms(tiled_step, 200))
+            for mode in modes[K]:
+                row[f"filter_{mode}_ms_per_step"] = timed_ms(
+                    lambda: cf.ell_cheb_filter(form, sk, v, coeffs, inv, mode=mode), 3) / (len(coeffs) - 1)
+            best = min(row[f"filter_{mode}_ms_per_step"] for mode in modes[K])
+            row.update(filter_share_of_step_bound=bound / best,
+                       filter_over_per_step_path=best / row["per_step_path_ms_per_step"],
+                       filter_over_graph_replayed_step=best / row["ell_cheb_step_graph_ms"])
+            by_width[K] = row
+            del v, t_prev, out
+        emit({"phase": "lowest", "held": label, "N": N_l, "K": sorted({1, *widths}), "bf16": bf16,
+              "filter_modes": modes, "filter_orders": sorted(lowpass),
+              "tolerance": "atol=rtol=2e-4 vs complex64 plain; sums 1e-4 vs complex128 plain; the filter kernel "
+                           "by compare_filter (phase kernels)",
+              "max_abs_err": worst, "step_ms_by_width": by_width})
+        return by_width
+
+    def filter_row(name, label, system, K, bf16=False):
+        """The filter kernel's line in the kernels table: one sweep of the solver's
+        order-4096 low-pass at width K on ``system`` in the planned mode, against
+        its plain version; bound_ms for the function (operator, cols, v,
+        coefficients and y once; the operations of 4095 steps at the float32 rate),
+        and beside it the per-step byte bound the steps would take apart."""
+        sk = system.skeleton
+        N_l, S = sk.cols.shape
+        form = ck.bf16_operator(system.data) if bf16 else system.data
+        inv = 1.0 / kpm.spectral_bound(system.data, sk)
+        coeffs, steps = lowpass[4096], len(lowpass[4096]) - 1
+        v = random_vector(N_l, K, 990)
+        y = cf.ell_cheb_filter(form, sk, v, coeffs, inv)
+        err = float((y - cf.ell_cheb_filter_plain(form, sk, v, coeffs, inv)).abs().max())
+        runs = [timed_ms(lambda: cf.ell_cheb_filter(form, sk, v, coeffs, inv), 3) for _ in range(2)]
+        plain_ms = timed_ms(lambda: cf.ell_cheb_filter_plain(form, sk, v, coeffs, inv), 1)
+        op_item = 2 if bf16 else None
+        nbytes = spmm_bytes(sk, K, 8, operator_itemsize=op_item) + N_l * S * 4 + 4 * len(coeffs)
+        entries = N_l * BLOCK * K
+        flops = steps * (spmm_flops(sk, K) + 4 * entries) + 4 * entries * int(np.count_nonzero(coeffs[1:]))
+        row = bound_row(name, label, sk, K, min(runs), plain_ms, nbytes, flops, err, None,
+                        "none (no torch call runs a Chebyshev recursion)", runs)
+        step_bound = chebyshev_step_bytes(sk, K, 8, operator_itemsize=op_item) / HBM_BYTES_PER_S * 1e3
+        row.update(order=len(coeffs), steps=steps, plan=cf.filter_plan(N_l, K, S, bf16=bf16),
+                   ms_per_step=row["ms"] / steps, step_bound_ms=step_bound,
+                   share_of_step_bound=step_bound * steps / row["ms"])
+        emit({"phase": "lowest" if not bf16 else "bf16", "timing": name, "K": K, "ms": row["ms"],
+              "ms_per_step": row["ms_per_step"], "step_bound_ms": step_bound, "bound_ms": row["bound_ms"],
+              "bound_by": row["bound_by"], "plan": row["plan"]})
+        return row
+
+    def steps_by_width(history) -> dict:
+        widths = {}
+        for _, order, _, _, b in history:
+            widths[b] = widths.get(b, 0) + order - 1
+        return widths
+
     def phase_lowest():
         """diagonalize(method="lanczos") at 32×32 against eigvalsh on the card, the
         banded and the shift-invert solvers, and once more through the tiled step;
         at 100×100 (dim 40 000) with magnetic impurities against shift-invert and
-        with a uniform Zeeman field, bounded, against eigvalsh on the card.  After
-        each run the kernels it launched are held against their plain versions on
-        its own operator at the block widths its history reports."""
-
-        def held_at_widths(label, system, widths, tiled):
-            """The solver's kernels on ``system``'s operator at the widths the
-            filter ran (and K = 1, the spectral bound's product): ell_spmm and
-            ell_cheb_step, and with ``tiled`` stencil_cheb_step_tiled, against
-            their plain versions with the small shapes' tolerances."""
-            worst = {}
-            for K in sorted({1, *widths}):
-                ok, err = compare(system.data, system.skeleton, K, seed=900 + K)
-                check(ok, f"{label}: kernel disagrees with its plain version at K={K}: {err}")
-                if tiled:
-                    ok, err_t = compare_tiled(system.data, system.skeleton, K, seed=950 + K)
-                    check(ok, f"{label}: tiled kernel disagrees with its plain version at K={K}: {err_t}")
-                    err.update(err_t)
-                worst = {n: max(worst.get(n, 0.0), v) for n, v in err.items()}
-            # Device ms a step at each width (back-to-back launches: at N = 1024 this
-            # is the launch rate, not memory).
-            N_l = system.skeleton.n_sites
-            ms = {}
-            for K in sorted(widths):
-                t_cur, t_prev = random_vector(N_l, K, 960), random_vector(N_l, K, 961)
-                out = torch.empty_like(t_cur)
-                ms[K] = {"ell_cheb_step": timed_ms(lambda: ck.ell_cheb_step(system.data, system.skeleton, t_cur,
-                                                                            t_prev, 0.125, out=out), 200)}
-                if tiled:
-                    ms[K]["stencil_cheb_step_tiled"] = timed_ms(lambda: ck.stencil_cheb_step_tiled(
-                        system.data, system.skeleton, t_cur, t_prev, 0.125, out=out), 200)
-            emit({"phase": "lowest", "held": label, "N": N_l, "K": sorted({1, *widths}),
-                  "tolerance": "atol=rtol=2e-4 vs complex64 plain; sums 1e-4 vs complex128 plain",
-                  "max_abs_err": worst, "step_ms_by_width": ms})
+        with a uniform Zeeman field, bounded, against eigvalsh on the card.  Each
+        call's filter runs through ell_cheb_filter, one launch an application
+        (asserted against its history).  After each run the kernels it launched
+        are held against their plain versions on its own operator at the block
+        widths its history reports, and timed there."""
 
         def modulated(shape, pot):
             """s-wave lattice (Δ = 0.2, μ = 0.5, periodic) with a weak incommensurate
@@ -1962,13 +2172,28 @@ def main(argv) -> int:
                 "vs_shift_invert": float(np.abs(E_l - E_s).max()),
                 "banded_vs_eigvalsh": float(np.abs(E_b - want).max())}
         H = small.matrix("dense")
+        # The same call with its record (the one diagonalize makes: same seed,
+        # kernels that repeat bit for bit): the history its counters are held to.
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        E_rec, _, info = lz.lowest_eigenstates(small.data, small.skeleton, 2 * k + 2, full_output=True)
+        wall_rec = time.perf_counter() - t0
+        recorded = ck.launch_counts()
+        lowest_launches = {n: lowest_launches[n] + recorded[n] for n in recorded}
+        want_launches = counts(**expected_filter(small.skeleton, info["history"]), ell_spmm=60)
         emit({"phase": "lowest", "call": "32x32: diagonalize(method='lanczos', k=4)", "wall_s": wall, "E": E_l.tolist(),
               "residual_max": float(np.abs(H @ X_l - X_l * E_l).max()), **errs,
-              "launches": {n: v for n, v in launched.items() if v}, "tolerance": 1e-6})
-        check(launched["ell_cheb_step"] == 90962 and launched["ell_spmm"] == 60
-              and launched["stencil_cheb_step_tiled"] == 0, f"32x32 lanczos launched {launched} (90962 steps)")
+              "launches": {n: v for n, v in launched.items() if v}, "tolerance": 1e-6,
+              "record": {"wall_s": wall_rec, "iterations": info["iterations"], "seconds": info["seconds"],
+                         "orders": [h[1] for h in info["history"]], "blocks": [h[4] for h in info["history"]],
+                         "filter_launches": info["filter_launches"], "step_launches": info["step_launches"]}})
+        check(launched == recorded == want_launches and info["filter_launches"] == info["iterations"]
+              and launched["ell_cheb_filter"] == info["iterations"] and launched["ell_cheb_step"] == 0,
+              f"32x32 lanczos launched {launched}, its record {recorded}, the history says {want_launches}")
+        errs["record_vs_eigvalsh"] = float(np.abs(E_rec[E_rec > 0][:k] - want).max())
         check(max(errs.values()) <= 1e-6, f"32x32 lowest states disagree: {errs}")
-        untiled_steps = launched["ell_cheb_step"]
+        untiled_steps = launched["ell_cheb_filter.steps"]
+        history_32 = info["history"]
 
         # Once more with the opt-in knob: the tiled step driven by its real caller.
         os.environ["BODGE_PLANE_TILED"] = "1"
@@ -1988,13 +2213,16 @@ def main(argv) -> int:
               "orders": [h[1] for h in info["history"]], "blocks": [h[4] for h in info["history"]],
               "vs_eigvalsh": float(np.abs(E_t - want).max()), "launches": {n: v for n, v in launched.items() if v}})
         check(launched["stencil_cheb_step_tiled"] == sum(h[1] - 1 for h in info["history"])
-              and launched["ell_cheb_step"] == 0,
+              and launched["ell_cheb_step"] == 0 and launched["ell_cheb_filter"] == 0,
               f"the knob did not send the filter through the tiled step: {launched}")
         check(np.abs(E_t - want).max() <= 1e-6, "32x32 lowest states through the tiled step disagree")
         # Same seed, same adaptation: the untiled run above took these orders and widths too.
         check(untiled_steps == launched["stencil_cheb_step_tiled"],
               f"the untiled run took {untiled_steps} steps, the tiled one {launched['stencil_cheb_step_tiled']}")
         held_at_widths("32x32 modulated s-wave", small, {h[4] for h in info["history"]}, tiled=True)
+        by_width = steps_by_width(history_32)
+        rows = {"ell_cheb_filter": filter_row("ell_cheb_filter", "32x32 modulated s-wave", small,
+                                              max(by_width, key=by_width.get))}
         del small, H
 
         # The 100×100 s-wave lattice (dim 40 000, open boundaries, Δ = 0.3, μ = 0.5)
@@ -2041,13 +2269,16 @@ def main(argv) -> int:
               "orders": [h[1] for h in info["history"]], "blocks": [h[4] for h in info["history"]],
               "converged": bool(info["converged"]), "residual_max_rel": float(np.max(info["residuals"])),
               "E": E_big.tolist(), "E_shift_invert": E_si.tolist(), "abs_diff_vs_shift_invert": diff, "limit": limit,
-              "step_launches": launched["ell_cheb_step"], "derived_from_history": derived,
+              "filter_launches": launched["ell_cheb_filter"], "filter_steps": launched["ell_cheb_filter.steps"],
+              "derived_from_history": derived, "steps_by_width": steps_by_width(info["history"]),
               "seconds": info["seconds"], "host_share": info["seconds"]["host"] / wall,
               "filter_share": info["seconds"]["filter"] / wall})
-        check(launched == counts(ell_cheb_step=derived, ell_spmm=60), f"100x100 launched {launched}, derived {derived}")
+        want_launches = counts(**expected_filter(sk, info["history"]), ell_spmm=60)
+        check(launched == want_launches and launched["ell_cheb_filter.steps"] + launched["ell_cheb_step"] == derived,
+              f"100x100 launched {launched}, the history says {want_launches}")
         check(len(E_big) == k and diff <= limit,
               f"100x100 lowest states differ from shift-invert by {diff} (converged={info['converged']})")
-        held_at_widths("100x100 + six magnetic impurities", big, {h[4] for h in info["history"]}, tiled=False)
+        held_at_widths("100x100 + six magnetic impurities", big, {h[4] for h in info["history"]})
         del big, X_all
 
         # The 100×100 s-wave lattice with a uniform Zeeman field (t = 1, μ = −3,
@@ -2105,14 +2336,16 @@ def main(argv) -> int:
               "residual_max_rel": float(np.max(info["residuals"])), "E": E_uni.tolist(), "E_eigvalsh": want.tolist(),
               "abs_diff_vs_eigvalsh": diff, "limit": limit, "eigvalsh_vs_closed_form": float(np.abs(want - closed).max()),
               "positive_states_within_1e-3_of_the_lowest": cluster,
-              "step_launches": launched["ell_cheb_step"], "derived_from_history": derived,
+              "filter_launches": launched["ell_cheb_filter"], "filter_steps": launched["ell_cheb_filter.steps"],
+              "derived_from_history": derived, "steps_by_width": steps_by_width(info["history"]),
               "seconds": info["seconds"], "host_share": info["seconds"]["host"] / wall,
               "filter_share": info["seconds"]["filter"] / wall})
-        check(launched == counts(ell_cheb_step=derived, ell_spmm=60),
-              f"uniform 100x100 launched {launched}, derived {derived}")
+        want_launches = counts(**expected_filter(sk, info["history"]), ell_spmm=60)
+        check(launched == want_launches and launched["ell_cheb_filter.steps"] + launched["ell_cheb_step"] == derived,
+              f"uniform 100x100 launched {launched}, the history says {want_launches}")
         check(diff <= limit, f"uniform 100x100 lowest states differ from eigvalsh by {diff} (converged={info['converged']})")
-        held_at_widths("100x100 s-wave + uniform Zeeman", uniform, {h[4] for h in info["history"]}, tiled=False)
-        return lowest_launches, {}
+        held_at_widths("100x100 s-wave + uniform Zeeman", uniform, {h[4] for h in info["history"]})
+        return lowest_launches, rows
 
     # ------------------------------------------------------------------ 13. the row-sharded path
     def phase_sharded():
@@ -2538,10 +2771,17 @@ def main(argv) -> int:
         walls[label_l] = time.perf_counter() - t0
         per_call[label_l] = launched_since(before)
         bf16_launches = ck.launch_counts()  # read right after the path
-        lz_steps = per_call[label_l]["ell_cheb_step_bf16"]
-        check(lz_steps > 0 and per_call[label_l] == counts(ell_cheb_step_bf16=lz_steps, ell_spmm=60),
-              f"bf16 lanczos launched {per_call[label_l]}: bf16 steps and the float32 bound's 60 products only")
-        float32_forward = {n: v for n, v in bf16_launches.items() if v and not n.endswith("_bf16")}
+        # The same call with its record (same seed, kernels that repeat bit for bit):
+        # one ell_cheb_filter_bf16 launch an application, and the float32 bound's
+        # 60 products.
+        before = ck.launch_counts()
+        _, _, info16 = lz.lowest_eigenstates(small.data, small.skeleton, 2 * k + 2, full_output=True,
+                                             operator_dtype="bf16")
+        recorded = launched_since(before)
+        want16 = counts(**expected_filter(small.skeleton, info16["history"], bf16=True), ell_spmm=60)
+        check(per_call[label_l] == recorded == want16 and recorded["ell_cheb_filter_bf16"] == info16["iterations"],
+              f"bf16 lanczos launched {per_call[label_l]}, its record {recorded}, the history says {want16}")
+        float32_forward = {n: v for n, v in bf16_launches.items() if v and "_bf16" not in n}
         check(float32_forward == {"ell_spmm": 120}, f"float32 launches in the bf16 path beyond the bounds': {float32_forward}")
 
         # Held: each observable finite and of the float32 call's shape, the s-wave gap
@@ -2582,10 +2822,16 @@ def main(argv) -> int:
                   "rounded_vs_float32_spectrum": float(np.abs(want_r - want_f).max())}
         check(lowest["vs_eigvalsh_of_rounded"] <= 1e-6, f"bf16 lowest states off the rounded operator's: {lowest}")
         del rounded, E_r, E_f
+        # The filter's bf16 form on the bf16 operator at the call's widths (both
+        # modes, orders 256 and 4096), timed there, and its line of the table.
+        held_at_widths("32x32 modulated s-wave, bf16 form", small, {h[4] for h in info16["history"]}, bf16=True)
+        by_width = steps_by_width(info16["history"])
+        filter16 = filter_row("ell_cheb_filter_bf16", "32x32 modulated s-wave, bf16 form", small,
+                              max(by_width, key=by_width.get), bf16=True)
 
         # The seven bf16 instantiations at the path's shapes, each beside its
         # float32 form on the same operands: float32, bf16, bf16, float32.
-        rows, kernel_ms = {}, {}
+        rows, kernel_ms = {"ell_cheb_filter_bf16": filter16}, {}
         form = ck.bf16_operator(big.data)
         lib = "none (no torch call takes a bf16 (re, im) operator; the float32 kernel beside it is the yardstick)"
 
@@ -2724,7 +2970,10 @@ def main(argv) -> int:
             emit({"phase": "bf16", "call": label, "wall_s": walls[label], "launches": want, "K": K,
                   "device_ms_bf16_kernels": dev_ms, "busy_share": dev_ms / 1e3 / walls[label], "drift": drift[label]})
         emit({"phase": "bf16", "call": label_l, "wall_s": walls[label_l], "launches": per_call[label_l],
-              "E": E16.tolist(), **lowest, "tolerance": 1e-6})
+              "E": E16.tolist(), **lowest, "tolerance": 1e-6,
+              "record": {"iterations": info16["iterations"], "seconds": info16["seconds"],
+                         "orders": [h[1] for h in info16["history"]], "blocks": [h[4] for h in info16["history"]],
+                         "steps_by_width": steps_by_width(info16["history"])}})
         emit({"phase": "bf16", "checks": {"sharded_F_rel_vs_single": sharded_rel, "tiled_F_rel_vs_general": tiled_rel,
                                           "sharded_product_bit_equal_to_apply": sharded_product_bit_equal},
               "launches": bf16_launches, "float32_forward_launches": float32_forward})
@@ -3102,6 +3351,9 @@ def main(argv) -> int:
         "ell_cheb_step_halo": "bodge_tpu/ops/pallas_spmm.py:1219",
         "ell_spmm_adjoint_halo": "bodge_tpu/ops/pallas_spmm.py:1449",  # the halo VJPs' vector cotangent (also :1430)
         "ell_block_outer_halo": "bodge_tpu/ops/pallas_spmm.py:1449",  # the halo VJPs' operator cotangent (also :1430)
+        # The reference's filter scan over the fused step (pallas_spmm.py:468 / :1081), one launch a sweep here.
+        "ell_cheb_filter": "bodge_tpu/ops/lanczos.py:122",
+        "ell_cheb_filter_bf16": "bodge_tpu/ops/lanczos.py:122",
     }
     for name in ("ell_spmm", "ell_cheb_step", "ell_spmm_halo", "ell_cheb_step_halo", "ell_gather_spmm",
                  "ell_gather_cheb_step", "stencil_cheb_step_tiled"):
@@ -3113,12 +3365,13 @@ def main(argv) -> int:
     sources["ell_block_outer_halo"] = "bodge_tpu_torch/csrc/ell_block_outer.cu"
     sources["ell_gather_spmm_bf16"] = sources["ell_gather_cheb_step_bf16"] = "bodge_tpu_torch/csrc/ell_gather.cu"
     sources["stencil_cheb_step_tiled_bf16"] = "bodge_tpu_torch/csrc/stencil_tiled.cu"
+    sources["ell_cheb_filter"] = sources["ell_cheb_filter_bf16"] = "bodge_tpu_torch/csrc/ell_filter.cu"
     paths = {"kpm_observables": "main", "solve_gap": "gap", "generic_lattice": "generic",
              "tiled_step": "tiled", "lowest_states": "lowest", "bf16_storage": "bf16", "row_sharded": "sharded",
              "planar_entry_points": "planar"}
     kernels = []
     for name in ck.KERNELS:
-        row = next(results[p][1][name] for p in ("main", "gap", "generic", "tiled", "sharded", "bf16")
+        row = next(results[p][1][name] for p in ("main", "gap", "generic", "tiled", "sharded", "bf16", "lowest")
                    if name in results[p][1])
         by_path = {label: results[p][0][name] for label, p in paths.items()}
         kernels.append({
@@ -3127,8 +3380,11 @@ def main(argv) -> int:
             "shape": row["shape"], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            **{key: row[key] for key in ("plan", "yardstick", "yardstick_ms") if key in row},
+            **{key: row[key] for key in ("plan", "yardstick", "yardstick_ms", "order", "ms_per_step", "step_bound_ms",
+                                         "share_of_step_bound") if key in row},
         })
+        if name in ck.FILTER_KERNELS:
+            kernels[-1]["steps"] = sum(results[p][0][name + ".steps"] for p in paths.values())
         check(sum(by_path.values()) > 0, f"{name} was launched on none of the driven paths")
     print(smi, flush=True)
     emit({"kernels": kernels})
