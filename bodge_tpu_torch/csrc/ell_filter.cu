@@ -1,6 +1,8 @@
-// Chebyshev filter sweep on the block-ELL operator in one launch (sm_90a).
+// Chebyshev sweeps on the block-ELL operator in one launch (sm_90a).
 //
-//   ell_cheb_filter   y = sum_{m<M} c_m T_m(inv*H) v
+//   ell_cheb_filter    y = sum_{m<M} c_m T_m(inv*H) v
+//   ell_cheb_moments   the column sums <t_m,t_m>, <t_{m+1},t_m> of every step
+//                      of the KPM doubled-moment recursion (template flag MOMENTS)
 //
 // by the three-term recursion t_0 = v, t_1 = inv*H t_0 (the first step
 // half-scaled with t_prev = 0), t_{m+1} = 2*inv*H t_m - t_{m-1}; a zero
@@ -63,6 +65,19 @@
 // rounded (__fmul_rn, __fadd_rn: never contracted into one FMA), so the sweep
 // repeats the per-step path's result bit for bit, and the solver that adapts
 // its filter to it takes the same rounds.
+//
+// The moment sweep (MOMENTS, beside OP and REG as HALO is in ell_spmm.cu) is
+// the reference's moments_pallas_fused scan (bodge_tpu/ops/pallas_spmm.py:
+// 1547-1582) over the same fused step: the half-scaled first step (t_prev = 0)
+// and ceil((order - 2) / 2) full ones, M - 1 steps in all.  The same staged
+// rows, pair ownership, ping-pong buffers and one barrier a step; the axpy
+// into y is replaced by the step's two column sums of the owned pairs,
+// Re<t_m,t_m> and Re<t_{m+1},t_m> (ell_kernel's FMAs), which each block
+// reduces over its sites in a fixed tree in shared memory (no atomics) and
+// writes as row (m, block) of a [M - 1, grid, 2K] float32 buffer.  No
+// partial is read inside the launch, so no second barrier is needed; the
+// caller sums the rows over the grid after it.  The t_m are the per-step
+// kernel's bit for bit; the sums differ from its partials in order only.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -82,20 +97,23 @@ struct Args {
   const void* data;       // [N, S, 4, 4] complex64 or [N, S, 4, 4, 2] bf16
   const int* cols;        // [N, S], negative = padding
   const float2* v;        // [N, 4, K], t_0
-  const float* coeffs;    // [M]
+  const float* coeffs;    // [M] (the filter only)
   float2* p0;             // [N, 4, K] scratch: t_m for even m >= 2
   float2* p1;             // [N, 4, K] scratch: t_m for odd m
-  float2* y;              // [N, 4, K] the result
+  float2* y;              // [N, 4, K] the result (the filter only)
+  float* partials;        // [M - 1, grid, 2K] (the moment sweep only)
   float inv;
   int M;
   long long N;
   int S, K, SB;
 };
 
-// Bytes of shared memory a block of SB sites takes.
-size_t smem_bytes(int bf16, int SB, int S) {
+// Bytes of shared memory a block of SB sites takes; `moments` adds the
+// reduction buffer, two floats a pair.
+size_t smem_bytes(int bf16, int SB, int S, int K, bool moments) {
   const int per = bf16 ? opform::Op<uint4>::PER_BLOCK : opform::Op<float4>::PER_BLOCK;
-  return (size_t)SB * (S * per + 1) * 16 + (size_t)SB * S * sizeof(int);
+  return (size_t)SB * (S * per + 1) * 16 + (size_t)SB * S * sizeof(int) +
+         (moments ? (size_t)2 * SB * K * sizeof(float) : 0);
 }
 
 __device__ __forceinline__ void cfma(float2& acc, float dre, float dim, const float2& v) {
@@ -153,7 +171,38 @@ __device__ __forceinline__ void product(const OP* s_site, const int* s_col, cons
   }
 }
 
-template <typename OP, bool REG>
+// Step m's row of the moment sweep: the sums s_cc[p], s_nc[p] of the block's
+// pairs p = site_local * K + k (written before the call) reduced over the
+// block's sites in a fixed tree — level h adds site sl + h into site sl —
+// then written by thread k.  Entries of sites beyond the block's are never
+// read.  Ends before the row is written: the caller's grid barrier orders it
+// before the next step's writes into the buffer.
+__device__ __forceinline__ void block_column_sums(float* s_cc, float* s_nc, int sites, int K, float* row) {
+  __syncthreads();
+  int span = 1;
+  while (span < sites) span <<= 1;
+  for (int h = span >> 1; h > 0; h >>= 1) {
+    for (int p = threadIdx.x; p < h * K; p += THREADS) {
+      if (p / K + h < sites) {
+        s_cc[p] += s_cc[p + h * K];
+        s_nc[p] += s_nc[p + h * K];
+      }
+    }
+    __syncthreads();
+  }
+  for (int k = threadIdx.x; k < K; k += THREADS) {
+    row[k] = s_cc[k];
+    row[K + k] = s_nc[k];
+  }
+}
+
+// The two column sums of one entry of a pair, as ell_kernel forms them.
+__device__ __forceinline__ void pair_sums(const float2& c, const float2& nx, float& cc, float& nc) {
+  cc = fmaf(c.x, c.x, fmaf(c.y, c.y, cc));
+  nc = fmaf(nx.x, c.x, fmaf(nx.y, c.y, nc));
+}
+
+template <typename OP, bool REG, bool MOMENTS>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) ell_filter_kernel(const Args a) {
   extern __shared__ uint4 smem[];  // 16-byte aligned
   constexpr int PER = opform::Op<OP>::PER_BLOCK;
@@ -170,12 +219,15 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) ell_filter_kernel(cons
     s_op[site * stride + (i - site * S * PER)] = __ldg(g_op + i);
   }
   for (int i = threadIdx.x; i < sites * S; i += THREADS) s_cols[i] = __ldg(a.cols + (size_t)site0 * S + i);
+  float* s_cc = reinterpret_cast<float*>(s_cols + (size_t)a.SB * S);  // MOMENTS: [SB * K] each
+  float* s_nc = s_cc + (size_t)a.SB * K;
   __syncthreads();
 
   cg::grid_group grid = cg::this_grid();
   const int pairs = sites * K;
   const float two_inv = 2.0f * a.inv;
-  const float c0 = __ldg(a.coeffs);
+  float c0 = 0.f;
+  if constexpr (!MOMENTS) c0 = __ldg(a.coeffs);
 
   if constexpr (REG) {
     const int p = threadIdx.x;
@@ -188,13 +240,15 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) ell_filter_kernel(cons
     for (int r = 0; r < BLK; ++r) {
       cur[r] = own ? __ldg(a.v + base + (size_t)r * K) : make_float2(0.f, 0.f);
       prev[r] = make_float2(0.f, 0.f);
-      sum[r] = make_float2(__fmul_rn(c0, cur[r].x), __fmul_rn(c0, cur[r].y));
+      if constexpr (!MOMENTS) sum[r] = make_float2(__fmul_rn(c0, cur[r].x), __fmul_rn(c0, cur[r].y));
     }
     for (int m = 0; m + 1 < a.M; ++m) {
       const float2* t = m == 0 ? a.v : ((m & 1) ? a.p1 : a.p0);
       float2* out = (m & 1) ? a.p0 : a.p1;
-      const float c = __ldg(a.coeffs + m + 1);
+      float c = 0.f;
+      if constexpr (!MOMENTS) c = __ldg(a.coeffs + m + 1);
       const float f = m == 0 ? a.inv : two_inv;
+      float cc = 0.f, nc = 0.f;
       if (own) {
         float2 hv[BLK];
         product<OP>(s_op + sl * stride, s_cols + sl * S, t, S, K, k, hv);
@@ -204,32 +258,46 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) ell_filter_kernel(cons
           nx.x = fmaf(f, hv[r].x, -prev[r].x);
           nx.y = fmaf(f, hv[r].y, -prev[r].y);
           out[base + (size_t)r * K] = nx;
-          if (c != 0.f) sum[r] = axpy(sum[r], c, nx);
+          if constexpr (MOMENTS) {
+            pair_sums(cur[r], nx, cc, nc);
+          } else if (c != 0.f) {
+            sum[r] = axpy(sum[r], c, nx);
+          }
           prev[r] = cur[r];
           cur[r] = nx;
         }
       }
+      if constexpr (MOMENTS) {
+        if (own) {
+          s_cc[p] = cc;
+          s_nc[p] = nc;
+        }
+        block_column_sums(s_cc, s_nc, sites, K, a.partials + ((size_t)m * gridDim.x + blockIdx.x) * 2 * K);
+      }
       if (m + 2 < a.M) grid.sync();
     }
-    if (own) {
+    if (!MOMENTS && own) {
 #pragma unroll
       for (int r = 0; r < BLK; ++r) a.y[base + (size_t)r * K] = sum[r];
     }
   } else {
-    for (int p = threadIdx.x; p < pairs; p += THREADS) {
-      const int sl = p / K;
-      const size_t base = ((size_t)(site0 + sl) * BLK) * K + (p - sl * K);
+    if constexpr (!MOMENTS) {
+      for (int p = threadIdx.x; p < pairs; p += THREADS) {
+        const int sl = p / K;
+        const size_t base = ((size_t)(site0 + sl) * BLK) * K + (p - sl * K);
 #pragma unroll
-      for (int r = 0; r < BLK; ++r) {
-        const float2 x = __ldg(a.v + base + (size_t)r * K);
-        a.y[base + (size_t)r * K] = make_float2(__fmul_rn(c0, x.x), __fmul_rn(c0, x.y));
+        for (int r = 0; r < BLK; ++r) {
+          const float2 x = __ldg(a.v + base + (size_t)r * K);
+          a.y[base + (size_t)r * K] = make_float2(__fmul_rn(c0, x.x), __fmul_rn(c0, x.y));
+        }
       }
     }
     for (int m = 0; m + 1 < a.M; ++m) {
       const float2* t = m == 0 ? a.v : ((m & 1) ? a.p1 : a.p0);
       float2* out = (m & 1) ? a.p0 : a.p1;
       const float2* prev = m == 1 ? a.v : out;  // m >= 2: t_{m-1}'s own entries, overwritten below
-      const float c = __ldg(a.coeffs + m + 1);
+      float c = 0.f;
+      if constexpr (!MOMENTS) c = __ldg(a.coeffs + m + 1);
       const float f = m == 0 ? a.inv : two_inv;
       for (int p = threadIdx.x; p < pairs; p += THREADS) {
         const int sl = p / K;
@@ -237,6 +305,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) ell_filter_kernel(cons
         const size_t base = ((size_t)(site0 + sl) * BLK) * K + k;
         float2 hv[BLK];
         product<OP>(s_op + sl * stride, s_cols + sl * S, t, S, K, k, hv);
+        float cc = 0.f, nc = 0.f;
 #pragma unroll
         for (int r = 0; r < BLK; ++r) {
           const size_t o = base + (size_t)r * K;
@@ -245,23 +314,33 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) ell_filter_kernel(cons
           float2 nx;
           nx.x = fmaf(f, hv[r].x, -pr.x);
           nx.y = fmaf(f, hv[r].y, -pr.y);
+          if constexpr (MOMENTS) pair_sums(t[o], nx, cc, nc);  // the owner's own entries of t_m
           out[o] = nx;
-          if (c != 0.f) a.y[o] = axpy(a.y[o], c, nx);
+          if constexpr (!MOMENTS) {
+            if (c != 0.f) a.y[o] = axpy(a.y[o], c, nx);
+          }
+        }
+        if constexpr (MOMENTS) {
+          s_cc[p] = cc;
+          s_nc[p] = nc;
         }
       }
+      if constexpr (MOMENTS)
+        block_column_sums(s_cc, s_nc, sites, K, a.partials + ((size_t)m * gridDim.x + blockIdx.x) * 2 * K);
       if (m + 2 < a.M) grid.sync();
     }
   }
 }
 
-template <typename OP, bool REG>
+template <typename OP, bool REG, bool MOMENTS>
 void* kernel_of() {
-  return reinterpret_cast<void*>(&ell_filter_kernel<OP, REG>);
+  return reinterpret_cast<void*>(&ell_filter_kernel<OP, REG, MOMENTS>);
 }
 
+template <bool MOMENTS>
 void* pick(int bf16, int registers) {
-  if (bf16) return registers ? kernel_of<uint4, true>() : kernel_of<uint4, false>();
-  return registers ? kernel_of<float4, true>() : kernel_of<float4, false>();
+  if (bf16) return registers ? kernel_of<uint4, true, MOMENTS>() : kernel_of<uint4, false, MOMENTS>();
+  return registers ? kernel_of<float4, true, MOMENTS>() : kernel_of<float4, false, MOMENTS>();
 }
 
 cudaError_t allow_smem(void* kernel, size_t smem) {
@@ -269,18 +348,48 @@ cudaError_t allow_smem(void* kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-}  // namespace
-
-// Blocks of the filter kernel one SM holds at `smem` bytes of dynamic shared
-// memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the bytes a
-// block of SB sites takes: what the caller's plan sizes the grid with.
-extern "C" int ell_cheb_filter_occupancy(int bf16, int registers, int SB, int S, int* blocks, long long* smem) {
-  if (SB < 1 || S < 1 || blocks == nullptr || smem == nullptr) return (int)cudaErrorInvalidValue;
-  *smem = (long long)smem_bytes(bf16, SB, S);
-  void* kernel = pick(bf16, registers);
+template <bool MOMENTS>
+int occupancy(int bf16, int registers, int SB, int S, int K, int* blocks, long long* smem) {
+  if (SB < 1 || S < 1 || K < 1 || blocks == nullptr || smem == nullptr) return (int)cudaErrorInvalidValue;
+  *smem = (long long)smem_bytes(bf16, SB, S, K, MOMENTS);
+  void* kernel = pick<MOMENTS>(bf16, registers);
   cudaError_t err = allow_smem(kernel, (size_t)*smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, THREADS, (size_t)*smem);
+}
+
+template <bool MOMENTS>
+int launch(const Args& args, int bf16, int registers, void* stream) {
+  const long long N = args.N;
+  const int S = args.S, K = args.K, SB = args.SB;
+  if (N < 1 || S < 1 || K < 1 || args.M < (MOMENTS ? 2 : 1) || SB < 1 ||
+      (registers && (long long)SB * K > THREADS))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (N + SB - 1) / SB;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(bf16, SB, S, K, MOMENTS);
+  void* kernel = pick<MOMENTS>(bf16, registers);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  Args copy = args;
+  void* params[] = {&copy};
+  err = cudaLaunchCooperativeKernel(kernel, dim3((unsigned)blocks), dim3(THREADS), params, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Blocks of the filter kernel (moments == 0) or the moment kernel one SM
+// holds at the dynamic shared memory a block of SB sites takes
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and those bytes: what the
+// caller's plan sizes the grid with.  K counts only for the moment kernel,
+// whose reduction buffer grows with it.
+extern "C" int ell_cheb_sweep_occupancy(int moments, int bf16, int registers, int SB, int S, int K, int* blocks,
+                                        long long* smem) {
+  return moments ? occupancy<true>(bf16, registers, SB, S, K, blocks, smem)
+                 : occupancy<false>(bf16, registers, SB, S, 1, blocks, smem);
 }
 
 // One sweep: ceil(N / SB) blocks of THREADS threads, each SB sites, on the
@@ -292,19 +401,19 @@ extern "C" int ell_cheb_filter_occupancy(int bf16, int registers, int SB, int S,
 extern "C" int ell_cheb_filter_launch(const void* data, int bf16, const void* cols, const void* v,
                                       const void* coeffs, int M, float inv, void* p0, void* p1, void* y,
                                       long long N, int S, int K, int SB, int registers, void* stream) {
-  if (N < 1 || S < 1 || K < 1 || M < 1 || SB < 1 || (registers && (long long)SB * K > THREADS))
-    return (int)cudaErrorInvalidValue;
-  const long long blocks = (N + SB - 1) / SB;
-  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(bf16, SB, S);
-  void* kernel = pick(bf16, registers);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  Args args = {data, (const int*)cols, (const float2*)v, (const float*)coeffs, (float2*)p0, (float2*)p1,
-               (float2*)y, inv, M, N, S, K, SB};
-  void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel(kernel, dim3((unsigned)blocks), dim3(THREADS), params, smem,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const Args args = {data, (const int*)cols, (const float2*)v, (const float*)coeffs, (float2*)p0, (float2*)p1,
+                     (float2*)y, nullptr, inv, M, N, S, K, SB};
+  return launch<false>(args, bf16, registers, stream);
+}
+
+// One moment sweep of `steps` >= 1 fused steps (the half-scaled first one
+// included), as the filter's launch: p0 and p1 are scratch vectors (p0 unused
+// when steps == 1), `partials` the caller's [steps, ceil(N / SB), 2K]
+// float32 buffer, every entry of which is written.
+extern "C" int ell_cheb_moments_launch(const void* data, int bf16, const void* cols, const void* v, int steps,
+                                       float inv, void* p0, void* p1, void* partials, long long N, int S, int K,
+                                       int SB, int registers, void* stream) {
+  const Args args = {data, (const int*)cols, (const float2*)v, nullptr, (float2*)p0, (float2*)p1,
+                     nullptr, (float*)partials, inv, steps + 1, N, S, K, SB};
+  return launch<true>(args, bf16, registers, stream);
 }

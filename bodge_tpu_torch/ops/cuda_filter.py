@@ -1,4 +1,5 @@
-"""The Chebyshev filter sweep in one launch, with its plain version.
+"""The Chebyshev filter sweep and the KPM moment sweep in one launch each, with
+their plain versions.
 
 :func:`ell_cheb_filter` computes ``y = Σ_{m<M} c_m T_m(inv·H) v`` — the
 filter of the lowest-states solver (:mod:`.lanczos`) — by the three-term
@@ -29,6 +30,24 @@ Counters: ``ell_cheb_filter.launches`` (one a sweep) and
 ``ell_cheb_filter.steps`` (Σ(order − 1)), and the same pair on the bf16
 instantiation :func:`ell_cheb_filter_bf16`;
 :func:`~bodge_tpu_torch.ops.cuda_spmm.launch_counts` reads all four.
+
+:func:`ell_cheb_moments` is the same kernel under its ``MOMENTS`` flag: the
+whole doubled-moment recursion of
+:func:`~bodge_tpu_torch.ops.cuda_spmm.moments_fused` — the half-scaled first
+step and ``ceil((order − 2) / 2)`` full ones — in one launch, the counterpart
+of the reference's ``moments_pallas_fused`` scan
+(``bodge_tpu/ops/pallas_spmm.py:1547-1582``).  In place of the filter's axpy
+each step forms the two column sums of its owned pairs, each block reduces
+them over its sites in a fixed tree in shared memory and writes one row a step
+into a ``[steps, grid, 2K]`` float32 buffer, summed over the grid after the
+launch.  :func:`moments_plan` is :func:`filter_plan` with that reduction
+buffer (two floats a pair) in each block's shared memory and the partials
+buffer at most :data:`MOMENTS_PARTIALS_CAP`; where no plan fits, ``"per_step"``,
+and ``moments_fused`` launches one step at a time there.  Its counters are
+``ell_cheb_moments.launches`` (one a sweep) and ``ell_cheb_moments.steps``
+(the fused steps the launch ran, ``1 + ceil((order − 2) / 2)``: the
+``ell_cheb_step`` launches it stands for), and the same on
+:func:`ell_cheb_moments_bf16`.
 """
 
 from __future__ import annotations
@@ -49,12 +68,14 @@ FILTER_BLOCKS_PER_SM = 4  # __launch_bounds__(256, 4): at most 64 registers a th
 # Shared memory a block may stage so that four blocks fit an SM.
 FILTER_SMEM_CAP = ck.SM_SHARED // FILTER_BLOCKS_PER_SM - ck.BLOCK_RESERVED
 MODES = ("registers", "global")
+MOMENTS_PARTIALS_CAP = 1 << 28  # bytes of a moment sweep's [steps, grid, 2K] float32 partials, at most
 
 
-def _site_bytes(S: int, bf16: bool) -> int:
+def _site_bytes(S: int, bf16: bool, K: int = 0) -> int:
     """Shared memory a staged site takes: its S blocks (8 float4 each, 4 uint4
-    in the bf16 form), a 16-byte pad, and its S column indices."""
-    return (S * (4 if bf16 else 8) + 1) * 16 + 4 * S
+    in the bf16 form), a 16-byte pad, its S column indices and, for the
+    moment sweep (``K`` > 0), the reduction buffer of its K pairs."""
+    return (S * (4 if bf16 else 8) + 1) * 16 + 4 * S + 8 * K
 
 
 def filter_plan(N: int, K: int, S: int, *, bf16: bool = False, mode: Optional[str] = None,
@@ -74,36 +95,65 @@ def filter_plan(N: int, K: int, S: int, *, bf16: bool = False, mode: Optional[st
     (no kernel plan fits: the caller runs one step launch an order); a named
     mode that does not fit raises ``ValueError``.  ``sms`` defaults to the
     card's SM count (132 without one)."""
+    return _plan("filter", N, K, S, bf16, mode, sms, moments_steps=0)
+
+
+def moments_plan(N: int, K: int, S: int, order: int, *, bf16: bool = False, mode: Optional[str] = None,
+                 sms: Optional[int] = None) -> dict:
+    """Launch plan of :func:`ell_cheb_moments` for a sweep of ``order``
+    moments: :func:`filter_plan`'s, with each block's reduction buffer (two
+    floats a pair, ``8·K`` bytes a site) counted against
+    :data:`FILTER_SMEM_CAP`, and with ``"steps"`` (``1 + ceil((order − 2) /
+    2)``) and ``"partials_bytes"`` (``steps × grid × 2K`` float32) besides.  A
+    plan whose partials exceed :data:`MOMENTS_PARTIALS_CAP` does not fit:
+    ``mode=None`` then answers ``"per_step"``, a named mode raises."""
+    order = int(order)
+    if order < 1:
+        raise ValueError(f"moments_plan needs order >= 1, got {order}")
+    return _plan("moment", N, K, S, bf16, mode, sms, moments_steps=ck.sweep_launches(order))
+
+
+def _plan(what: str, N: int, K: int, S: int, bf16: bool, mode: Optional[str], sms: Optional[int],
+          moments_steps: int) -> dict:
     N, K, S = int(N), int(K), int(S)
     if N < 1 or K < 1 or S < 1:
-        raise ValueError(f"filter_plan needs N, K, S >= 1, got {N}, {K}, {S}")
+        raise ValueError(f"{what} plan needs N, K, S >= 1, got {N}, {K}, {S}")
     if mode not in (None, *MODES):
         raise ValueError(f"mode {mode!r}: None, 'registers' or 'global'")
     sms = ck.sm_count() if sms is None else int(sms)
     slots = FILTER_BLOCKS_PER_SM * sms
-    most = FILTER_SMEM_CAP // _site_bytes(S, bf16)  # sites a block may stage
+    site = _site_bytes(S, bf16, K if moments_steps else 0)
+    most = FILTER_SMEM_CAP // site  # sites a block may stage
+
+    def partials_fit(sb):
+        return moments_steps * -(-N // sb) * 2 * K * 4 <= MOMENTS_PARTIALS_CAP
+
     fits = {}
     if K <= FILTER_THREADS:
         sb = min(FILTER_THREADS // K, -(-N // sms), most)
-        if -(-N // sb) <= slots:
+        if sb >= 1 and -(-N // sb) <= slots and partials_fit(sb):
             fits["registers"] = sb
     sb = -(-N // slots)
-    if sb <= most:
+    if sb <= most and partials_fit(sb):
         fits["global"] = sb
     if mode is None:
         mode = next((m for m in MODES if m in fits), "per_step")
     elif mode not in fits:
-        raise ValueError(f"the filter kernel's {mode} mode does not fit N = {N}, K = {K}, S = {S} "
-                         f"on {sms} SMs ({slots} blocks of {FILTER_THREADS} threads, {most} sites a block)")
+        raise ValueError(f"the {what} kernel's {mode} mode does not fit N = {N}, K = {K}, S = {S} "
+                         f"on {sms} SMs ({slots} blocks of {FILTER_THREADS} threads, {most} sites a block"
+                         + (f", {moments_steps} steps of partials)" if moments_steps else ")"))
+    extra = {"steps": moments_steps, "partials_bytes": 0} if moments_steps else {}
     if mode == "per_step":
         return {"mode": mode, "grid": 0, "threads": 0, "sites_per_block": 0, "pairs_per_thread": 0,
-                "smem_bytes": 0, "lanes_used": 0.0}
+                "smem_bytes": 0, "lanes_used": 0.0, **extra}
     sb = fits[mode]
     grid = -(-N // sb)
     per_thread = -(-sb * K // FILTER_THREADS)
+    if moments_steps:
+        extra["partials_bytes"] = moments_steps * grid * 2 * K * 4
     return {"mode": mode, "grid": grid, "threads": FILTER_THREADS, "sites_per_block": sb,
-            "pairs_per_thread": per_thread, "smem_bytes": sb * _site_bytes(S, bf16),
-            "lanes_used": N * K / (grid * FILTER_THREADS * per_thread)}
+            "pairs_per_thread": per_thread, "smem_bytes": sb * site,
+            "lanes_used": N * K / (grid * FILTER_THREADS * per_thread), **extra}
 
 
 def _coefficients(coeffs) -> list:
@@ -127,21 +177,46 @@ def ell_cheb_filter_plain(data, sk: Skeleton, v, coeffs, inv: float):
 
 
 @functools.lru_cache(maxsize=64)
-def _occupancy(device: int, bf16: bool, registers: bool, sb: int, S: int) -> int:
+def _occupancy(device: int, moments: bool, bf16: bool, registers: bool, sb: int, S: int, K: int) -> int:
     blocks, smem = ctypes.c_int(0), ctypes.c_longlong(0)
     with torch.cuda.device(device):
-        err = ck._library().ell_cheb_filter_occupancy(int(bf16), int(registers), sb, S, ctypes.byref(blocks),
-                                                      ctypes.byref(smem))
-    ck._raise_on(err, "ell_cheb_filter_occupancy")
+        err = ck._library().ell_cheb_sweep_occupancy(int(moments), int(bf16), int(registers), sb, S, K,
+                                                     ctypes.byref(blocks), ctypes.byref(smem))
+    ck._raise_on(err, "ell_cheb_sweep_occupancy")
     return blocks.value
 
 
-def filter_occupancy(plan: dict, S: int, *, bf16: bool = False) -> int:
+def occupancy(plan: dict, S: int, K: int = 1, *, bf16: bool = False, moments: bool = False) -> int:
     """Blocks of the plan's kernel one SM of the current card holds
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the plan's shared
-    memory): what :func:`filter_plan` assumes to be :data:`FILTER_BLOCKS_PER_SM`."""
-    return _occupancy(torch.cuda.current_device(), bool(bf16), plan["mode"] == "registers",
-                      plan["sites_per_block"], int(S))
+    memory): what :func:`filter_plan` and :func:`moments_plan` assume to be
+    :data:`FILTER_BLOCKS_PER_SM`.  ``moments`` asks for the moment kernel,
+    whose reduction buffer grows with ``K`` (the filter's does not depend on it)."""
+    return _occupancy(torch.cuda.current_device(), bool(moments), bool(bf16), plan["mode"] == "registers",
+                      plan["sites_per_block"], int(S), int(K) if moments else 1)
+
+
+def _launch_sweep(counter, plan: dict, v, S: int, K: int, bf16: bool, steps: int, launch) -> None:
+    """What the two wrappers share: refuse a ``"per_step"`` plan and a grid
+    larger than the card holds at once, call ``launch(p0, p1, stream)`` with
+    the two scratch vectors of the sweep on ``v``'s device, raise on its
+    error, and count the launch and its ``steps`` on ``counter``."""
+    moments = counter in (ell_cheb_moments, ell_cheb_moments_bf16)
+    name = "moment" if moments else "filter"
+    if plan["mode"] == "per_step":
+        raise ValueError(f"no plan of the {name} kernel fits N = {v.shape[0]}, K = {K}, S = {S}"
+                         + (f", {steps} steps" if moments else "")
+                         + f" ({'moments_fused' if moments else 'filter_sweep'} runs the per-step path there)")
+    with torch.cuda.device(v.device):
+        held = occupancy(plan, S, K, bf16=bf16, moments=moments) * ck.sm_count()
+        if plan["grid"] > held:
+            raise RuntimeError(f"{counter.__name__}: the plan's {plan['grid']} blocks exceed the {held} the card "
+                               f"holds at once ({FILTER_BLOCKS_PER_SM} an SM assumed)")
+        scratch = torch.empty((2, *v.shape), dtype=v.dtype, device=v.device)
+        err = launch(scratch[0].data_ptr(), scratch[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
+    ck._raise_on(err, counter.__name__)
+    counter.launches += 1
+    counter.steps += steps
 
 
 def ell_cheb_filter(data, sk: Skeleton, v, coeffs, inv: float, *, mode: Optional[str] = None,
@@ -161,27 +236,14 @@ def ell_cheb_filter(data, sk: Skeleton, v, coeffs, inv: float, *, mode: Optional
         return ell_cheb_filter_plain(data, sk, v, coeffs, inv)
     N, S, K, bf16 = ck._check_forward(data, sk, v)
     plan = filter_plan(N, K, S, bf16=bf16, mode=mode, sms=ck.sm_count())
-    if plan["mode"] == "per_step":
-        raise ValueError(f"no plan of the filter kernel fits N = {N}, K = {K}, S = {S} "
-                         "(filter_sweep runs the per-step path there)")
-    with torch.cuda.device(v.device):
-        held = filter_occupancy(plan, S, bf16=bf16) * ck.sm_count()
-        if plan["grid"] > held:
-            raise RuntimeError(f"ell_cheb_filter: the plan's {plan['grid']} blocks exceed the {held} the card "
-                               f"holds at once ({FILTER_BLOCKS_PER_SM} an SM assumed)")
-        c = torch.tensor(coeffs, dtype=torch.float32).to(v.device)
-        y = torch.empty_like(v)
-        scratch = torch.empty((2, *v.shape), dtype=v.dtype, device=v.device)
-        err = ck._library().ell_cheb_filter_launch(
+    c = torch.tensor(coeffs, dtype=torch.float32).to(v.device)
+    y = torch.empty_like(v)
+    _launch_sweep(
+        ell_cheb_filter_bf16 if bf16 else ell_cheb_filter, plan, v, S, K, bf16, len(coeffs) - 1,
+        lambda p0, p1, stream: ck._library().ell_cheb_filter_launch(
             data.data_ptr(), int(bf16), sk.device_cols(v.device).data_ptr(), v.data_ptr(), c.data_ptr(),
-            len(coeffs), float(inv), scratch[0].data_ptr(), scratch[1].data_ptr(), y.data_ptr(),
-            N, S, K, plan["sites_per_block"], int(plan["mode"] == "registers"),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    counter = ell_cheb_filter_bf16 if bf16 else ell_cheb_filter
-    ck._raise_on(err, counter.__name__)
-    counter.launches += 1
-    counter.steps += len(coeffs) - 1
+            len(coeffs), float(inv), p0, p1, y.data_ptr(), N, S, K, plan["sites_per_block"],
+            int(plan["mode"] == "registers"), stream))
     return y
 
 
@@ -198,3 +260,69 @@ def ell_cheb_filter_bf16(data, sk: Skeleton, v, coeffs, inv: float, *, mode: Opt
 
 ell_cheb_filter_bf16.launches = 0
 ell_cheb_filter_bf16.steps = 0
+
+
+def ell_cheb_moments_plain(data, sk: Skeleton, v0, inv: float, order: int):
+    """Plain version of :func:`ell_cheb_moments`: the per-step recursion of
+    :func:`~bodge_tpu_torch.ops.cuda_spmm.ell_cheb_step_plain` with its column
+    sums (any device, complex64 or complex128, either operator form), the
+    operator brought into the batched product's form once a sweep, as the
+    kernel stages it once.  ``[order, K]`` real moments."""
+    order = int(order)
+    if order < 1:
+        raise ValueError(f"order must be >= 1, got {order}")
+    A = batched_operator(ck.operator_values(data, v0.dtype), sk)
+
+    def step(t_cur, t_prev, scale, out):
+        return ck.cheb_tail_plain(spmm_batched(A, sk, t_cur), t_cur, t_prev, scale)
+
+    return ck.moment_recursion(step, v0, inv, order)
+
+
+def ell_cheb_moments(data, sk: Skeleton, v0, inv: float, order: int, *, mode: Optional[str] = None,
+                     impl: Optional[str] = None):
+    """KPM moments ``μ_m[k] = Re⟨v0_k|T_m(inv·H)|v0_k⟩``, ``[order, K]``
+    float32, in one launch of the moment kernel.
+
+    The same recursion and result as
+    :func:`~bodge_tpu_torch.ops.cuda_spmm.moments_fused` on the general step:
+    ``1 + ceil((order − 2) / 2)`` fused steps (one for ``order`` ≤ 2), then
+    one sum of the partials over the grid and the doubled-moment assembly.
+    ``mode`` forces ``"registers"`` or ``"global"`` (:func:`moments_plan`;
+    ``None`` lets the plan choose, and raises where it answers
+    ``"per_step"``).  On a CUDA tensor this launches the kernel or raises
+    (refused launch, a grid larger than the card holds); on a CPU tensor, or
+    with ``impl="plain"``, it runs :func:`ell_cheb_moments_plain`.  ``data``
+    in the bf16 form launches the bf16 instantiation, counted as
+    :func:`ell_cheb_moments_bf16`."""
+    order = int(order)
+    if order < 1:
+        raise ValueError(f"order must be >= 1, got {order}")
+    if ck._resolve(impl, v0) == "plain":
+        return ell_cheb_moments_plain(data, sk, v0, inv, order)
+    N, S, K, bf16 = ck._check_forward(data, sk, v0)
+    plan = moments_plan(N, K, S, order, bf16=bf16, mode=mode, sms=ck.sm_count())
+    steps = plan["steps"]
+    partials = torch.empty((steps, plan["grid"], 2 * K), dtype=torch.float32, device=v0.device)
+    _launch_sweep(
+        ell_cheb_moments_bf16 if bf16 else ell_cheb_moments, plan, v0, S, K, bf16, steps,
+        lambda p0, p1, stream: ck._library().ell_cheb_moments_launch(
+            data.data_ptr(), int(bf16), sk.device_cols(v0.device).data_ptr(), v0.data_ptr(), steps, float(inv),
+            p0, p1, partials.data_ptr(), N, S, K, plan["sites_per_block"], int(plan["mode"] == "registers"),
+            stream))
+    return ck.moments_from_sums(partials.sum(dim=1), K, order)
+
+
+ell_cheb_moments.launches = 0
+ell_cheb_moments.steps = 0
+
+
+def ell_cheb_moments_bf16(data, sk: Skeleton, v0, inv: float, order: int, *, mode: Optional[str] = None,
+                          impl: Optional[str] = None):
+    """:func:`ell_cheb_moments` with the operator in the bf16 form, which it requires."""
+    ck._require_bf16(data, "ell_cheb_moments_bf16")
+    return ell_cheb_moments(data, sk, v0, inv, order, mode=mode, impl=impl)
+
+
+ell_cheb_moments_bf16.launches = 0
+ell_cheb_moments_bf16.steps = 0

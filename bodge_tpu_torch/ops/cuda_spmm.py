@@ -77,9 +77,10 @@ The tiled step, in ``csrc/stencil_tiled.cu``:
   ``impl=None`` on stencil skeletons.
 
 The kernels for generic skeletons (a sliding window of relabelled vector rows
-in shared memory) live in :mod:`.cuda_gather`, the filter sweep of the
+in shared memory) live in :mod:`.cuda_gather`; the filter sweep of the
 lowest-states solver as one launch (:func:`filter_sweep` on the general step)
-in :mod:`.cuda_filter`.
+and the KPM moment sweep as one launch (:func:`moments_fused` on the general
+step, where a plan fits) in :mod:`.cuda_filter`.
 
 Halo forms, for one x-slab of a row-sharded lattice (:class:`HaloSlab`;
 the exchange that fills the halo planes lives in
@@ -149,8 +150,10 @@ KERNELS = ("ell_spmm", "ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer",
            "ell_spmm_halo", "ell_cheb_step_halo", "ell_spmm_adjoint_halo", "ell_block_outer_halo",
            "ell_spmm_bf16", "ell_cheb_step_bf16", "ell_spmm_halo_bf16", "ell_cheb_step_halo_bf16",
            "ell_gather_spmm_bf16", "ell_gather_cheb_step_bf16", "stencil_cheb_step_tiled_bf16",
-           "ell_cheb_filter", "ell_cheb_filter_bf16")
-FILTER_KERNELS = ("ell_cheb_filter", "ell_cheb_filter_bf16")  # they also count their steps, "<name>.steps"
+           "ell_cheb_filter", "ell_cheb_filter_bf16", "ell_cheb_moments", "ell_cheb_moments_bf16")
+FILTER_KERNELS = ("ell_cheb_filter", "ell_cheb_filter_bf16")
+MOMENT_KERNELS = ("ell_cheb_moments", "ell_cheb_moments_bf16")
+SWEEP_KERNELS = FILTER_KERNELS + MOMENT_KERNELS  # one launch a sweep: they also count their steps, "<name>.steps"
 PAD_COLUMN = -(2 ** 31)  # padding in a slab's column table (below every halo index)
 
 
@@ -396,7 +399,8 @@ def _library():
             "stencil_cheb_step_tiled_launch": (
                 tiled, [p, i, p, p, p, p, f, i, i, i, i, i, i, i, i, i, i, i, ip, ip, p]),
             "ell_cheb_filter_launch": (filt, [p, i, p, p, p, i, f, p, p, p, ll, i, i, i, i, p]),
-            "ell_cheb_filter_occupancy": (filt, [i, i, i, i, ip, llp]),
+            "ell_cheb_moments_launch": (filt, [p, i, p, p, i, f, p, p, p, ll, i, i, i, i, p]),
+            "ell_cheb_sweep_occupancy": (filt, [i, i, i, i, i, i, ip, llp]),
         }
         bound = SimpleNamespace()
         for name, (lib, argtypes) in signatures.items():
@@ -1247,7 +1251,7 @@ ell_block_outer_halo.launches = 0
 
 
 def _wrappers():
-    from .cuda_filter import ell_cheb_filter, ell_cheb_filter_bf16
+    from .cuda_filter import ell_cheb_filter, ell_cheb_filter_bf16, ell_cheb_moments, ell_cheb_moments_bf16
     from .cuda_gather import (ell_gather_cheb_step, ell_gather_cheb_step_bf16, ell_gather_spmm,
                               ell_gather_spmm_bf16)
 
@@ -1256,22 +1260,23 @@ def _wrappers():
             ell_spmm_halo, ell_cheb_step_halo, ell_spmm_adjoint_halo, ell_block_outer_halo,
             ell_spmm_bf16, ell_cheb_step_bf16, ell_spmm_halo_bf16, ell_cheb_step_halo_bf16,
             ell_gather_spmm_bf16, ell_gather_cheb_step_bf16, stencil_cheb_step_tiled_bf16,
-            ell_cheb_filter, ell_cheb_filter_bf16)
+            ell_cheb_filter, ell_cheb_filter_bf16, ell_cheb_moments, ell_cheb_moments_bf16)
 
 
 def launch_counts() -> dict:
     """``{kernel name: launches so far}`` for every kernel of the port, in the
     order of :data:`KERNELS`, then ``{"<name>.steps": steps so far}`` for the
-    filter kernels (:data:`FILTER_KERNELS`: Σ(order − 1) over their launches)."""
+    one-launch sweeps (:data:`SWEEP_KERNELS`: the filter kernels' Σ(order − 1),
+    the moment kernels' Σ(1 + ceil((order − 2) / 2)) over their launches)."""
     fns = _wrappers()
     return {**{fn.__name__: fn.launches for fn in fns},
-            **{f"{fn.__name__}.steps": fn.steps for fn in fns if fn.__name__ in FILTER_KERNELS}}
+            **{f"{fn.__name__}.steps": fn.steps for fn in fns if fn.__name__ in SWEEP_KERNELS}}
 
 
 def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
-        if fn.__name__ in FILTER_KERNELS:
+        if fn.__name__ in SWEEP_KERNELS:
             fn.steps = 0
 
 
@@ -1762,8 +1767,25 @@ def moments_from_sums(sums, K: int, order: int):
 # The doubled-moment recursion over the fused step.
 # --------------------------------------------------------------------------
 def sweep_launches(order: int) -> int:
-    """Fused-step launches of one moment sweep: ``1 + ceil((order − 2) / 2)``."""
+    """Fused steps of one moment sweep, ``1 + ceil((order − 2) / 2)``: the
+    per-step path's launches, the moment kernel's ``.steps``."""
     return 1 + max(0, (order - 2 + 1) // 2)
+
+
+def moments_mode(plan: StepPlan, data, K: int, order: int) -> str:
+    """How :func:`moments_fused` runs on ``plan`` at ``K`` columns:
+    ``"registers"`` or ``"global"`` (one launch of the moment kernel,
+    :func:`~bodge_tpu_torch.ops.cuda_filter.moments_plan`), ``"per_step"``
+    (one step launch a fused step: the gather and tiled steps, and the general
+    step where no moment plan fits) or ``"plain"``."""
+    if plan.backend == "plain":
+        return "plain"
+    if plan.kind != "ell":
+        return "per_step"
+    from .cuda_filter import moments_plan
+
+    N, S = plan.sk.cols.shape
+    return moments_plan(N, K, S, order, bf16=is_bf16_operator(data), sms=sm_count())["mode"]
 
 
 def moments_fused(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optional[str] = None,
@@ -1775,11 +1797,16 @@ def moments_fused(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optio
     μ1; then ``ceil((order−2)/2)`` steps each give two moments through
     ``μ_{2m} = 2⟨t_m,t_m⟩ − μ0`` and ``μ_{2m+1} = 2⟨t_{m+1},t_m⟩ − μ1``.
 
-    The scan is a Python loop of launches with no host synchronisation: the
-    reduced partials stay on the device and are stacked at the end.  With the
-    kernel, a complex128 operator or probe is cast down to complex64 first,
-    and from the third step on ``t_next`` overwrites the ``t_prev`` buffer,
-    so three vectors exist in all (``v0`` is never written).
+    On the general step on the card (``plan.kind == "ell"``) where a moment
+    plan fits (:func:`moments_mode`), the whole scan is one launch of
+    :func:`~bodge_tpu_torch.ops.cuda_filter.ell_cheb_moments` and one sum of
+    its partials.  Otherwise — the gather and tiled steps, the plain versions,
+    lattices too large for a plan — it is a Python loop of step launches with
+    no host synchronisation: the reduced partials stay on the device and are
+    stacked at the end.  With the kernels, a complex128 operator or probe is
+    cast down to complex64 first, and from the third step on ``t_next``
+    overwrites the ``t_prev`` buffer, so three vectors exist in all (``v0`` is
+    never written).
 
     ``impl`` is a name of :data:`PATHS`, ``None`` (:func:`resolve_path`
     chooses) or a :class:`StepPlan`; ``data`` and ``v0`` come in the original
@@ -1792,24 +1819,33 @@ def moments_fused(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optio
     plan = impl if isinstance(impl, StepPlan) else StepPlan(sk, K, impl, v0, operator_dtype)
     data, v0 = plan.operator(data), plan.enter(v0)
     inv = float(inv)
+    if moments_mode(plan, data, K, order) in ("registers", "global"):
+        from .cuda_filter import ell_cheb_moments
 
-    t1, pp0 = plan.step(data, v0, None, 0.5 * inv)
-    first = pp0.sum(dim=0)
-    mu0, mu1 = first[:K], first[K:]
+        return ell_cheb_moments(data, plan.sk, v0, inv, order, impl="cuda")
 
-    steps = max(0, (order - 2 + 1) // 2)
-    if steps == 0:
-        return torch.stack([mu0, mu1])[:order]
+    def step(t_cur, t_prev, scale, out):
+        return plan.step(data, t_cur, t_prev, scale, out=out)
 
-    t_prev, t_cur = v0, t1
-    sums = []
-    for i in range(steps):
-        out = t_prev if (plan.backend == "cuda" and i > 0) else None  # i == 0: t_prev is the caller's v0
-        t_next, pp = plan.step(data, t_cur, t_prev, inv, out=out)
+    return moment_recursion(step, v0, inv, order)
+
+
+def moment_recursion(step, v0, inv: float, order: int):
+    """The doubled-moment recursion one ``step`` a fused step:
+    ``step(t_cur, t_prev, scale, out)`` returns ``(2·scale·H t_cur − t_prev,
+    partials[rows, 2K])`` (``t_prev=None`` means zero), written into ``out``
+    where it is not ``None`` and the step takes it.  The first step is
+    half-scaled; from the third on ``t_next`` goes into ``t_prev``'s buffer
+    (the caller's ``v0`` is never written).  Each step's partials are reduced
+    on the device and stacked at the end: ``[order, K]`` moments."""
+    inv = float(inv)
+    t_cur, pp = step(v0, None, 0.5 * inv, None)
+    sums, t_prev = [pp.sum(dim=0)], v0
+    for i in range(sweep_launches(order) - 1):
+        t_next, pp = step(t_cur, t_prev, inv, t_prev if i > 0 else None)  # i == 0: t_prev is the caller's v0
         sums.append(pp.sum(dim=0))
         t_prev, t_cur = t_cur, t_next
-    sums = torch.stack(sums)  # [steps, 2K]
-    return _assemble_moments(mu0, mu1, sums, K)[:order]
+    return moments_from_sums(torch.stack(sums), v0.shape[-1], order)
 
 
 def _assemble_moments(mu0, mu1, sums, K: int):

@@ -9,7 +9,9 @@ It builds the CUDA kernels from ``bodge_tpu_torch/csrc`` into ``build/``,
 holds each kernel against its plain PyTorch version on the card, drives eight
 paths through the normal entry points at full size — the KPM observables
 (assemble → block SpMM → fused Chebyshev step → free energy / LDOS / LDOS map
-/ DOS / apply, on 1000×1000 sites), the differentiable path (``solve_gap``
+/ DOS / apply, on 1000×1000 sites; free energy and LDOS on
+``rashba_dp_wave((64,64,4))`` and LDOS on a 200×200 s-wave, each sweep one
+cooperative launch of ``ell_cheb_moments``), the differentiable path (``solve_gap``
 on 512×512 sites at order 512: the fused step forward, the adjoint-product
 and block-outer-product kernels backward, with a dense control on the card),
 a generic lattice (a user-defined sheet with a hole, about 2.5·10⁵ sites,
@@ -42,8 +44,10 @@ runs only the named phases (and prints no result line unless all ran); ``--profi
 also writes the JSON records of the run to ``PATH``.
 
 Phases: device, build, kernels (small awkward shapes); ``main``: the KPM path
-at full size (launch counters read here), its kernels at its shapes (times,
-bounds, library yardstick), and the path checked against complex128;
+at full size (launch counters read here, the moment kernel's launches following
+its plan), its kernels at its shapes (times, bounds, library yardstick; the
+moment kernel a step beside the per-step path and the graph-replayed step), and
+the path checked against complex128;
 ``widths``: the forward kernels at the other probe widths the entry points
 use; ``grad``: gradients through the kernels against autograd through the
 plain complex128 product; ``gap``: ``solve_gap`` at full width (launch
@@ -74,8 +78,8 @@ here), the conversion's time and memory, the planar dense spectra at 16×16, a
 planar operator through the sharded free energy, and the sharded ``solve_gap``
 at 512² against the field write before the packed inserts; ``examples``: the
 four example scripts as subprocesses, each ending in its JSON result line.
-The small kernel checks hold the filter kernel in both modes and both operator
-forms against its plain version and the per-step kernels, and the bf16
+The small kernel checks hold the filter and moment kernels in both modes and both
+operator forms against their plain versions and the per-step kernels, and the bf16
 instantiations too, on the bf16 form of
 every small operator (the gather pair on the bf16 operator's plans: the
 cluster form at the planned and forced tiles and stage counts, near 227 KB
@@ -543,7 +547,7 @@ def main(argv) -> int:
         small_err = {k: max(small_err[k], worst[k]) for k in worst}
         emit({"phase": "kernels", "shape": name, "S": sk.n_slots, "K": probe_counts,
               "padding_slots": bool((sk.cols < 0).any()), "max_abs_err": worst})
-    emit({"phase": "kernels", "held": [n for n in ck.KERNELS if n not in ck.FILTER_KERNELS], "small_shapes": len(cases),
+    emit({"phase": "kernels", "held": [n for n in ck.KERNELS if n not in ck.SWEEP_KERNELS], "small_shapes": len(cases),
           "tolerance": {"y_t_next": "atol=rtol=2e-4 vs complex64 plain",
                         "partials": "1e-4 of the largest sum vs complex128 plain",
                         "adjoint_outer": "atol=rtol=2e-4 vs complex64 plain, non-Hermitian data, "
@@ -969,7 +973,7 @@ def main(argv) -> int:
     for bf16 in (False, True):
         for mode, (N_o, K_o) in (("registers", (1024, 112)), ("global", (10000, 128))):
             plan = cf.filter_plan(N_o, K_o, 5, bf16=bf16, mode=mode)
-            occupancy[f"{mode}{'_bf16' if bf16 else ''}"] = cf.filter_occupancy(plan, 5, bf16=bf16)
+            occupancy[f"{mode}{'_bf16' if bf16 else ''}"] = cf.occupancy(plan, 5, bf16=bf16)
     check(min(occupancy.values()) >= cf.FILTER_BLOCKS_PER_SM,
           f"the filter kernel holds {occupancy} blocks an SM, the plans assume {cf.FILTER_BLOCKS_PER_SM}")
     emit({"phase": "kernels", "held": list(ck.FILTER_KERNELS), "small_shapes": len(cases), "K": [1, 3, 18, 33],
@@ -978,6 +982,100 @@ def main(argv) -> int:
                         "vs_per_step_kernels": "bit-equal, also with the last coefficient alone; a second "
                                                "launch bit-equal"},
           "max_rel_err": filter_err, "launches": ck.launch_counts()})
+
+    # ------------------------------------------------------------------ 3a''''. the moment kernel, small shapes
+    # ell_cheb_moments (and ell_cheb_moments_bf16 on the bf16 form) in each mode that
+    # fits, forced, against: its plain version (the per-step recursion in torch,
+    # complex64, the same inputs) within (1e-5 + order²·2⁻²⁴/4)·max|μ| — two float32
+    # recursions whose rounding errors grow at most with the square of the order;
+    # and the per-step kernel path (ck.moment_recursion over ell_cheb_step: a launch
+    # and a torch sum a fused step) within 1e-5·max|μ| — the t_m are the same FMAs, the column sums
+    # differ only in the order of their float32 additions, and each ⟨t_m,t_m⟩ ≤ μ0
+    # while inv·H lies within [-1, 1].  A second launch repeats bit for bit; each
+    # launch is counted once with its 1 + ceil((order − 2)/2) steps.
+    def per_step_kernel(data, sk):
+        """The per-step path's step: one ell_cheb_step launch (out = the t_prev buffer)."""
+        return lambda t_cur, t_prev, scale, out: ck.ell_cheb_step(data, sk, t_cur, t_prev, scale, out=out)
+
+    def compare_moments(data, sk, K, order, inv, seed, plans, modes=cf.MODES):
+        """``(ok, errors, modes run)`` of the checks above; ``plans`` collects
+        each plan run, for the occupancy check."""
+        N, S = sk.cols.shape
+        bf16 = ck.is_bf16_operator(data)
+        name = "ell_cheb_moments_bf16" if bf16 else "ell_cheb_moments"
+        v = random_vector(N, K, seed)
+        plain = cf.ell_cheb_moments_plain(data, sk, v, inv, order)
+        per_step = ck.moment_recursion(per_step_kernel(data, sk), v, inv, order)
+        scale = float(plain.abs().max())
+        ok, errs, ran = True, {"vs_plain_rel": 0.0, "vs_per_step_rel": 0.0}, []
+        for mode in modes:
+            try:
+                plan = cf.moments_plan(N, K, S, order, bf16=bf16, mode=mode)
+            except ValueError:
+                continue
+            plans[(mode, plan["sites_per_block"], S, K, bf16)] = plan
+            before = ck.launch_counts()
+            mu = cf.ell_cheb_moments(data, sk, v, inv, order, mode=mode)
+            mu_again = cf.ell_cheb_moments(data, sk, v, inv, order, mode=mode)
+            torch.cuda.synchronize()
+            launched = launched_since(before)
+            e_plain = float((mu - plain).abs().max()) / scale
+            e_step = float((mu - per_step).abs().max()) / scale
+            errs = {"vs_plain_rel": max(errs["vs_plain_rel"], e_plain),
+                    "vs_per_step_rel": max(errs["vs_per_step_rel"], e_step)}
+            ok = (ok and tuple(mu.shape) == (order, K) and mu.dtype == torch.float32
+                  and e_plain <= 1e-5 + order ** 2 * EPS32 / 4 and e_step <= 1e-5 and torch.equal(mu_again, mu)
+                  and launched == counts(**{name: 2, f"{name}.steps": 2 * ck.sweep_launches(order)}))
+            ran.append(mode)
+        return ok, errs, ran
+
+    moments_err, moments_modes, moment_plans, moment_S = {"vs_plain_rel": 0.0, "vs_per_step_rel": 0.0}, set(), {}, set()
+    moment_orders = [1, 2, 3, 4, 17, 256]
+    # The small shapes above have at most 120 sites, so each of their plans has one
+    # site a block.  Two of 4096 sites beside them (S = 5 and 7) run register mode
+    # with 32 sites a block and, at K = 33, global mode with 8 sites — 264 pairs on
+    # 256 threads, so some threads own two pairs of different columns and the
+    # block's tree over sites has eight leaves.
+    moment_cases = [case for case in cases if case[2].n_slots in (5, 7)]
+    moment_cases += [(str(shape), *random_system(shape, seed=600 + i))
+                     for i, shape in enumerate(((64, 64, 1), (32, 32, 4)))]
+    for name, data, sk in moment_cases:
+        moment_S.add(sk.n_slots)
+        inv = 1.0 / (4 * sk.n_slots * float(data.abs().max()))  # row sums of |H| below 1: inv·H within [-1, 1]
+        for form in (data, ck.bf16_operator(data)):
+            for K in (1, 3, 4, 33):
+                for order in moment_orders:
+                    ok, err, ran = compare_moments(form, sk, K, order, inv, seed=500 + K, plans=moment_plans)
+                    check(ok and ran, f"moment kernel on {name}, K={K}, order={order}, bf16={form is not data}: "
+                                      f"{err}, {ran}")
+                    moments_err = {k: max(moments_err[k], err[k]) for k in moments_err}
+                    moments_modes.update(ran)
+    check(moments_modes == set(cf.MODES) and moment_S == {5, 7},
+          f"the small shapes held the moment kernel only in {moments_modes}, S in {moment_S}")
+    wide = {(m, S_o, K_o, bf16) for (m, sb, S_o, K_o, bf16) in moment_plans if sb > 1 and sb * K_o > cf.FILTER_THREADS}
+    check({("global", S_o, 33, bf16) for S_o in (5, 7) for bf16 in (False, True)} <= wide
+          and {("registers", S_o, 4, bf16) for S_o in (5, 7) for bf16 in (False, True)}
+          <= {(m, S_o, K_o, bf16) for (m, sb, S_o, K_o, bf16) in moment_plans if sb > 1},
+          f"the small shapes missed a plan with several sites a block: {sorted(moment_plans)}")
+    # Beside them the plans of the main path's moment sweeps (rashba 64×64×4 at
+    # K = 8 and 4, 200×200 at K = 4), in both operator forms.
+    for N_o, K_o, S_o, order_o in ((16384, 8, 7, 256), (16384, 4, 7, 512), (40000, 4, 5, 512)):
+        for bf16 in (False, True):
+            plan = cf.moments_plan(N_o, K_o, S_o, order_o, bf16=bf16)
+            moment_plans[(plan["mode"], plan["sites_per_block"], S_o, K_o, bf16)] = plan
+    moment_occupancy = {f"{m}_SB{sb}_S{S_o}_K{K_o}{'_bf16' if bf16 else ''}":
+                        cf.occupancy(plan, S_o, K_o, bf16=bf16, moments=True)
+                        for (m, sb, S_o, K_o, bf16), plan in moment_plans.items()}
+    check(min(moment_occupancy.values()) >= cf.FILTER_BLOCKS_PER_SM,
+          f"the moment kernel holds {moment_occupancy} blocks an SM, the plans assume {cf.FILTER_BLOCKS_PER_SM}")
+    emit({"phase": "kernels", "held": list(ck.MOMENT_KERNELS), "shapes": [name for name, _, _ in moment_cases],
+          "S": sorted(moment_S), "K": [1, 3, 4, 33],
+          "orders": moment_orders, "modes": sorted(moments_modes), "plans": len(moment_plans),
+          "blocks_per_sm_least": min(moment_occupancy.values()), "blocks_per_sm": moment_occupancy,
+          "tolerance": {"vs_plain": "(1e-5 + order^2*2^-24/4) of max|mu| (complex64 plain, same inputs)",
+                        "vs_per_step_kernels": "1e-5 of max|mu| (ell_cheb_step launches and torch sums); "
+                                               "a second launch bit-equal"},
+          "max_rel_err": moments_err, "launches": ck.launch_counts()})
     if quick:
         return 0
 
@@ -1067,6 +1165,68 @@ def main(argv) -> int:
                 errors.append(f"{form}: {type(e).__name__}: {str(e)[:120]}")
         return None, None, None, errors
 
+    def moments_row(name, label, system, K, order, bf16=False):
+        """One sweep of ``order`` moments at width K on ``system``'s operator (its
+        bf16 form with ``bf16``) through the moment kernel in the planned mode:
+        against its plain version (complex64, the same inputs), and timed in turns
+        with the per-step path it replaced (ck.moment_recursion over ell_cheb_step:
+        a launch and a torch sum a fused step, CUDA events around the host's loop) — per-step
+        path, kernel, kernel, per-step path — beside ell_cheb_step from 200
+        launches replayed in a CUDA graph.  ms is the wrapper's call (the launch,
+        the sum over the grid, the assembly).  bound_ms for the function: the
+        operator, cols and v0 read once and the moments written once over the
+        memory rate, or the operations of its fused steps (product, tail, sums) at
+        the float32 rate; beside it the per-step byte bound the steps would take
+        apart (chebyshev_step_bytes a step)."""
+        sk = system.skeleton
+        N, S = sk.cols.shape
+        form = ck.bf16_operator(system.data) if bf16 else system.data
+        inv = 1.0 / kpm.spectral_bound(system.data, sk)
+        steps = ck.sweep_launches(order)
+        v, t_prev = random_vector(N, K, 995), random_vector(N, K, 996)
+        out = torch.empty_like(v)
+        mu = cf.ell_cheb_moments(form, sk, v, inv, order)
+        step = per_step_kernel(form, sk)
+        per_step = lambda: ck.moment_recursion(step, v, inv, order)
+        # Held as the small shapes are: the plain version within
+        # (1e-5 + order²·2⁻²⁴/4)·max|μ|, the per-step kernels within 1e-5·max|μ|.
+        plain = cf.ell_cheb_moments_plain(form, sk, v, inv, order)
+        scale = float(plain.abs().max())
+        err = float((mu - plain).abs().max())
+        err_step = float((mu - per_step()).abs().max())
+        check(tuple(mu.shape) == (order, K) and bool(torch.isfinite(mu).all())
+              and err <= (1e-5 + order ** 2 * EPS32 / 4) * scale and err_step <= 1e-5 * scale,
+              f"{name} on {label}: {err / scale} of max|mu| from its plain version, {err_step / scale} "
+              "from the per-step kernels")
+        kernel = lambda: cf.ell_cheb_moments(form, sk, v, inv, order)
+        per_step_a = timed_ms(per_step, 3)
+        runs = [timed_ms(kernel, 5), timed_ms(kernel, 5)]
+        per_step_b = timed_ms(per_step, 3)
+        plain_ms = timed_ms(lambda: cf.ell_cheb_moments_plain(form, sk, v, inv, order), 1)
+        graph = graph_ms(lambda: ck.ell_cheb_step(form, sk, v, t_prev, 0.125, out=out))
+        op_item = 2 if bf16 else None
+        entries = N * BLOCK * K
+        nbytes = spmm_bytes(sk, K, 8, operator_itemsize=op_item) - entries * 8 + N * S * 4 + order * K * 4
+        flops = steps * (spmm_flops(sk, K) + 12 * entries)
+        row = bound_row(name, label, sk, K, min(runs), plain_ms, nbytes, flops, err, None,
+                        "none (no torch call runs a Chebyshev recursion)", runs)
+        step_bound = chebyshev_step_bytes(sk, K, 8, operator_itemsize=op_item) / HBM_BYTES_PER_S * 1e3
+        per_step_ms = min(per_step_a, per_step_b)
+        row.update(order=order, steps=steps, plan=cf.moments_plan(N, K, S, order, bf16=bf16),
+                   max_rel_err=err / scale, vs_per_step_rel=err_step / scale,
+                   ms_per_step=row["ms"] / steps, step_bound_ms=step_bound,
+                   share_of_step_bound=step_bound * steps / row["ms"], per_step_path_ms=per_step_ms,
+                   per_step_path_runs_ms=[per_step_a, per_step_b], per_step_path_ms_per_step=per_step_ms / steps,
+                   ell_cheb_step_graph_ms=graph, over_per_step_path=row["ms"] / per_step_ms,
+                   over_graph_replayed_steps=row["ms"] / (graph * steps))
+        emit({"phase": "main" if not bf16 else "bf16", "timing": name, "sweep": label, "K": K, "order": order,
+              "ms": row["ms"], "ms_per_step": row["ms_per_step"], "step_bound_ms": step_bound,
+              "vs_plain_rel": err / scale, "vs_per_step_rel": err_step / scale,
+              "share_of_step_bound": row["share_of_step_bound"], "per_step_path_ms_per_step":
+              row["per_step_path_ms_per_step"], "ell_cheb_step_graph_ms": graph, "bound_ms": row["bound_ms"],
+              "bound_by": row["bound_by"], "plan": row["plan"]})
+        return row
+
     shared = {}  # results one phase hands to a later one
 
     def phase_main():
@@ -1084,9 +1244,14 @@ def main(argv) -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             steps = ck.sweep_launches(order) if order else 0
-            expected["ell_cheb_step"] += steps
+            mode = cf.moments_plan(sk.n_sites, K, sk.n_slots, order)["mode"] if order else None
+            if mode == "per_step":  # 10⁶ sites: one ell_cheb_step launch a fused step
+                expected["ell_cheb_step"] += steps
+            elif mode is not None:  # one launch of the moment kernel a sweep
+                expected["ell_cheb_moments"] += 1
+                expected["ell_cheb_moments.steps"] += steps
             expected["ell_spmm"] += bound_iters
-            rec = {"phase": "main", "call": label, "wall_s": wall, "cheb_launches": steps,
+            rec = {"phase": "main", "call": label, "wall_s": wall, "fused_steps": steps, "moments_mode": mode,
                    "spmm_launches": bound_iters}
             if steps:
                 step_bytes = chebyshev_step_bytes(sk, K, 8)
@@ -1141,14 +1306,23 @@ def main(argv) -> int:
         rho_r = call("rashba ldos((32,32,2), order=512)",
                      lambda: rashba.ldos((32, 32, 2), energies, method="kpm", order=512), 512, 4, sk_r, ITERS)
 
+        t0 = time.perf_counter()
+        square = swave_superconductor((200, 200, 1))  # BASELINE config 3: KPM LDOS on 200×200 s-wave
+        torch.cuda.synchronize()
+        sk_q = square.skeleton
+        emit({"phase": "main", "call": "swave_superconductor((200,200,1))", "wall_s": time.perf_counter() - t0,
+              "N": sk_q.n_sites, "S": sk_q.n_slots, "hermiticity_error": square._hermiticity_error()})
+        rho_q = call("200x200 ldos((100,100,0), order=512)",
+                     lambda: square.ldos((100, 100, 0), energies, method="kpm", order=512), 512, 4, sk_q, ITERS)
+
         main_launches = ck.launch_counts()  # read right after the main path
         peak_GB = torch.cuda.max_memory_allocated() / 1e9
 
         mid = len(energies) // 2
         outside = np.abs(energies) >= 0.5  # beyond the s-wave gap Δ = 0.3
         check(main_launches == expected, f"launch counters {main_launches} != expected {expected}")
-        check(main_launches["ell_spmm"] > 0 and main_launches["ell_cheb_step"] > 0,
-              "a kernel of the main path was never launched")
+        check(main_launches["ell_spmm"] > 0 and main_launches["ell_cheb_step"] > 0
+              and main_launches["ell_cheb_moments"] == 3, "a kernel of the main path was never launched")
         check(rho.shape == (41,) and np.isfinite(rho).all() and rho.min() >= -1e-6, "LDOS not finite / negative")
         check(rho[mid] < 0.1 * rho[outside].mean(), f"no s-wave gap: rho(0)={rho[mid]} vs {rho[outside].mean()}")
         check(rho_map.shape == (16, 41) and np.isfinite(rho_map).all() and rho_map.min() >= -1e-6, "LDOS map wrong")
@@ -1159,10 +1333,12 @@ def main(argv) -> int:
               "apply output wrong")
         check(math.isfinite(F_r) and F_r < 0 and np.isfinite(rho_r).all() and rho_r.min() >= -1e-6,
               "Rashba free energy / LDOS wrong")
+        check(rho_q.shape == (41,) and np.isfinite(rho_q).all() and rho_q.min() >= -1e-6
+              and rho_q[mid] < 0.1 * rho_q[outside].mean(), f"200x200 LDOS wrong or without a gap: {rho_q}")
         emit({"phase": "main", "launches": main_launches, "expected": expected, "scale": scale_big,
               "F(T=0.01)": F_cold, "F(T=0.5)": F_warm, "F_per_site": F_cold / sk_big.n_sites,
               "rho(0)": float(rho[mid]), "rho(|e|>=0.5) mean": float(rho[outside].mean()),
-              "rashba_F": F_r, "peak_device_GB": peak_GB})
+              "rashba_F": F_r, "200x200 rho(0)": float(rho_q[mid]), "peak_device_GB": peak_GB})
 
         # ------------------------------------------------------------------ 3b. kernels, main path's shapes
         kernel_rows = {}
@@ -1198,6 +1374,13 @@ def main(argv) -> int:
                 )
                 kernel_rows.setdefault(name, row)  # the first shape is the main path's own
 
+        # The moment kernel at the main path's three sweeps that launch it: the first
+        # is its line in the kernels table.
+        for label, system, K, order in (("rashba 64x64x4, free_energy's sweep", rashba, 8, 256),
+                                        ("rashba 64x64x4, ldos' sweep", rashba, 4, 512),
+                                        ("swave 200x200x1, ldos' sweep", square, 4, 512)):
+            kernel_rows.setdefault("ell_cheb_moments", moments_row("ell_cheb_moments", label, system, K, order))
+
         # ------------------------------------------------------------------ 5. main path, checked
         # impl="cuda" (kernels, complex64 after the down-cast) against impl="plain"
         # in complex128, both on the card, same scale and probes.  Moments to
@@ -1213,13 +1396,17 @@ def main(argv) -> int:
             N = sk.n_sites
             scale = kpm.spectral_bound(system.data, sk, impl="plain")
             probes = kpm.rademacher_probes(N, 8, 3, np.complex128)
-            mu = {impl: kpm.moments(system.data, sk, probes, 64, scale, impl=impl).double().cpu().numpy()
-                  for impl in ("cuda", "plain")}
-            F = {impl: system.free_energy(0.01, method="kpm", order=128, samples=8, scale=scale, impl=impl)
-                 for impl in ("cuda", "plain")}
             site = tuple(s // 2 for s in sk.shape)
-            ld = {impl: system.ldos(site, energies, method="kpm", order=128, scale=scale, impl=impl)
-                  for impl in ("cuda", "plain")}
+            mu, F, ld = {}, {}, {}
+            for impl in ("cuda", "plain"):
+                before = ck.launch_counts()
+                mu[impl] = kpm.moments(system.data, sk, probes, 64, scale, impl=impl).double().cpu().numpy()
+                F[impl] = system.free_energy(0.01, method="kpm", order=128, samples=8, scale=scale, impl=impl)
+                ld[impl] = system.ldos(site, energies, method="kpm", order=128, scale=scale, impl=impl)
+                launched = launched_since(before)
+                want = counts(ell_cheb_moments=3, **{"ell_cheb_moments.steps": ck.sweep_launches(64)
+                                                     + 2 * ck.sweep_launches(128)}) if impl == "cuda" else counts()
+                check(launched == want, f"{label}: impl={impl} launched {launched}, expected {want}")
             errs = {
                 "moments_rel_to_max": float(np.abs(mu["cuda"] - mu["plain"]).max() / np.abs(mu["plain"]).max()),
                 "free_energy_rel": abs(F["cuda"] - F["plain"]) / abs(F["plain"]),
@@ -2713,8 +2900,10 @@ def main(argv) -> int:
         small = Hamiltonian(CubicLattice((32, 32, 1)), device=dev)  # phase lowest's 32×32 lattice
         small.assemble(onsite=lambda ci: (-0.5 + 0.08 * np.cos(2.39996 * ci[:, 0] + 1.1 * ci[:, 1]))[:, None, None] * σ0,
                        hopping=lambda ci, cj: -1.0 * σ0, pairing_onsite=lambda ci: 0.2 * jσ2)
+        rashba = rashba_dp_wave((64, 64, 4))  # phase main's: the bf16 moment kernel's sweep
         scale = kpm.spectral_bound(big.data, sk)
         scale_s = kpm.spectral_bound(sheet.data, sk_s)
+        scale_r = kpm.spectral_bound(rashba.data, rashba.skeleton)
         rs = RowSharding(sk, make_row_mesh())  # a world of one without a process group: the ring is a local copy
         v8, v8_s = random_vector(N, 8, 71), random_vector(sk_s.n_sites, 8, 72)
         steps, kw, k = ck.sweep_launches, dict(method="kpm", order=256, samples=8), 4
@@ -2740,6 +2929,9 @@ def main(argv) -> int:
                 lambda dt: sheet.free_energy(0.05, scale=scale_s, operator_dtype=dt, **kw),
                 {"ell_gather_cheb_step_bf16": steps(256)}, 8),
             "sheet: apply(K=8)": (lambda dt: sheet.apply(v8_s, operator_dtype=dt), {"ell_gather_spmm_bf16": 1}, 8),
+            "rashba 64x64x4: free_energy(T=0.01, order=256, samples=8)": (
+                lambda dt: rashba.free_energy(0.01, scale=scale_r, operator_dtype=dt, **kw),
+                {"ell_cheb_moments_bf16": 1, "ell_cheb_moments_bf16.steps": steps(256)}, 8),
             "world of one: free_energy_kpm_sharded_cuda(pack_operator_sharded(...))": (
                 lambda dt: free_energy_kpm_sharded_cuda(rs, pack_operator_sharded(rs, big.data, dt), 0.01, scale,
                                                         order=256, samples=8),
@@ -2832,6 +3024,9 @@ def main(argv) -> int:
         # The seven bf16 instantiations at the path's shapes, each beside its
         # float32 form on the same operands: float32, bf16, bf16, float32.
         rows, kernel_ms = {"ell_cheb_filter_bf16": filter16}, {}
+        rows["ell_cheb_moments_bf16"] = moments_row("ell_cheb_moments_bf16", "rashba 64x64x4 bf16 form, "
+                                                    "free_energy's sweep", rashba, 8, 256, bf16=True)
+        kernel_ms[("ell_cheb_moments_bf16", 8)] = rows["ell_cheb_moments_bf16"]["ms"]
         form = ck.bf16_operator(big.data)
         lib = "none (no torch call takes a bf16 (re, im) operator; the float32 kernel beside it is the yardstick)"
 
@@ -3337,8 +3532,9 @@ def main(argv) -> int:
     # the differentiable path's (N = 262144), the gather kernels at the generic
     # sheet's, the tiled step at N = 10⁶, the halo forms at the row-sharded
     # path's (the whole lattice as one slab: the world of one's form), the bf16
-    # instantiations at those shapes on the bf16 form; `launches` adds the eight
-    # paths' reads (the planar calls' too).
+    # instantiations at those shapes on the bf16 form, the moment kernels at the
+    # rashba 64×64×4 free energy's sweep; `launches` adds the eight paths' reads
+    # (the planar calls' too).
     replaces = {
         "ell_spmm": "bodge_tpu/ops/pallas_spmm.py:440",  # also :985 (plane layout)
         "ell_cheb_step": "bodge_tpu/ops/pallas_spmm.py:468",  # also :1081 (plane layout)
@@ -3354,6 +3550,9 @@ def main(argv) -> int:
         # The reference's filter scan over the fused step (pallas_spmm.py:468 / :1081), one launch a sweep here.
         "ell_cheb_filter": "bodge_tpu/ops/lanczos.py:122",
         "ell_cheb_filter_bf16": "bodge_tpu/ops/lanczos.py:122",
+        # The reference's doubled-moment scan over the same fused step, one launch a sweep here.
+        "ell_cheb_moments": "bodge_tpu/ops/pallas_spmm.py:1547",
+        "ell_cheb_moments_bf16": "bodge_tpu/ops/pallas_spmm.py:1547",
     }
     for name in ("ell_spmm", "ell_cheb_step", "ell_spmm_halo", "ell_cheb_step_halo", "ell_gather_spmm",
                  "ell_gather_cheb_step", "stencil_cheb_step_tiled"):
@@ -3365,7 +3564,8 @@ def main(argv) -> int:
     sources["ell_block_outer_halo"] = "bodge_tpu_torch/csrc/ell_block_outer.cu"
     sources["ell_gather_spmm_bf16"] = sources["ell_gather_cheb_step_bf16"] = "bodge_tpu_torch/csrc/ell_gather.cu"
     sources["stencil_cheb_step_tiled_bf16"] = "bodge_tpu_torch/csrc/stencil_tiled.cu"
-    sources["ell_cheb_filter"] = sources["ell_cheb_filter_bf16"] = "bodge_tpu_torch/csrc/ell_filter.cu"
+    for name in ck.SWEEP_KERNELS:
+        sources[name] = "bodge_tpu_torch/csrc/ell_filter.cu"
     paths = {"kpm_observables": "main", "solve_gap": "gap", "generic_lattice": "generic",
              "tiled_step": "tiled", "lowest_states": "lowest", "bf16_storage": "bf16", "row_sharded": "sharded",
              "planar_entry_points": "planar"}
@@ -3383,7 +3583,7 @@ def main(argv) -> int:
             **{key: row[key] for key in ("plan", "yardstick", "yardstick_ms", "order", "ms_per_step", "step_bound_ms",
                                          "share_of_step_bound") if key in row},
         })
-        if name in ck.FILTER_KERNELS:
+        if name in ck.SWEEP_KERNELS:
             kernels[-1]["steps"] = sum(results[p][0][name + ".steps"] for p in paths.values())
         check(sum(by_path.values()) > 0, f"{name} was launched on none of the driven paths")
     print(smi, flush=True)

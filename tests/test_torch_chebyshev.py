@@ -2,7 +2,8 @@
 
 Moments in complex128 against the x64 stencil scan (1e-10: the same
 recursion, sums in another order) and in complex64 against the fused Pallas
-sweep in interpret mode (2e-4, as tests/test_pallas.py); the observables
+sweep in interpret mode (2e-4, as tests/test_pallas.py; the moment kernel's
+plain version too); the observables
 (LDOS, LDOS map, DOS, free energy) and the facade methods with a shared
 ``scale`` at 1e-9; probes, damping kernels and coefficient fits bit-equal."""
 
@@ -16,6 +17,7 @@ from bodge_tpu.models import systems as jsys
 from bodge_tpu.ops import chebyshev as jkpm
 from bodge_tpu.ops import pallas_spmm as pk
 from bodge_tpu_torch.ops import chebyshev as tkpm
+from bodge_tpu_torch.ops import cuda_filter as tf
 from bodge_tpu_torch.ops import cuda_spmm as tk
 from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
@@ -83,6 +85,10 @@ def test_moments_match_pallas_fused_interpret():
     got = tk.moments_fused(st.data, st.skeleton, torch.as_tensor(v0), 1 / SCALE, order)
     assert got.dtype == torch.float32 and got.shape == (order, K)
     assert np.allclose(got.numpy(), want, atol=2e-4 * np.abs(want).max(), rtol=2e-4)
+    # the moment kernel's plain version against the same sweep, to the same tolerance
+    plain = tf.ell_cheb_moments_plain(st.data, st.skeleton, torch.as_tensor(v0), 1 / SCALE, order)
+    assert plain.dtype == torch.float32 and plain.shape == (order, K)
+    assert np.allclose(plain.numpy(), want, atol=2e-4 * np.abs(want).max(), rtol=2e-4)
 
 
 def test_probes_kernels_coefficients_bit_equal():

@@ -221,5 +221,7 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         "ell_spmm_halo": 0, "ell_cheb_step_halo": 0, "ell_spmm_adjoint_halo": 0, "ell_block_outer_halo": 0,
         "ell_spmm_bf16": 0, "ell_cheb_step_bf16": 0, "ell_spmm_halo_bf16": 0, "ell_cheb_step_halo_bf16": 0,
         "ell_gather_spmm_bf16": 0, "ell_gather_cheb_step_bf16": 0, "stencil_cheb_step_tiled_bf16": 0,
-        "ell_cheb_filter": 0, "ell_cheb_filter_bf16": 0, "ell_cheb_filter.steps": 0, "ell_cheb_filter_bf16.steps": 0,
+        "ell_cheb_filter": 0, "ell_cheb_filter_bf16": 0, "ell_cheb_moments": 0, "ell_cheb_moments_bf16": 0,
+        "ell_cheb_filter.steps": 0, "ell_cheb_filter_bf16.steps": 0, "ell_cheb_moments.steps": 0,
+        "ell_cheb_moments_bf16.steps": 0,
     }
