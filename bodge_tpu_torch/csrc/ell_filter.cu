@@ -1,8 +1,11 @@
-// Chebyshev sweeps on the block-ELL operator in one launch (sm_90a).
+// Chebyshev sweeps, and the power iteration, on the block-ELL operator in one
+// launch (sm_90a).
 //
-//   ell_cheb_filter    y = sum_{m<M} c_m T_m(inv*H) v
-//   ell_cheb_moments   the column sums <t_m,t_m>, <t_{m+1},t_m> of every step
-//                      of the KPM doubled-moment recursion (template flag MOMENTS)
+//   ell_cheb_filter      y = sum_{m<M} c_m T_m(inv*H) v
+//   ell_cheb_moments     the column sums <t_m,t_m>, <t_{m+1},t_m> of every step
+//                        of the KPM doubled-moment recursion (template flag MOMENTS)
+//   ell_power_iteration  the norms n_k = |w_k| of w_0 = H v, w_k = H w_{k-1} / n_{k-1}
+//                        (a sibling kernel, ell_power_kernel: see below)
 //
 // by the three-term recursion t_0 = v, t_1 = inv*H t_0 (the first step
 // half-scaled with t_prev = 0), t_{m+1} = 2*inv*H t_m - t_{m-1}; a zero
@@ -78,6 +81,28 @@
 // partial is read inside the launch, so no second barrier is needed; the
 // caller sums the rows over the grid after it.  The t_m are the per-step
 // kernel's bit for bit; the sums differ from its partials in order only.
+//
+// The power iteration (ell_power_kernel, complex64 operator, one column) is
+// the reference's _power_iteration scan (bodge_tpu/ops/chebyshev.py:134-141:
+// spmm, norm and division a step, the spmm the Pallas product of
+// pallas_spmm.py:440 / :985, P1/P3), which a host loop runs as three
+// dependent launches an iteration: at 10^3-10^4 sites each costs the host's
+// launch rate, some 20-50 us, against a byte bound of a few us.  The kernel
+// shares the filter's staging and its grid (the plan differs only in the
+// few bytes a block reduces in).  Step k gathers w_{k-1} (v at k = 0, which
+// the caller normalised), divides the product by n_{k-1} and writes w_k into
+// P[k % 2]: the same ping-pong and one grid barrier a step as above.  The norm
+// needs a grid-wide sum inside the launch without a second barrier: each
+// block sums |w_k|^2 of its sites in a fixed tree (a thread's sites in order,
+// then warp shuffles, then the eight warps in order) and writes it to row
+// (k, block) of an [iters, grid] buffer; after the barrier that ends step k
+// every block sums row k over the grid in the same fixed tree, so every block
+// divides by the same n_k bit for bit.  No atomics: a second call repeats the
+// result bit for bit.  The caller reads n_{iters-1} from the last row.
+// Dividing H w_{k-1} rather than w_{k-1} by n_{k-1} moves each w_k by a
+// rounding; the products are ell_kernel's FMAs.  A step is bound by the
+// grid barrier at these sizes: the operator sits in shared memory and the
+// vector (at most 1.3 MB) in L2.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -92,28 +117,67 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int BLOCKS_PER_SM = 4;  // at most 64 registers a thread
 constexpr int BLK = 4;            // 4x4 blocks: Nambu x spin
+constexpr int WARPS = THREADS / 32;
+
+// The kernels of this file, as the occupancy entry point names them.
+enum Sweep : int { SWEEP_FILTER = 0, SWEEP_MOMENTS = 1, SWEEP_POWER = 2 };
 
 struct Args {
   const void* data;       // [N, S, 4, 4] complex64 or [N, S, 4, 4, 2] bf16
   const int* cols;        // [N, S], negative = padding
   const float2* v;        // [N, 4, K], t_0
   const float* coeffs;    // [M] (the filter only)
-  float2* p0;             // [N, 4, K] scratch: t_m for even m >= 2
-  float2* p1;             // [N, 4, K] scratch: t_m for odd m
+  float2* p0;             // [N, 4, K] scratch: t_m for even m >= 2 (power: w_k for even k)
+  float2* p1;             // [N, 4, K] scratch: t_m for odd m (power: w_k for odd k)
   float2* y;              // [N, 4, K] the result (the filter only)
-  float* partials;        // [M - 1, grid, 2K] (the moment sweep only)
+  float* partials;        // [M - 1, grid, 2K] (the moment sweep), [M - 1, grid] (the power iteration)
   float inv;
-  int M;
+  int M;                  // vectors of the sweep: steps + 1
   long long N;
   int S, K, SB;
 };
 
-// Bytes of shared memory a block of SB sites takes; `moments` adds the
-// reduction buffer, two floats a pair.
-size_t smem_bytes(int bf16, int SB, int S, int K, bool moments) {
+// Bytes of shared memory a block of SB sites takes; the moment sweep adds its
+// reduction buffer, two floats a pair, the power iteration one float a warp.
+size_t smem_bytes(int bf16, int SB, int S, int K, int sweep) {
   const int per = bf16 ? opform::Op<uint4>::PER_BLOCK : opform::Op<float4>::PER_BLOCK;
-  return (size_t)SB * (S * per + 1) * 16 + (size_t)SB * S * sizeof(int) +
-         (moments ? (size_t)2 * SB * K * sizeof(float) : 0);
+  const size_t extra = sweep == SWEEP_MOMENTS ? (size_t)2 * SB * K * sizeof(float)
+                                        : sweep == SWEEP_POWER ? (size_t)WARPS * sizeof(float) : 0;
+  return (size_t)SB * (S * per + 1) * 16 + (size_t)SB * S * sizeof(int) + extra;
+}
+
+// A block's sites staged in shared memory: their block rows (stride OP units
+// a site, the last a pad) and column indices; `tail` is where the kernel's own
+// buffer begins.
+template <typename OP>
+struct Staged {
+  OP* op;
+  int* cols;
+  float* tail;
+  int stride;
+  long long site0;
+  int sites;
+};
+
+template <typename OP>
+__device__ __forceinline__ Staged<OP> stage_sites(const Args& a, uint4* smem) {
+  constexpr int PER = opform::Op<OP>::PER_BLOCK;
+  const int S = a.S;
+  Staged<OP> st;
+  st.stride = S * PER + 1;
+  st.op = reinterpret_cast<OP*>(smem);
+  st.cols = reinterpret_cast<int*>(st.op + (size_t)a.SB * st.stride);
+  st.tail = reinterpret_cast<float*>(st.cols + (size_t)a.SB * S);
+  st.site0 = (long long)blockIdx.x * a.SB;
+  st.sites = (int)min((long long)a.SB, a.N - st.site0);
+  const OP* g_op = reinterpret_cast<const OP*>(a.data) + (size_t)st.site0 * S * PER;
+  for (int i = threadIdx.x; i < st.sites * S * PER; i += THREADS) {
+    const int site = i / (S * PER);
+    st.op[site * st.stride + (i - site * S * PER)] = __ldg(g_op + i);
+  }
+  for (int i = threadIdx.x; i < st.sites * S; i += THREADS) st.cols[i] = __ldg(a.cols + (size_t)st.site0 * S + i);
+  __syncthreads();
+  return st;
 }
 
 __device__ __forceinline__ void cfma(float2& acc, float dre, float dim, const float2& v) {
@@ -202,26 +266,34 @@ __device__ __forceinline__ void pair_sums(const float2& c, const float2& nx, flo
   nc = fmaf(nx.x, c.x, fmaf(nx.y, c.y, nc));
 }
 
+// The sum of x over the block's threads, returned to every thread: warp
+// shuffles, then the eight warps in order (a fixed tree: the same inputs give
+// the same bits in every block).  Every thread calls it; s_warp holds WARPS
+// floats.
+__device__ __forceinline__ float block_sum(float x, float* s_warp) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+  __syncthreads();  // every thread has read the previous sum out of s_warp
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = x;
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) total += s_warp[w];
+  return total;
+}
+
 template <typename OP, bool REG, bool MOMENTS>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) ell_filter_kernel(const Args a) {
   extern __shared__ uint4 smem[];  // 16-byte aligned
-  constexpr int PER = opform::Op<OP>::PER_BLOCK;
+  const Staged<OP> st = stage_sites<OP>(a, smem);
   const int S = a.S, K = a.K;
-  const int stride = S * PER + 1;  // OP units a staged site
-  OP* s_op = reinterpret_cast<OP*>(smem);
-  int* s_cols = reinterpret_cast<int*>(s_op + (size_t)a.SB * stride);
-  const long long site0 = (long long)blockIdx.x * a.SB;
-  const int sites = (int)min((long long)a.SB, a.N - site0);
-
-  const OP* g_op = reinterpret_cast<const OP*>(a.data) + (size_t)site0 * S * PER;
-  for (int i = threadIdx.x; i < sites * S * PER; i += THREADS) {
-    const int site = i / (S * PER);
-    s_op[site * stride + (i - site * S * PER)] = __ldg(g_op + i);
-  }
-  for (int i = threadIdx.x; i < sites * S; i += THREADS) s_cols[i] = __ldg(a.cols + (size_t)site0 * S + i);
-  float* s_cc = reinterpret_cast<float*>(s_cols + (size_t)a.SB * S);  // MOMENTS: [SB * K] each
+  const int stride = st.stride;  // OP units a staged site
+  const OP* s_op = st.op;
+  const int* s_cols = st.cols;
+  const long long site0 = st.site0;
+  const int sites = st.sites;
+  float* s_cc = st.tail;  // MOMENTS: [SB * K] each
   float* s_nc = s_cc + (size_t)a.SB * K;
-  __syncthreads();
 
   cg::grid_group grid = cg::this_grid();
   const int pairs = sites * K;
@@ -332,6 +404,45 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) ell_filter_kernel(cons
   }
 }
 
+// The power iteration (see the top of the file): M - 1 steps on the complex64
+// operator, K = 1, a thread's sites p, p + THREADS, ... of its block.  Nothing
+// of a site carries over between steps in registers, so the plan's two modes
+// differ only in the sites a block.
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) ell_power_kernel(const Args a) {
+  extern __shared__ uint4 smem[];  // 16-byte aligned
+  const Staged<float4> st = stage_sites<float4>(a, smem);
+  float* s_warp = st.tail;  // [WARPS]
+  cg::grid_group grid = cg::this_grid();
+  const int S = a.S;
+  const int steps = a.M - 1;
+  float norm = 1.f;  // of v: the caller normalised it
+  for (int m = 0; m < steps; ++m) {
+    const float2* w = m == 0 ? a.v : ((m & 1) ? a.p0 : a.p1);  // w_{m-1}, written in the last step
+    float2* out = (m & 1) ? a.p1 : a.p0;
+    if (m > 0) {  // n_{m-1} from row m - 1, summed in the same order by every block
+      const float* row = a.partials + (size_t)(m - 1) * gridDim.x;
+      float x = 0.f;
+      for (int b = threadIdx.x; b < (int)gridDim.x; b += THREADS) x += row[b];
+      norm = sqrtf(block_sum(x, s_warp));
+    }
+    float sq = 0.f;
+    for (int p = threadIdx.x; p < st.sites; p += THREADS) {
+      float2 hv[BLK];
+      product<float4>(st.op + p * st.stride, st.cols + p * S, w, S, 1, 0, hv);
+      float2* o = out + (size_t)(st.site0 + p) * BLK;
+#pragma unroll
+      for (int r = 0; r < BLK; ++r) {
+        const float2 x = make_float2(hv[r].x / norm, hv[r].y / norm);
+        o[r] = x;
+        sq = fmaf(x.x, x.x, fmaf(x.y, x.y, sq));
+      }
+    }
+    const float total = block_sum(sq, s_warp);
+    if (threadIdx.x == 0) a.partials[(size_t)m * gridDim.x + blockIdx.x] = total;
+    if (m + 1 < steps) grid.sync();
+  }
+}
+
 template <typename OP, bool REG, bool MOMENTS>
 void* kernel_of() {
   return reinterpret_cast<void*>(&ell_filter_kernel<OP, REG, MOMENTS>);
@@ -343,32 +454,40 @@ void* pick(int bf16, int registers) {
   return registers ? kernel_of<float4, true, MOMENTS>() : kernel_of<float4, false, MOMENTS>();
 }
 
+// The kernel of a sweep kind and form; nullptr where none is built (the power
+// iteration has no bf16 form).
+void* pick_sweep(int sweep, int bf16, int registers) {
+  if (sweep == SWEEP_POWER) return bf16 ? nullptr : reinterpret_cast<void*>(&ell_power_kernel);
+  return sweep == SWEEP_MOMENTS ? pick<true>(bf16, registers) : pick<false>(bf16, registers);
+}
+
 cudaError_t allow_smem(void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <bool MOMENTS>
-int occupancy(int bf16, int registers, int SB, int S, int K, int* blocks, long long* smem) {
-  if (SB < 1 || S < 1 || K < 1 || blocks == nullptr || smem == nullptr) return (int)cudaErrorInvalidValue;
-  *smem = (long long)smem_bytes(bf16, SB, S, K, MOMENTS);
-  void* kernel = pick<MOMENTS>(bf16, registers);
+int occupancy(int sweep, int bf16, int registers, int SB, int S, int K, int* blocks, long long* smem) {
+  if (sweep < SWEEP_FILTER || sweep > SWEEP_POWER || SB < 1 || S < 1 || K < 1 || blocks == nullptr || smem == nullptr)
+    return (int)cudaErrorInvalidValue;
+  void* kernel = pick_sweep(sweep, bf16, registers);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  *smem = (long long)smem_bytes(bf16, SB, S, K, sweep);
   cudaError_t err = allow_smem(kernel, (size_t)*smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, THREADS, (size_t)*smem);
 }
 
-template <bool MOMENTS>
-int launch(const Args& args, int bf16, int registers, void* stream) {
+int launch(const Args& args, int sweep, int bf16, int registers, void* stream) {
   const long long N = args.N;
   const int S = args.S, K = args.K, SB = args.SB;
-  if (N < 1 || S < 1 || K < 1 || args.M < (MOMENTS ? 2 : 1) || SB < 1 ||
-      (registers && (long long)SB * K > THREADS))
+  if (N < 1 || S < 1 || K < 1 || args.M < (sweep == SWEEP_FILTER ? 1 : 2) || SB < 1 ||
+      (registers && (long long)SB * K > THREADS) || (sweep == SWEEP_POWER && K != 1))
     return (int)cudaErrorInvalidValue;
   const long long blocks = (N + SB - 1) / SB;
   if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(bf16, SB, S, K, MOMENTS);
-  void* kernel = pick<MOMENTS>(bf16, registers);
+  void* kernel = pick_sweep(sweep, bf16, registers);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(bf16, SB, S, K, sweep);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   Args copy = args;
@@ -381,15 +500,14 @@ int launch(const Args& args, int bf16, int registers, void* stream) {
 
 }  // namespace
 
-// Blocks of the filter kernel (moments == 0) or the moment kernel one SM
-// holds at the dynamic shared memory a block of SB sites takes
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and those bytes: what the
-// caller's plan sizes the grid with.  K counts only for the moment kernel,
-// whose reduction buffer grows with it.
-extern "C" int ell_cheb_sweep_occupancy(int moments, int bf16, int registers, int SB, int S, int K, int* blocks,
+// Blocks of the filter kernel (sweep == 0), the moment kernel (1) or the
+// power kernel (2, complex64 only) one SM holds at the dynamic shared memory a
+// block of SB sites takes (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// and those bytes: what the caller's plan sizes the grid with.  K counts only
+// for the moment kernel, whose reduction buffer grows with it.
+extern "C" int ell_cheb_sweep_occupancy(int sweep, int bf16, int registers, int SB, int S, int K, int* blocks,
                                         long long* smem) {
-  return moments ? occupancy<true>(bf16, registers, SB, S, K, blocks, smem)
-                 : occupancy<false>(bf16, registers, SB, S, 1, blocks, smem);
+  return occupancy(sweep, bf16, registers, SB, S, sweep == SWEEP_MOMENTS ? K : 1, blocks, smem);
 }
 
 // One sweep: ceil(N / SB) blocks of THREADS threads, each SB sites, on the
@@ -403,7 +521,7 @@ extern "C" int ell_cheb_filter_launch(const void* data, int bf16, const void* co
                                       long long N, int S, int K, int SB, int registers, void* stream) {
   const Args args = {data, (const int*)cols, (const float2*)v, (const float*)coeffs, (float2*)p0, (float2*)p1,
                      (float2*)y, nullptr, inv, M, N, S, K, SB};
-  return launch<false>(args, bf16, registers, stream);
+  return launch(args, SWEEP_FILTER, bf16, registers, stream);
 }
 
 // One moment sweep of `steps` >= 1 fused steps (the half-scaled first one
@@ -415,5 +533,17 @@ extern "C" int ell_cheb_moments_launch(const void* data, int bf16, const void* c
                                        int SB, int registers, void* stream) {
   const Args args = {data, (const int*)cols, (const float2*)v, nullptr, (float2*)p0, (float2*)p1,
                      nullptr, (float*)partials, inv, steps + 1, N, S, K, SB};
-  return launch<true>(args, bf16, registers, stream);
+  return launch(args, SWEEP_MOMENTS, bf16, registers, stream);
+}
+
+// One power iteration of `iters` >= 1 steps on the complex64 operator from v
+// ([N, 4, 1], normalised), as the sweeps above: p0 and p1 are scratch vectors
+// (p1 unused when iters == 1), `partials` the caller's [iters, ceil(N / SB)]
+// float32 buffer, every entry of which is written: row k holds the blocks'
+// sums of |w_k|^2, so n_{iters-1} is the square root of the last row's sum.
+extern "C" int ell_power_iteration_launch(const void* data, const void* cols, const void* v, int iters, void* p0,
+                                          void* p1, void* partials, long long N, int S, int SB, void* stream) {
+  const Args args = {data, (const int*)cols, (const float2*)v, nullptr, (float2*)p0, (float2*)p1,
+                     nullptr, (float*)partials, 1.f, iters + 1, N, S, 1, SB};
+  return launch(args, SWEEP_POWER, 0, 0, stream);
 }

@@ -52,7 +52,8 @@ import torch
 
 from ..common import numpy_dtype
 from .blocksparse import BLOCK, Skeleton
-from .cuda_spmm import StepPlan, bf16_operator, moments_fused, operator_values, resolve_operator_storage
+from .cuda_spmm import (StepPlan, bf16_operator, moments_fused, operator_values, power_mode, power_recursion,
+                        resolve_operator_storage)
 from .planar import complex_operator
 from .spmm import spmm
 
@@ -104,7 +105,14 @@ def spectral_bound(
     eigenvalue escapes the interval.
 
     The start vector is complex normal, drawn with NumPy from ``seed`` or
-    with ``torch.randn`` from ``generator`` when one is given.
+    with ``torch.randn`` from ``generator`` when one is given.  On the general
+    step on the card where :func:`~bodge_tpu_torch.ops.cuda_filter.power_plan`
+    fits (:func:`~bodge_tpu_torch.ops.cuda_spmm.power_mode`), the ``iters``
+    iterations are one launch of
+    :func:`~bodge_tpu_torch.ops.cuda_filter.ell_power_iteration`; elsewhere
+    (the gather and tiled steps, lattices too large for a plan, the plain
+    versions) a loop of one product a step with no host synchronisation
+    inside.
     """
     data, impl = _operator_and_impl(data, impl)
     shape = (sk.n_sites, BLOCK, 1)
@@ -120,8 +128,12 @@ def spectral_bound(
     else:  # cast (and, on a generic skeleton, relabel) once, not in every iteration
         plan = StepPlan(sk, 1, impl, data)
         data, v = plan.operator(data), plan.enter(v)
+        if power_mode(plan, data, iters) in ("registers", "global"):
+            from .cuda_filter import ell_power_iteration
+
+            return float(ell_power_iteration(data, plan.sk, v, iters, impl="cuda")) * 1.05
         product = lambda w: plan.spmm(data, w)
-    return float(_power_iteration(product, v, iters)) * 1.05
+    return float(power_recursion(product, v, iters)) * 1.05
 
 
 def rademacher_probes(N, samples, seed, dtype, default_seed=42) -> np.ndarray:
@@ -133,18 +145,6 @@ def rademacher_probes(N, samples, seed, dtype, default_seed=42) -> np.ndarray:
     rng = np.random.default_rng(default_seed if seed is None else int(seed))
     z = 2.0 * rng.integers(0, 2, size=(N, BLOCK, samples)) - 1.0
     return z.astype(dtype)
-
-
-def _power_iteration(product, v, iters: int):
-    """Last norm ‖H v‖ of ``iters`` normalised applications of ``product`` (a
-    0-d tensor; nothing is moved to the host inside the loop)."""
-    v = v / torch.linalg.norm(v)
-    norm = None
-    for _ in range(iters):
-        w = product(v)
-        norm = torch.linalg.norm(w)
-        v = w / norm
-    return norm.real
 
 
 def _doubled_moment_scan(H, inner, v0, order: int):

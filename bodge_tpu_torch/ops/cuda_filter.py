@@ -1,5 +1,5 @@
-"""The Chebyshev filter sweep and the KPM moment sweep in one launch each, with
-their plain versions.
+"""The Chebyshev filter sweep, the KPM moment sweep and the spectral bound's
+power iteration in one launch each, with their plain versions.
 
 :func:`ell_cheb_filter` computes ``y = Σ_{m<M} c_m T_m(inv·H) v`` — the
 filter of the lowest-states solver (:mod:`.lanczos`) — by the three-term
@@ -48,6 +48,21 @@ and ``moments_fused`` launches one step at a time there.  Its counters are
 (the fused steps the launch ran, ``1 + ceil((order − 2) / 2)``: the
 ``ell_cheb_step`` launches it stands for), and the same on
 :func:`ell_cheb_moments_bf16`.
+
+:func:`ell_power_iteration` is a sibling kernel of the same source on the
+same staging and grid: the power iteration of
+:func:`~bodge_tpu_torch.ops.chebyshev.spectral_bound` (``w_0 = H v``, ``w_k =
+H w_{k−1} / ‖w_{k−1}‖``) in one launch, the counterpart of the reference's
+``_power_iteration`` scan (``bodge_tpu/ops/chebyshev.py:134-141``) over the
+product of ``pallas_spmm.py:440`` / ``:985`` (P1/P3), complex64 and one column
+only.  Each block writes its sum of ``|w_k|²`` into a ``[iters, grid]`` row;
+after the grid barrier every block sums the row in the same order and divides
+by the same norm.  :func:`power_plan` is :func:`filter_plan` at K = 1 with a
+block's 32-byte reduction buffer; where it answers ``"per_step"``,
+``spectral_bound`` keeps one ``ell_spmm`` launch a step.  Its counters are
+``ell_power_iteration.launches`` (one a bound) and
+``ell_power_iteration.steps`` (``iters``: the ``ell_spmm`` launches it stands
+for).
 """
 
 from __future__ import annotations
@@ -69,6 +84,8 @@ FILTER_BLOCKS_PER_SM = 4  # __launch_bounds__(256, 4): at most 64 registers a th
 FILTER_SMEM_CAP = ck.SM_SHARED // FILTER_BLOCKS_PER_SM - ck.BLOCK_RESERVED
 MODES = ("registers", "global")
 MOMENTS_PARTIALS_CAP = 1 << 28  # bytes of a moment sweep's [steps, grid, 2K] float32 partials, at most
+POWER_BLOCK_BYTES = 32  # a power block's reduction buffer: one float a warp (WARPS in csrc/ell_filter.cu)
+SWEEPS = {"filter": 0, "moment": 1, "power": 2}  # the kernel kinds of ell_cheb_sweep_occupancy
 
 
 def _site_bytes(S: int, bf16: bool, K: int = 0) -> int:
@@ -95,7 +112,7 @@ def filter_plan(N: int, K: int, S: int, *, bf16: bool = False, mode: Optional[st
     (no kernel plan fits: the caller runs one step launch an order); a named
     mode that does not fit raises ``ValueError``.  ``sms`` defaults to the
     card's SM count (132 without one)."""
-    return _plan("filter", N, K, S, bf16, mode, sms, moments_steps=0)
+    return _plan("filter", N, K, S, bf16, mode, sms)
 
 
 def moments_plan(N: int, K: int, S: int, order: int, *, bf16: bool = False, mode: Optional[str] = None,
@@ -110,11 +127,30 @@ def moments_plan(N: int, K: int, S: int, order: int, *, bf16: bool = False, mode
     order = int(order)
     if order < 1:
         raise ValueError(f"moments_plan needs order >= 1, got {order}")
-    return _plan("moment", N, K, S, bf16, mode, sms, moments_steps=ck.sweep_launches(order))
+    return _plan("moment", N, K, S, bf16, mode, sms, steps=ck.sweep_launches(order))
+
+
+def power_plan(N: int, S: int, iters: int, *, mode: Optional[str] = None, sms: Optional[int] = None) -> dict:
+    """Launch plan of :func:`ell_power_iteration` for ``iters`` steps on ``N``
+    sites, ``S`` slots: :func:`filter_plan`'s at K = 1 on the complex64
+    operator, with each block's reduction buffer (:data:`POWER_BLOCK_BYTES`)
+    counted against :data:`FILTER_SMEM_CAP`, and with ``"steps"`` (``iters``)
+    and ``"partials_bytes"`` (``iters × grid`` float32) besides.  A plan whose
+    partials exceed :data:`MOMENTS_PARTIALS_CAP` does not fit.  ``mode=None``
+    answers ``"registers"``, ``"global"`` or ``"per_step"`` (the caller runs
+    one ``ell_spmm`` launch a step); a named mode that does not fit raises
+    ``ValueError``."""
+    iters = int(iters)
+    if iters < 1:
+        raise ValueError(f"power_plan needs iters >= 1, got {iters}")
+    return _plan("power", N, 1, S, False, mode, sms, steps=iters)
 
 
 def _plan(what: str, N: int, K: int, S: int, bf16: bool, mode: Optional[str], sms: Optional[int],
-          moments_steps: int) -> dict:
+          steps: int = 0) -> dict:
+    """The plan of the ``"filter"``, ``"moment"`` or ``"power"`` kernel; the
+    last two write ``steps`` rows of partials (``2K`` floats a block a row for
+    the moment sweep, one for the power iteration)."""
     N, K, S = int(N), int(K), int(S)
     if N < 1 or K < 1 or S < 1:
         raise ValueError(f"{what} plan needs N, K, S >= 1, got {N}, {K}, {S}")
@@ -122,11 +158,13 @@ def _plan(what: str, N: int, K: int, S: int, bf16: bool, mode: Optional[str], sm
         raise ValueError(f"mode {mode!r}: None, 'registers' or 'global'")
     sms = ck.sm_count() if sms is None else int(sms)
     slots = FILTER_BLOCKS_PER_SM * sms
-    site = _site_bytes(S, bf16, K if moments_steps else 0)
-    most = FILTER_SMEM_CAP // site  # sites a block may stage
+    site = _site_bytes(S, bf16, K if what == "moment" else 0)
+    block = POWER_BLOCK_BYTES if what == "power" else 0
+    most = (FILTER_SMEM_CAP - block) // site  # sites a block may stage
+    row = {"moment": 2 * K, "power": 1}.get(what, 0)  # floats a block writes a step
 
     def partials_fit(sb):
-        return moments_steps * -(-N // sb) * 2 * K * 4 <= MOMENTS_PARTIALS_CAP
+        return steps * -(-N // sb) * row * 4 <= MOMENTS_PARTIALS_CAP
 
     fits = {}
     if K <= FILTER_THREADS:
@@ -141,18 +179,18 @@ def _plan(what: str, N: int, K: int, S: int, bf16: bool, mode: Optional[str], sm
     elif mode not in fits:
         raise ValueError(f"the {what} kernel's {mode} mode does not fit N = {N}, K = {K}, S = {S} "
                          f"on {sms} SMs ({slots} blocks of {FILTER_THREADS} threads, {most} sites a block"
-                         + (f", {moments_steps} steps of partials)" if moments_steps else ")"))
-    extra = {"steps": moments_steps, "partials_bytes": 0} if moments_steps else {}
+                         + (f", {steps} steps of partials)" if steps else ")"))
+    extra = {"steps": steps, "partials_bytes": 0} if steps else {}
     if mode == "per_step":
         return {"mode": mode, "grid": 0, "threads": 0, "sites_per_block": 0, "pairs_per_thread": 0,
                 "smem_bytes": 0, "lanes_used": 0.0, **extra}
     sb = fits[mode]
     grid = -(-N // sb)
     per_thread = -(-sb * K // FILTER_THREADS)
-    if moments_steps:
-        extra["partials_bytes"] = moments_steps * grid * 2 * K * 4
+    if steps:
+        extra["partials_bytes"] = steps * grid * row * 4
     return {"mode": mode, "grid": grid, "threads": FILTER_THREADS, "sites_per_block": sb,
-            "pairs_per_thread": per_thread, "smem_bytes": sb * site,
+            "pairs_per_thread": per_thread, "smem_bytes": sb * site + block,
             "lanes_used": N * K / (grid * FILTER_THREADS * per_thread), **extra}
 
 
@@ -177,38 +215,41 @@ def ell_cheb_filter_plain(data, sk: Skeleton, v, coeffs, inv: float):
 
 
 @functools.lru_cache(maxsize=64)
-def _occupancy(device: int, moments: bool, bf16: bool, registers: bool, sb: int, S: int, K: int) -> int:
+def _occupancy(device: int, kind: str, bf16: bool, registers: bool, sb: int, S: int, K: int) -> int:
     blocks, smem = ctypes.c_int(0), ctypes.c_longlong(0)
     with torch.cuda.device(device):
-        err = ck._library().ell_cheb_sweep_occupancy(int(moments), int(bf16), int(registers), sb, S, K,
+        err = ck._library().ell_cheb_sweep_occupancy(SWEEPS[kind], int(bf16), int(registers), sb, S, K,
                                                      ctypes.byref(blocks), ctypes.byref(smem))
     ck._raise_on(err, "ell_cheb_sweep_occupancy")
     return blocks.value
 
 
-def occupancy(plan: dict, S: int, K: int = 1, *, bf16: bool = False, moments: bool = False) -> int:
+def occupancy(plan: dict, S: int, K: int = 1, *, bf16: bool = False, kind: str = "filter") -> int:
     """Blocks of the plan's kernel one SM of the current card holds
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the plan's shared
-    memory): what :func:`filter_plan` and :func:`moments_plan` assume to be
-    :data:`FILTER_BLOCKS_PER_SM`.  ``moments`` asks for the moment kernel,
-    whose reduction buffer grows with ``K`` (the filter's does not depend on it)."""
-    return _occupancy(torch.cuda.current_device(), bool(moments), bool(bf16), plan["mode"] == "registers",
-                      plan["sites_per_block"], int(S), int(K) if moments else 1)
+    memory): what :func:`filter_plan`, :func:`moments_plan` and
+    :func:`power_plan` assume to be :data:`FILTER_BLOCKS_PER_SM`.  ``kind``
+    names the kernel (a key of :data:`SWEEPS`); only the moment kernel's
+    reduction buffer grows with ``K``."""
+    if kind not in SWEEPS:
+        raise ValueError(f"kind {kind!r}: one of {sorted(SWEEPS)}")
+    return _occupancy(torch.cuda.current_device(), kind, bool(bf16), plan["mode"] == "registers",
+                      plan["sites_per_block"], int(S), int(K) if kind == "moment" else 1)
 
 
-def _launch_sweep(counter, plan: dict, v, S: int, K: int, bf16: bool, steps: int, launch) -> None:
-    """What the two wrappers share: refuse a ``"per_step"`` plan and a grid
-    larger than the card holds at once, call ``launch(p0, p1, stream)`` with
-    the two scratch vectors of the sweep on ``v``'s device, raise on its
-    error, and count the launch and its ``steps`` on ``counter``."""
-    moments = counter in (ell_cheb_moments, ell_cheb_moments_bf16)
-    name = "moment" if moments else "filter"
+def _launch_sweep(counter, kind: str, plan: dict, v, S: int, K: int, bf16: bool, steps: int, launch) -> None:
+    """What the wrappers share: refuse a ``"per_step"`` plan and a grid larger
+    than the card holds at once, call ``launch(p0, p1, stream)`` with the two
+    scratch vectors of the sweep on ``v``'s device, raise on its error, and
+    count the launch and its ``steps`` on ``counter``.  ``kind`` is the
+    kernel's key in :data:`SWEEPS`."""
     if plan["mode"] == "per_step":
-        raise ValueError(f"no plan of the {name} kernel fits N = {v.shape[0]}, K = {K}, S = {S}"
-                         + (f", {steps} steps" if moments else "")
-                         + f" ({'moments_fused' if moments else 'filter_sweep'} runs the per-step path there)")
+        caller = {"filter": "filter_sweep", "moment": "moments_fused", "power": "spectral_bound"}[kind]
+        raise ValueError(f"no plan of the {kind} kernel fits N = {v.shape[0]}, K = {K}, S = {S}"
+                         + (f", {steps} steps" if kind != "filter" else "")
+                         + f" ({caller} runs the per-step path there)")
     with torch.cuda.device(v.device):
-        held = occupancy(plan, S, K, bf16=bf16, moments=moments) * ck.sm_count()
+        held = occupancy(plan, S, K, bf16=bf16, kind=kind) * ck.sm_count()
         if plan["grid"] > held:
             raise RuntimeError(f"{counter.__name__}: the plan's {plan['grid']} blocks exceed the {held} the card "
                                f"holds at once ({FILTER_BLOCKS_PER_SM} an SM assumed)")
@@ -239,7 +280,7 @@ def ell_cheb_filter(data, sk: Skeleton, v, coeffs, inv: float, *, mode: Optional
     c = torch.tensor(coeffs, dtype=torch.float32).to(v.device)
     y = torch.empty_like(v)
     _launch_sweep(
-        ell_cheb_filter_bf16 if bf16 else ell_cheb_filter, plan, v, S, K, bf16, len(coeffs) - 1,
+        ell_cheb_filter_bf16 if bf16 else ell_cheb_filter, "filter", plan, v, S, K, bf16, len(coeffs) - 1,
         lambda p0, p1, stream: ck._library().ell_cheb_filter_launch(
             data.data_ptr(), int(bf16), sk.device_cols(v.device).data_ptr(), v.data_ptr(), c.data_ptr(),
             len(coeffs), float(inv), p0, p1, y.data_ptr(), N, S, K, plan["sites_per_block"],
@@ -305,7 +346,7 @@ def ell_cheb_moments(data, sk: Skeleton, v0, inv: float, order: int, *, mode: Op
     steps = plan["steps"]
     partials = torch.empty((steps, plan["grid"], 2 * K), dtype=torch.float32, device=v0.device)
     _launch_sweep(
-        ell_cheb_moments_bf16 if bf16 else ell_cheb_moments, plan, v0, S, K, bf16, steps,
+        ell_cheb_moments_bf16 if bf16 else ell_cheb_moments, "moment", plan, v0, S, K, bf16, steps,
         lambda p0, p1, stream: ck._library().ell_cheb_moments_launch(
             data.data_ptr(), int(bf16), sk.device_cols(v0.device).data_ptr(), v0.data_ptr(), steps, float(inv),
             p0, p1, partials.data_ptr(), N, S, K, plan["sites_per_block"], int(plan["mode"] == "registers"),
@@ -326,3 +367,57 @@ def ell_cheb_moments_bf16(data, sk: Skeleton, v0, inv: float, order: int, *, mod
 
 ell_cheb_moments_bf16.launches = 0
 ell_cheb_moments_bf16.steps = 0
+
+
+def _iterations(iters) -> int:
+    iters = int(iters)
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1, got {iters}")
+    return iters
+
+
+def ell_power_iteration_plain(data, sk: Skeleton, v, iters: int):
+    """Plain version of :func:`ell_power_iteration`: the per-step loop of
+    :func:`~bodge_tpu_torch.ops.cuda_spmm.power_recursion` (the reference's
+    ``_power_iteration``) on the batched product (any device, complex64 or
+    complex128), the operator brought into the batched product's form once, as
+    the kernel stages it once.  A 0-d real tensor."""
+    iters = _iterations(iters)
+    A = batched_operator(ck.operator_values(data, v.dtype), sk)
+    return ck.power_recursion(lambda w: spmm_batched(A, sk, w), v, iters)
+
+
+def ell_power_iteration(data, sk: Skeleton, v, iters: int, *, mode: Optional[str] = None,
+                        impl: Optional[str] = None):
+    """``‖H w‖`` after ``iters`` normalised applications of the operator to
+    ``v`` ``[N, 4, 1]`` (:func:`~bodge_tpu_torch.ops.cuda_spmm.power_recursion`'s
+    result, the reference's ``norms[-1]``), a 0-d float32 tensor, in one launch
+    of the power kernel.
+
+    ``v`` is normalised on the device first; the kernel then runs every step,
+    and the last norm is the square root of one sum of its last partials row.
+    ``mode`` forces ``"registers"`` or ``"global"`` (:func:`power_plan`;
+    ``None`` lets the plan choose, and raises where it answers
+    ``"per_step"``).  On a CUDA tensor this launches the kernel or raises
+    (refused launch, a grid larger than the card holds, an operator in the
+    bf16 form); on a CPU tensor, or with ``impl="plain"``, it runs
+    :func:`ell_power_iteration_plain`."""
+    iters = _iterations(iters)
+    if ck._resolve(impl, v) == "plain":
+        return ell_power_iteration_plain(data, sk, v, iters)
+    N, S, K = ck._check_call(data, sk, v)
+    if K != 1:
+        raise ValueError(f"ell_power_iteration takes one column, got K = {K}")
+    plan = power_plan(N, S, iters, mode=mode, sms=ck.sm_count())
+    v = v / torch.linalg.norm(v)
+    partials = torch.empty((iters, plan["grid"]), dtype=torch.float32, device=v.device)
+    _launch_sweep(
+        ell_power_iteration, "power", plan, v, S, 1, False, iters,
+        lambda p0, p1, stream: ck._library().ell_power_iteration_launch(
+            data.data_ptr(), sk.device_cols(v.device).data_ptr(), v.data_ptr(), iters, p0, p1,
+            partials.data_ptr(), N, S, plan["sites_per_block"], stream))
+    return partials[-1].sum().sqrt()
+
+
+ell_power_iteration.launches = 0
+ell_power_iteration.steps = 0

@@ -150,10 +150,13 @@ KERNELS = ("ell_spmm", "ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer",
            "ell_spmm_halo", "ell_cheb_step_halo", "ell_spmm_adjoint_halo", "ell_block_outer_halo",
            "ell_spmm_bf16", "ell_cheb_step_bf16", "ell_spmm_halo_bf16", "ell_cheb_step_halo_bf16",
            "ell_gather_spmm_bf16", "ell_gather_cheb_step_bf16", "stencil_cheb_step_tiled_bf16",
-           "ell_cheb_filter", "ell_cheb_filter_bf16", "ell_cheb_moments", "ell_cheb_moments_bf16")
+           "ell_cheb_filter", "ell_cheb_filter_bf16", "ell_cheb_moments", "ell_cheb_moments_bf16",
+           "ell_power_iteration")
 FILTER_KERNELS = ("ell_cheb_filter", "ell_cheb_filter_bf16")
 MOMENT_KERNELS = ("ell_cheb_moments", "ell_cheb_moments_bf16")
-SWEEP_KERNELS = FILTER_KERNELS + MOMENT_KERNELS  # one launch a sweep: they also count their steps, "<name>.steps"
+POWER_KERNELS = ("ell_power_iteration",)
+# One launch a sweep: they also count their steps, "<name>.steps".
+SWEEP_KERNELS = FILTER_KERNELS + MOMENT_KERNELS + POWER_KERNELS
 PAD_COLUMN = -(2 ** 31)  # padding in a slab's column table (below every halo index)
 
 
@@ -400,6 +403,7 @@ def _library():
                 tiled, [p, i, p, p, p, p, f, i, i, i, i, i, i, i, i, i, i, i, ip, ip, p]),
             "ell_cheb_filter_launch": (filt, [p, i, p, p, p, i, f, p, p, p, ll, i, i, i, i, p]),
             "ell_cheb_moments_launch": (filt, [p, i, p, p, i, f, p, p, p, ll, i, i, i, i, p]),
+            "ell_power_iteration_launch": (filt, [p, p, p, i, p, p, p, ll, i, i, p]),
             "ell_cheb_sweep_occupancy": (filt, [i, i, i, i, i, i, ip, llp]),
         }
         bound = SimpleNamespace()
@@ -1251,7 +1255,8 @@ ell_block_outer_halo.launches = 0
 
 
 def _wrappers():
-    from .cuda_filter import ell_cheb_filter, ell_cheb_filter_bf16, ell_cheb_moments, ell_cheb_moments_bf16
+    from .cuda_filter import (ell_cheb_filter, ell_cheb_filter_bf16, ell_cheb_moments, ell_cheb_moments_bf16,
+                              ell_power_iteration)
     from .cuda_gather import (ell_gather_cheb_step, ell_gather_cheb_step_bf16, ell_gather_spmm,
                               ell_gather_spmm_bf16)
 
@@ -1260,14 +1265,16 @@ def _wrappers():
             ell_spmm_halo, ell_cheb_step_halo, ell_spmm_adjoint_halo, ell_block_outer_halo,
             ell_spmm_bf16, ell_cheb_step_bf16, ell_spmm_halo_bf16, ell_cheb_step_halo_bf16,
             ell_gather_spmm_bf16, ell_gather_cheb_step_bf16, stencil_cheb_step_tiled_bf16,
-            ell_cheb_filter, ell_cheb_filter_bf16, ell_cheb_moments, ell_cheb_moments_bf16)
+            ell_cheb_filter, ell_cheb_filter_bf16, ell_cheb_moments, ell_cheb_moments_bf16,
+            ell_power_iteration)
 
 
 def launch_counts() -> dict:
     """``{kernel name: launches so far}`` for every kernel of the port, in the
     order of :data:`KERNELS`, then ``{"<name>.steps": steps so far}`` for the
     one-launch sweeps (:data:`SWEEP_KERNELS`: the filter kernels' Σ(order − 1),
-    the moment kernels' Σ(1 + ceil((order − 2) / 2)) over their launches)."""
+    the moment kernels' Σ(1 + ceil((order − 2) / 2)), the power kernel's
+    Σ iters over their launches)."""
     fns = _wrappers()
     return {**{fn.__name__: fn.launches for fn in fns},
             **{f"{fn.__name__}.steps": fn.steps for fn in fns if fn.__name__ in SWEEP_KERNELS}}
@@ -1949,6 +1956,37 @@ def filter_sweep(plan: StepPlan, data, v, coeffs, inv: float):
         return plan.step(data, t_cur, t_prev, scale, out=out, sums=False)[0]
 
     return filter_recursion(step, v, coeffs, inv)
+
+
+def power_recursion(product, v, iters: int):
+    """Last norm ``‖H w‖`` of ``iters`` normalised applications of ``product``
+    to ``v`` (the reference's ``_power_iteration``: ``w ← H w / ‖H w‖`` from
+    ``v / ‖v‖``), a 0-d real tensor; nothing is moved to the host inside the
+    loop."""
+    v = v / torch.linalg.norm(v)
+    norm = None
+    for _ in range(iters):
+        w = product(v)
+        norm = torch.linalg.norm(w)
+        v = w / norm
+    return norm.real
+
+
+def power_mode(plan: StepPlan, data, iters: int) -> str:
+    """How :func:`~bodge_tpu_torch.ops.chebyshev.spectral_bound` runs its
+    ``iters`` power iterations on ``plan`` (K = 1): ``"registers"`` or
+    ``"global"`` (one launch of the power kernel,
+    :func:`~bodge_tpu_torch.ops.cuda_filter.power_plan`), ``"per_step"`` (one
+    product launch a step: the gather and tiled steps, an operator in the bf16
+    form, and the general step where no power plan fits) or ``"plain"``."""
+    if plan.backend == "plain":
+        return "plain"
+    if plan.kind != "ell" or is_bf16_operator(data):
+        return "per_step"
+    from .cuda_filter import power_plan
+
+    N, S = plan.sk.cols.shape
+    return power_plan(N, S, iters, sms=sm_count())["mode"]
 
 
 def filter_launches(order: int, fused: bool = False) -> int:

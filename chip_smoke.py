@@ -11,7 +11,8 @@ paths through the normal entry points at full size — the KPM observables
 (assemble → block SpMM → fused Chebyshev step → free energy / LDOS / LDOS map
 / DOS / apply, on 1000×1000 sites; free energy and LDOS on
 ``rashba_dp_wave((64,64,4))`` and LDOS on a 200×200 s-wave, each sweep one
-cooperative launch of ``ell_cheb_moments``), the differentiable path (``solve_gap``
+cooperative launch of ``ell_cheb_moments`` and each spectral bound one of
+``ell_power_iteration``), the differentiable path (``solve_gap``
 on 512×512 sites at order 512: the fused step forward, the adjoint-product
 and block-outer-product kernels backward, with a dense control on the card),
 a generic lattice (a user-defined sheet with a hole, about 2.5·10⁵ sites,
@@ -20,7 +21,8 @@ the tiled step (``impl="cuda_tiled"`` at 1000×1000 and 64×64×4) and the
 lowest-states solver (``diagonalize(method="lanczos")`` at 32×32 against three
 exact solvers; at 100×100 with magnetic impurities against shift-invert, and
 with a uniform Zeeman field, bounded, against ``eigvalsh`` on the card; each
-filter application one cooperative launch of ``ell_cheb_filter``), the
+filter application one cooperative launch of ``ell_cheb_filter``, each bound
+one of ``ell_power_iteration``), the
 row-sharded path (the halo kernels on x-slabs of the 1000×1000 operator;
 the sharded KPM entry points and ``solve_gap(impl="cuda_sharded")`` in a
 world of one over NCCL, the gradient with √steps checkpointing on and off;
@@ -44,10 +46,12 @@ runs only the named phases (and prints no result line unless all ran); ``--profi
 also writes the JSON records of the run to ``PATH``.
 
 Phases: device, build, kernels (small awkward shapes); ``main``: the KPM path
-at full size (launch counters read here, the moment kernel's launches following
-its plan), its kernels at its shapes (times, bounds, library yardstick; the
-moment kernel a step beside the per-step path and the graph-replayed step), and
-the path checked against complex128;
+at full size (launch counters read here, the moment and power kernels' launches
+following their plans), its kernels at its shapes (times, bounds, library
+yardstick; the moment kernel a step beside the per-step path and the
+graph-replayed step; the power kernel a step beside the per-step bound's
+iteration, host loop and graph-replayed, and ``ell_spmm`` at K = 1), and the
+path checked against complex128;
 ``widths``: the forward kernels at the other probe widths the entry points
 use; ``grad``: gradients through the kernels against autograd through the
 plain complex128 product; ``gap``: ``solve_gap`` at full width (launch
@@ -60,8 +64,9 @@ plan, one gradient against complex128; ``tiled``:
 read here) and the tiled step timed at N = 10⁶ beside ``ell_cheb_step`` at
 K = 1, 8, 64, with variants of its plan; ``lowest``: the lowest-states solver
 (launch counters read here, held to each run's history: one ``ell_cheb_filter``
-launch an application, Σ(order − 1) steps), and its kernels against their plain
-versions and timed on each run's operator at the block widths the run took (the
+launch an application, Σ(order − 1) steps, and one ``ell_power_iteration`` launch
+a bound), and its kernels against their plain versions and timed on each run's
+operator at the block widths the run took (the power kernel as in ``main``; the
 filter kernel in both modes at orders 256 and 4096, beside ``ell_cheb_step``
 replayed from a CUDA graph and the per-step path it replaced); ``bf16``: the
 entry points with ``operator_dtype="bf16"`` beside the float32 calls (launch
@@ -79,7 +84,8 @@ planar operator through the sharded free energy, and the sharded ``solve_gap``
 at 512² against the field write before the packed inserts; ``examples``: the
 four example scripts as subprocesses, each ending in its JSON result line.
 The small kernel checks hold the filter and moment kernels in both modes and both
-operator forms against their plain versions and the per-step kernels, and the bf16
+operator forms, and the power kernel in both modes (also at the lattices of the
+main path's bounds), against their plain versions and the per-step kernels, and the bf16
 instantiations too, on the bf16 form of
 every small operator (the gather pair on the bf16 operator's plans: the
 cluster form at the planned and forced tiles and stage counts, near 227 KB
@@ -1064,7 +1070,7 @@ def main(argv) -> int:
             plan = cf.moments_plan(N_o, K_o, S_o, order_o, bf16=bf16)
             moment_plans[(plan["mode"], plan["sites_per_block"], S_o, K_o, bf16)] = plan
     moment_occupancy = {f"{m}_SB{sb}_S{S_o}_K{K_o}{'_bf16' if bf16 else ''}":
-                        cf.occupancy(plan, S_o, K_o, bf16=bf16, moments=True)
+                        cf.occupancy(plan, S_o, K_o, bf16=bf16, kind="moment")
                         for (m, sb, S_o, K_o, bf16), plan in moment_plans.items()}
     check(min(moment_occupancy.values()) >= cf.FILTER_BLOCKS_PER_SM,
           f"the moment kernel holds {moment_occupancy} blocks an SM, the plans assume {cf.FILTER_BLOCKS_PER_SM}")
@@ -1076,6 +1082,67 @@ def main(argv) -> int:
                         "vs_per_step_kernels": "1e-5 of max|mu| (ell_cheb_step launches and torch sums); "
                                                "a second launch bit-equal"},
           "max_rel_err": moments_err, "launches": ck.launch_counts()})
+
+    # ------------------------------------------------------------------ 3a'''''. the power kernel, small shapes
+    # ell_power_iteration in each mode, forced, against: its plain version (the
+    # per-step loop in torch, complex64, the same v) and the per-step kernel path
+    # (ck.power_recursion over ell_spmm: a launch, a norm and a division a step),
+    # each within 1e-5 of the norm — float32 products and norms, the kernel's sums
+    # in another order and its division after the product.  A second launch
+    # repeats bit for bit; each launch is counted once with its steps.  At the
+    # small shapes with S = 5 or 7 (one site a block; 4096 sites: 32 a block in
+    # register mode, 8 in global), and at the lattices of the main path's bounds,
+    # 64×64×4 (S = 7), 200×200, 32×32 and 100×100 (S = 5), random blocks.
+    POWER_TOL = 1e-5
+
+    def compare_power(data, sk, iters, seed, plans):
+        """``(ok, errors, modes run)`` of the checks above; ``plans`` collects
+        each plan run, for the occupancy check."""
+        N, S = sk.cols.shape
+        v = random_vector(N, 1, seed)
+        plain = float(cf.ell_power_iteration_plain(data, sk, v, iters))
+        per_step = float(ck.power_recursion(lambda w: ck.ell_spmm(data, sk, w), v, iters))
+        ok, errs, ran = True, {"vs_plain_rel": 0.0, "vs_per_step_rel": 0.0}, []
+        for mode in cf.MODES:
+            plan = cf.power_plan(N, S, iters, mode=mode)  # every shape here fits both
+            plans[(mode, plan["sites_per_block"], S)] = plan
+            before = ck.launch_counts()
+            n = cf.ell_power_iteration(data, sk, v, iters, mode=mode)
+            n_again = cf.ell_power_iteration(data, sk, v, iters, mode=mode)
+            torch.cuda.synchronize()
+            launched = launched_since(before)
+            e_plain, e_step = abs(float(n) - plain) / plain, abs(float(n) - per_step) / per_step
+            errs = {"vs_plain_rel": max(errs["vs_plain_rel"], e_plain),
+                    "vs_per_step_rel": max(errs["vs_per_step_rel"], e_step)}
+            ok = (ok and n.dim() == 0 and n.dtype == torch.float32 and math.isfinite(float(n))
+                  and e_plain <= POWER_TOL and e_step <= POWER_TOL and torch.equal(n_again, n)
+                  and launched == counts(ell_power_iteration=2, **{"ell_power_iteration.steps": 2 * iters}))
+            ran.append(mode)
+        return ok, errs, ran
+
+    power_err, power_plans, power_S = {"vs_plain_rel": 0.0, "vs_per_step_rel": 0.0}, {}, set()
+    power_cases = list(moment_cases)
+    power_cases += [(str(shape), *random_system(shape, seed=650 + i))
+                    for i, shape in enumerate(((64, 64, 4), (200, 200, 1), (32, 32, 1), (100, 100, 1)))]
+    for name, data, sk in power_cases:
+        power_S.add(sk.n_slots)
+        for iters in ((1, 2, 3, 60) if sk.n_sites <= 4096 else (60,)):
+            ok, err, ran = compare_power(data, sk, iters, seed=700 + iters, plans=power_plans)
+            check(ok and ran == list(cf.MODES), f"power kernel on {name}, iters={iters}: {err}, {ran}")
+            power_err = {k: max(power_err[k], err[k]) for k in power_err}
+    check(power_S == {5, 7}, f"the small shapes held the power kernel only at S in {power_S}")
+    power_occupancy = {f"{m}_SB{sb}_S{S_o}": cf.occupancy(plan, S_o, kind="power")
+                       for (m, sb, S_o), plan in power_plans.items()}
+    check(min(power_occupancy.values()) >= cf.FILTER_BLOCKS_PER_SM,
+          f"the power kernel holds {power_occupancy} blocks an SM, the plans assume {cf.FILTER_BLOCKS_PER_SM}")
+    emit({"phase": "kernels", "held": list(ck.POWER_KERNELS), "shapes": [name for name, _, _ in power_cases],
+          "S": sorted(power_S), "iters": [1, 2, 3, 60], "modes": list(cf.MODES), "plans": len(power_plans),
+          "blocks_per_sm_least": min(power_occupancy.values()), "blocks_per_sm": power_occupancy,
+          "tolerance": {"vs_plain": f"{POWER_TOL} of the norm (complex64 plain, same v)",
+                        "vs_per_step_kernels": f"{POWER_TOL} of the norm (ell_spmm launches, torch norms and "
+                                               "divisions); a second launch bit-equal"},
+          "max_rel_err": power_err, "launches": ck.launch_counts()})
+    del power_cases
     if quick:
         return 0
 
@@ -1227,6 +1294,90 @@ def main(argv) -> int:
               "bound_by": row["bound_by"], "plan": row["plan"]})
         return row
 
+    ITERS = 60  # spectral_bound's power iterations
+
+    def expected_bound(sk) -> dict:
+        """Launches one spectral bound on ``sk`` makes on the general step: one
+        ell_power_iteration launch of ITERS steps where power_plan fits, else
+        ITERS ell_spmm launches."""
+        if cf.power_plan(sk.n_sites, sk.n_slots, ITERS)["mode"] == "per_step":
+            return {"ell_spmm": ITERS}
+        return {"ell_power_iteration": 1, "ell_power_iteration.steps": ITERS}
+
+    def power_row(label, system, phase):
+        """One spectral bound's power iteration (ITERS steps, K = 1) on
+        ``system``'s operator through the power kernel in the planned mode:
+        against its plain version and the per-step path it replaced
+        (ck.power_recursion over ell_spmm: a launch, a norm and a division a
+        step) within POWER_TOL of the norm, a second call bit-equal; then timed
+        in turns with that per-step path (CUDA events around the host's loop) —
+        per-step path, kernel, kernel, per-step path — beside one iteration of
+        it (ell_spmm, norm, division) and ell_spmm alone, each replayed from a
+        CUDA graph, ell_spmm back to back from the host, and the library's
+        product at K = 1 (torch.sparse BSR @ dense).  ms is the wrapper's call
+        (the normalisation, the launch, the sum and square root).  bound_ms for
+        the function: operator, cols and v read once and the norm written, over
+        the memory rate, or the operations of ITERS steps (product, division,
+        squared norm) at the float32 rate; beside it the per-step byte bound
+        (spmm_bytes at K = 1)."""
+        sk = system.skeleton
+        N, S = sk.cols.shape
+        data = system.data
+        plan = cf.power_plan(N, S, ITERS)
+        v = random_vector(N, 1, 997)
+        u = v / torch.linalg.norm(v)
+        kernel = lambda: cf.ell_power_iteration(data, sk, v, ITERS)
+        per_step = lambda: ck.power_recursion(lambda w: ck.ell_spmm(data, sk, w), v, ITERS)
+        n, n_again = kernel(), kernel()
+        plain, n_step = float(cf.ell_power_iteration_plain(data, sk, v, ITERS)), float(per_step())
+        err, err_step = abs(float(n) - plain), abs(float(n) - n_step)
+        check(math.isfinite(float(n)) and err <= POWER_TOL * plain and err_step <= POWER_TOL * n_step
+              and torch.equal(n, n_again),
+              f"ell_power_iteration on {label}: {err / plain} of the norm from its plain version, "
+              f"{err_step / n_step} from the per-step kernels, repeat bit-equal {torch.equal(n, n_again)}")
+        per_step_a = timed_ms(per_step, 3)
+        runs = [timed_ms(kernel, 5), timed_ms(kernel, 5)]
+        per_step_b = timed_ms(per_step, 3)
+        plain_ms = timed_ms(lambda: cf.ell_power_iteration_plain(data, sk, v, ITERS), 1)
+
+        def one_iteration():
+            w = ck.ell_spmm(data, sk, u)
+            return w / torch.linalg.norm(w)
+
+        iteration_graph = graph_ms(one_iteration)
+        spmm_graph = graph_ms(lambda: ck.ell_spmm(data, sk, u))
+        spmm_host = timed_ms(lambda: ck.ell_spmm(data, sk, u), 200)
+        lib_layout, lib_fn, lib_y, lib_errors = library_spmm(data, sk, u)
+        lib_ms = None
+        if lib_fn is not None:
+            check(torch.allclose(lib_y, ck.ell_spmm(data, sk, u), atol=2e-4, rtol=2e-4),
+                  "library product disagrees with the kernel at K = 1")
+            lib_ms = timed_ms(lib_fn, 50)
+        entries = N * BLOCK
+        nbytes = data.numel() * 8 + N * S * 4 + entries * 8 + 4
+        flops = ITERS * (spmm_flops(sk, 1) + 6 * entries)
+        row = bound_row("ell_power_iteration", label, sk, 1, min(runs), plain_ms, nbytes, flops, err, lib_ms,
+                        f"torch.sparse {lib_layout} @ dense, one product of the {ITERS}" if lib_fn is not None
+                        else "none: " + "; ".join(lib_errors), runs)
+        step_bound = spmm_bytes(sk, 1, 8) / HBM_BYTES_PER_S * 1e3
+        per_step_ms = min(per_step_a, per_step_b)
+        row.update(steps=ITERS, plan=plan, max_rel_err=err / plain, vs_per_step_rel=err_step / n_step,
+                   ms_per_step=row["ms"] / ITERS, step_bound_ms=step_bound,
+                   share_of_step_bound=step_bound * ITERS / row["ms"], per_step_path_ms=per_step_ms,
+                   per_step_path_runs_ms=[per_step_a, per_step_b], per_step_path_ms_per_step=per_step_ms / ITERS,
+                   iteration_graph_ms=iteration_graph, over_per_step_path=row["ms"] / per_step_ms,
+                   over_graph_replayed_iterations=row["ms"] / (iteration_graph * ITERS),
+                   ell_spmm_K1={"graph_ms": spmm_graph, "host_issue_ms": spmm_host, "bound_ms": step_bound,
+                                "share_of_bound_graph": step_bound / spmm_graph})
+        emit({"phase": phase, "timing": "ell_power_iteration", "bound_of": label, "N": N, "S": S, "steps": ITERS,
+              "ms": row["ms"], "ms_per_step": row["ms_per_step"], "step_bound_ms": step_bound,
+              "vs_plain_rel": err / plain, "vs_per_step_rel": err_step / n_step,
+              "per_step_path_ms_per_step": row["per_step_path_ms_per_step"], "iteration_graph_ms": iteration_graph,
+              "ell_spmm_K1": row["ell_spmm_K1"], "library_ms": lib_ms, "bound_ms": row["bound_ms"],
+              "bound_by": row["bound_by"], "plan": plan})
+        del lib_fn, lib_y
+        return row
+
     shared = {}  # results one phase hands to a later one
 
     def phase_main():
@@ -1236,8 +1387,10 @@ def main(argv) -> int:
         energies = np.linspace(-1.0, 1.0, 41)
         expected = counts()  # the backward kernels stay at 0 on this path
 
-        def call(label, fn, order, K, sk, bound_iters=0):
-            """Run one entry point, synchronised; account for the launches it must make."""
+        def call(label, fn, order, K, sk, bound=False, products=0):
+            """Run one entry point, synchronised; account for the launches it must
+            make: its moment sweep (``order``), its spectral bound (``bound``) and
+            ``products`` ell_spmm launches besides."""
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn()
@@ -1250,9 +1403,12 @@ def main(argv) -> int:
             elif mode is not None:  # one launch of the moment kernel a sweep
                 expected["ell_cheb_moments"] += 1
                 expected["ell_cheb_moments.steps"] += steps
-            expected["ell_spmm"] += bound_iters
+            bound_mode = cf.power_plan(sk.n_sites, sk.n_slots, ITERS)["mode"] if bound else None
+            for name, n in expected_bound(sk).items() if bound else ():
+                expected[name] += n
+            expected["ell_spmm"] += products
             rec = {"phase": "main", "call": label, "wall_s": wall, "fused_steps": steps, "moments_mode": mode,
-                   "spmm_launches": bound_iters}
+                   "bound_mode": bound_mode, "spmm_launches": products + (ITERS if bound_mode == "per_step" else 0)}
             if steps:
                 step_bytes = chebyshev_step_bytes(sk, K, 8)
                 rec.update({
@@ -1276,10 +1432,9 @@ def main(argv) -> int:
               "N": sk_big.n_sites, "S": sk_big.n_slots, "data_MB": big.data.numel() * 8 / 1e6,
               "hermiticity_error": big._hermiticity_error()})
 
-        ITERS = 60  # spectral_bound's power iterations, one ell_spmm each
-        scale_big = call("spectral_bound", lambda: kpm.spectral_bound(big.data, sk_big), 0, 1, sk_big, ITERS)
+        scale_big = call("spectral_bound", lambda: kpm.spectral_bound(big.data, sk_big), 0, 1, sk_big, bound=True)
         F_cold = call("free_energy(T=0.01, kpm, order=256, samples=8)",
-                      lambda: big.free_energy(0.01, method="kpm", order=256, samples=8), 256, 8, sk_big, ITERS)
+                      lambda: big.free_energy(0.01, method="kpm", order=256, samples=8), 256, 8, sk_big, bound=True)
         F_warm = call("free_energy(T=0.5, kpm, order=256, samples=8)",
                       lambda: big.free_energy(0.5, method="kpm", order=256, samples=8, scale=scale_big),
                       256, 8, sk_big)
@@ -1293,7 +1448,7 @@ def main(argv) -> int:
         dos = call("dos(order=256, samples=8)",
                    lambda: big.dos(energies, order=256, samples=8, scale=scale_big), 256, 8, sk_big)
         v_big = random_vector(sk_big.n_sites, 8, 7)
-        y_big = call("apply(K=8)", lambda: big.apply(v_big), 0, 8, sk_big, 1)
+        y_big = call("apply(K=8)", lambda: big.apply(v_big), 0, 8, sk_big, products=1)
 
         t0 = time.perf_counter()
         rashba = rashba_dp_wave((64, 64, 4))
@@ -1302,9 +1457,9 @@ def main(argv) -> int:
         emit({"phase": "main", "call": "rashba_dp_wave((64,64,4))", "wall_s": time.perf_counter() - t0,
               "N": sk_r.n_sites, "S": sk_r.n_slots, "hermiticity_error": rashba._hermiticity_error()})
         F_r = call("rashba free_energy(T=0.01, kpm, order=256, samples=8)",
-                   lambda: rashba.free_energy(0.01, method="kpm", order=256, samples=8), 256, 8, sk_r, ITERS)
+                   lambda: rashba.free_energy(0.01, method="kpm", order=256, samples=8), 256, 8, sk_r, bound=True)
         rho_r = call("rashba ldos((32,32,2), order=512)",
-                     lambda: rashba.ldos((32, 32, 2), energies, method="kpm", order=512), 512, 4, sk_r, ITERS)
+                     lambda: rashba.ldos((32, 32, 2), energies, method="kpm", order=512), 512, 4, sk_r, bound=True)
 
         t0 = time.perf_counter()
         square = swave_superconductor((200, 200, 1))  # BASELINE config 3: KPM LDOS on 200×200 s-wave
@@ -1313,7 +1468,8 @@ def main(argv) -> int:
         emit({"phase": "main", "call": "swave_superconductor((200,200,1))", "wall_s": time.perf_counter() - t0,
               "N": sk_q.n_sites, "S": sk_q.n_slots, "hermiticity_error": square._hermiticity_error()})
         rho_q = call("200x200 ldos((100,100,0), order=512)",
-                     lambda: square.ldos((100, 100, 0), energies, method="kpm", order=512), 512, 4, sk_q, ITERS)
+                     lambda: square.ldos((100, 100, 0), energies, method="kpm", order=512), 512, 4, sk_q,
+                     bound=True)
 
         main_launches = ck.launch_counts()  # read right after the main path
         peak_GB = torch.cuda.max_memory_allocated() / 1e9
@@ -1322,7 +1478,9 @@ def main(argv) -> int:
         outside = np.abs(energies) >= 0.5  # beyond the s-wave gap Δ = 0.3
         check(main_launches == expected, f"launch counters {main_launches} != expected {expected}")
         check(main_launches["ell_spmm"] > 0 and main_launches["ell_cheb_step"] > 0
-              and main_launches["ell_cheb_moments"] == 3, "a kernel of the main path was never launched")
+              and main_launches["ell_cheb_moments"] == 3 and main_launches["ell_power_iteration"] == 3
+              and cf.power_plan(sk_big.n_sites, sk_big.n_slots, ITERS)["mode"] == "per_step",
+              "a kernel of the main path was never launched, or the 10⁶ bounds were not per step")
         check(rho.shape == (41,) and np.isfinite(rho).all() and rho.min() >= -1e-6, "LDOS not finite / negative")
         check(rho[mid] < 0.1 * rho[outside].mean(), f"no s-wave gap: rho(0)={rho[mid]} vs {rho[outside].mean()}")
         check(rho_map.shape == (16, 41) and np.isfinite(rho_map).all() and rho_map.min() >= -1e-6, "LDOS map wrong")
@@ -1380,6 +1538,9 @@ def main(argv) -> int:
                                         ("rashba 64x64x4, ldos' sweep", rashba, 4, 512),
                                         ("swave 200x200x1, ldos' sweep", square, 4, 512)):
             kernel_rows.setdefault("ell_cheb_moments", moments_row("ell_cheb_moments", label, system, K, order))
+        # The power kernel at the two lattices of the main path whose bounds launch it.
+        for label, system in (("rashba 64x64x4", rashba), ("swave 200x200x1", square)):
+            kernel_rows.setdefault("ell_power_iteration", power_row(label, system, "main"))
 
         # ------------------------------------------------------------------ 5. main path, checked
         # impl="cuda" (kernels, complex64 after the down-cast) against impl="plain"
@@ -2367,7 +2528,7 @@ def main(argv) -> int:
         wall_rec = time.perf_counter() - t0
         recorded = ck.launch_counts()
         lowest_launches = {n: lowest_launches[n] + recorded[n] for n in recorded}
-        want_launches = counts(**expected_filter(small.skeleton, info["history"]), ell_spmm=60)
+        want_launches = counts(**expected_filter(small.skeleton, info["history"]), **expected_bound(small.skeleton))
         emit({"phase": "lowest", "call": "32x32: diagonalize(method='lanczos', k=4)", "wall_s": wall, "E": E_l.tolist(),
               "residual_max": float(np.abs(H @ X_l - X_l * E_l).max()), **errs,
               "launches": {n: v for n, v in launched.items() if v}, "tolerance": 1e-6,
@@ -2409,7 +2570,8 @@ def main(argv) -> int:
         held_at_widths("32x32 modulated s-wave", small, {h[4] for h in info["history"]}, tiled=True)
         by_width = steps_by_width(history_32)
         rows = {"ell_cheb_filter": filter_row("ell_cheb_filter", "32x32 modulated s-wave", small,
-                                              max(by_width, key=by_width.get))}
+                                              max(by_width, key=by_width.get)),
+                "ell_power_iteration": power_row("32x32 modulated s-wave", small, "lowest")}
         del small, H
 
         # The 100×100 s-wave lattice (dim 40 000, open boundaries, Δ = 0.3, μ = 0.5)
@@ -2460,12 +2622,13 @@ def main(argv) -> int:
               "derived_from_history": derived, "steps_by_width": steps_by_width(info["history"]),
               "seconds": info["seconds"], "host_share": info["seconds"]["host"] / wall,
               "filter_share": info["seconds"]["filter"] / wall})
-        want_launches = counts(**expected_filter(sk, info["history"]), ell_spmm=60)
+        want_launches = counts(**expected_filter(sk, info["history"]), **expected_bound(sk))
         check(launched == want_launches and launched["ell_cheb_filter.steps"] + launched["ell_cheb_step"] == derived,
               f"100x100 launched {launched}, the history says {want_launches}")
         check(len(E_big) == k and diff <= limit,
               f"100x100 lowest states differ from shift-invert by {diff} (converged={info['converged']})")
         held_at_widths("100x100 + six magnetic impurities", big, {h[4] for h in info["history"]})
+        power_row("100x100 + six magnetic impurities", big, "lowest")
         del big, X_all
 
         # The 100×100 s-wave lattice with a uniform Zeeman field (t = 1, μ = −3,
@@ -2527,7 +2690,7 @@ def main(argv) -> int:
               "derived_from_history": derived, "steps_by_width": steps_by_width(info["history"]),
               "seconds": info["seconds"], "host_share": info["seconds"]["host"] / wall,
               "filter_share": info["seconds"]["filter"] / wall})
-        want_launches = counts(**expected_filter(sk, info["history"]), ell_spmm=60)
+        want_launches = counts(**expected_filter(sk, info["history"]), **expected_bound(sk))
         check(launched == want_launches and launched["ell_cheb_filter.steps"] + launched["ell_cheb_step"] == derived,
               f"uniform 100x100 launched {launched}, the history says {want_launches}")
         check(diff <= limit, f"uniform 100x100 lowest states differ from eigvalsh by {diff} (converged={info['converged']})")
@@ -2970,11 +3133,14 @@ def main(argv) -> int:
         _, _, info16 = lz.lowest_eigenstates(small.data, small.skeleton, 2 * k + 2, full_output=True,
                                              operator_dtype="bf16")
         recorded = launched_since(before)
-        want16 = counts(**expected_filter(small.skeleton, info16["history"], bf16=True), ell_spmm=60)
+        want16 = counts(**expected_filter(small.skeleton, info16["history"], bf16=True),
+                        **expected_bound(small.skeleton))
         check(per_call[label_l] == recorded == want16 and recorded["ell_cheb_filter_bf16"] == info16["iterations"],
               f"bf16 lanczos launched {per_call[label_l]}, its record {recorded}, the history says {want16}")
         float32_forward = {n: v for n, v in bf16_launches.items() if v and "_bf16" not in n}
-        check(float32_forward == {"ell_spmm": 120}, f"float32 launches in the bf16 path beyond the bounds': {float32_forward}")
+        bounds_launches = {"ell_spmm": ITERS, "ell_power_iteration": 1, "ell_power_iteration.steps": ITERS}
+        check(float32_forward == bounds_launches,  # the 10⁶ bound per step, the 32×32 one a launch
+              f"float32 launches in the bf16 path beyond the bounds': {float32_forward}")
 
         # Held: each observable finite and of the float32 call's shape, the s-wave gap
         # visible; the drift of each against the float32 call; the world of one against
@@ -3553,6 +3719,8 @@ def main(argv) -> int:
         # The reference's doubled-moment scan over the same fused step, one launch a sweep here.
         "ell_cheb_moments": "bodge_tpu/ops/pallas_spmm.py:1547",
         "ell_cheb_moments_bf16": "bodge_tpu/ops/pallas_spmm.py:1547",
+        # The product under the reference's power-iteration scan (bodge_tpu/ops/chebyshev.py:134), one launch here.
+        "ell_power_iteration": "bodge_tpu/ops/pallas_spmm.py:440",
     }
     for name in ("ell_spmm", "ell_cheb_step", "ell_spmm_halo", "ell_cheb_step_halo", "ell_gather_spmm",
                  "ell_gather_cheb_step", "stencil_cheb_step_tiled"):
@@ -3581,10 +3749,12 @@ def main(argv) -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             **{key: row[key] for key in ("plan", "yardstick", "yardstick_ms", "order", "ms_per_step", "step_bound_ms",
-                                         "share_of_step_bound") if key in row},
+                                         "share_of_step_bound", "library", "per_step_path_ms_per_step",
+                                         "iteration_graph_ms") if key in row},
         })
         if name in ck.SWEEP_KERNELS:
-            kernels[-1]["steps"] = sum(results[p][0][name + ".steps"] for p in paths.values())
+            steps_by_path = {label: results[p][0][name + ".steps"] for label, p in paths.items()}
+            kernels[-1].update(steps=sum(steps_by_path.values()), steps_by_path=steps_by_path)
         check(sum(by_path.values()) > 0, f"{name} was launched on none of the driven paths")
     print(smi, flush=True)
     emit({"kernels": kernels})

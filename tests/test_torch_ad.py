@@ -339,7 +339,7 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
     N, S = sk.cols.shape
     data, v = _random((N, S, 4, 4), 30), _random((N, 4, 2), 31)
     before = ck.launch_counts()
-    assert set(before) == set(ck.KERNELS) | {f"{n}.steps" for n in ck.SWEEP_KERNELS} and len(ck.KERNELS) == 22
+    assert set(before) == set(ck.KERNELS) | {f"{n}.steps" for n in ck.SWEEP_KERNELS} and len(ck.KERNELS) == 23
     for call in (
         lambda: ck.ell_spmm_adjoint(data, sk, v, impl="cuda"),
         lambda: ck.ell_block_outer(v, sk, v, impl="cuda"),

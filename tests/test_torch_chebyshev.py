@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from bodge_tpu.models import systems as jsys
@@ -186,3 +187,14 @@ def test_spectral_bound(system, request):
         assert abs(got - want) <= 0.03 * want
         gen = torch.Generator().manual_seed(3)
         assert abs(tkpm.spectral_bound(st.data, st.skeleton, generator=gen) - want) <= 0.03 * want
+        # The power kernel's plain version from the reference's own start vector:
+        # its norm is the reference's bound / 1.05 to 1e-10 in complex128 (the same
+        # loop, products summed in another order), and to 1e-5 in complex64 (60
+        # float32 products and norms).
+        v = torch.as_tensor(np.array(jax.random.normal(jax.random.PRNGKey(0), (st.skeleton.n_sites, 4, 1),
+                                                         dtype=jnp.complex128)))
+        norm = want / 1.05
+        got128 = tf.ell_power_iteration_plain(st.data.to(torch.complex128), st.skeleton, v, 60)
+        assert got128.dtype == torch.float64 and abs(float(got128) - norm) <= 1e-10 * norm
+        got64 = tf.ell_power_iteration_plain(st.data.to(torch.complex64), st.skeleton, v.to(torch.complex64), 60)
+        assert got64.dtype == torch.float32 and abs(float(got64) - norm) <= 1e-5 * norm

@@ -2,9 +2,12 @@
 its plain version against the reference's doubled-moment scan
 (``bodge_tpu/ops/chebyshev.py`` ``_moments_scan``) on an 8×8 s-wave and a
 (3,3,2) Rashba lattice, its launch plan, its wrapper's refusals, and
-``moments_fused`` on CPU tensors staying on the plain per-step path (the
-kernel runs only on the card: ``chip_smoke.py``, the small kernel checks and
-phases ``main`` and ``bf16``)."""
+``moments_fused`` on CPU tensors staying on the plain per-step path; and the
+spectral bound's power iteration in one launch (``ell_power_iteration``): its
+launch plan and its wrapper on CPU tensors (its plain version against the
+reference's bound is in ``tests/test_torch_chebyshev.py``).  The kernels run
+only on the card: ``chip_smoke.py``, the small kernel checks and phases
+``main``, ``lowest`` and ``bf16``."""
 
 import numpy as np
 import pytest
@@ -99,7 +102,8 @@ def test_moments_wrapper_refusals(references):
     v = torch.as_tensor(v0).to(torch.complex64)
     before = tck.launch_counts()
     assert {"ell_cheb_moments", "ell_cheb_moments.steps", "ell_cheb_moments_bf16.steps"} <= set(before)
-    assert set(tck.SWEEP_KERNELS) == {"ell_cheb_filter", "ell_cheb_filter_bf16", *tck.MOMENT_KERNELS}
+    assert set(tck.SWEEP_KERNELS) == {"ell_cheb_filter", "ell_cheb_filter_bf16", *tck.MOMENT_KERNELS,
+                                      *tck.POWER_KERNELS}
     with pytest.raises(RuntimeError, match="CUDA device"):
         tcf.ell_cheb_moments(data, sk, v, 0.1, 8, impl="cuda")
     with pytest.raises(RuntimeError, match="CUDA device"):
@@ -141,3 +145,60 @@ def test_moments_fused_on_cpu_runs_the_plain_path(references):
     plain16 = tcf.ell_cheb_moments_plain(tck.bf16_operator(st.data), sk, v64, 1.0 / SCALE, 7)
     assert got16.dtype == torch.float32 and np.abs((got16 - plain16).numpy()).max() <= 1e-6 * plain16.abs().max()
     assert tck.launch_counts() == before
+
+
+# The power kernel's plan on 132 SMs at the main path's spectral bounds (K = 1,
+# 60 steps): rashba 64×64×4 (S = 7), the 200×200 s-wave and the lowest-states
+# lattices 32×32 and 100×100 (S = 5) fit one site a thread; 10⁶ sites no plan
+# (a block's sites beyond its shared memory at 528 blocks).
+@pytest.mark.parametrize("N, S, mode, grid, sites", [
+    (16384, 7, "registers", 274, 60),
+    (40000, 5, "registers", 477, 84),
+    (1024, 5, "registers", 128, 8),
+    (10000, 5, "registers", 132, 76),
+    (1000000, 5, "per_step", 0, 0),
+])
+def test_power_plan(N, S, mode, grid, sites):
+    plan = tcf.power_plan(N, S, 60, sms=132)
+    assert (plan["mode"], plan["grid"], plan["sites_per_block"], plan["steps"]) == (mode, grid, sites, 60)
+    if mode == "per_step":
+        for forced in tcf.MODES:  # a forced mode that does not fit raises
+            with pytest.raises(ValueError, match=f"power kernel's {forced} mode does not fit"):
+                tcf.power_plan(N, S, 60, mode=forced, sms=132)
+        return
+    assert grid <= tcf.FILTER_BLOCKS_PER_SM * 132 and (grid - 1) * sites < N <= grid * sites
+    assert plan["smem_bytes"] == sites * tcf._site_bytes(S, False) + tcf.POWER_BLOCK_BYTES <= tcf.FILTER_SMEM_CAP
+    assert plan["partials_bytes"] == 60 * grid * 4
+    assert tcf.power_plan(N, S, 60, mode="global", sms=132)["mode"] == "global"
+    # partials past the cap do not fit: the per-step path, or a refusal when forced
+    long = tcf.MOMENTS_PARTIALS_CAP // (grid * 4) + 1
+    assert tcf.power_plan(N, S, long, sms=132)["mode"] != mode
+    with pytest.raises(ValueError, match="steps of partials"):
+        tcf.power_plan(N, S, long, mode=mode, sms=132)
+
+
+# On a CPU tensor the wrapper runs the plain version, and spectral_bound the
+# plain per-step loop (the same float64 loop bit for bit); impl="cuda" raises;
+# no launch is counted.
+def test_power_iteration_on_cpu(references):
+    st, _, _ = references["swave"]
+    sk, data = st.skeleton, st.data
+    rng = np.random.default_rng(0)  # spectral_bound's start vector at seed 0
+    v = torch.as_tensor(rng.standard_normal((sk.n_sites, 4, 1)) + 1j * rng.standard_normal((sk.n_sites, 4, 1)))
+    before = tck.launch_counts()
+    assert {"ell_power_iteration", "ell_power_iteration.steps"} <= set(before)
+    got = tcf.ell_power_iteration(data, sk, v, 60)
+    assert got.dim() == 0 and got.dtype == torch.float64
+    assert torch.equal(got, tcf.ell_power_iteration_plain(data, sk, v, 60))
+    assert tck.power_mode(tck.StepPlan(sk, 1, None, data), data, 60) == "plain"
+    from bodge_tpu_torch.ops import chebyshev as tkpm
+
+    assert tkpm.spectral_bound(data, sk) == float(got) * 1.05
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tcf.ell_power_iteration(data.to(torch.complex64), sk, v.to(torch.complex64), 60, impl="cuda")
+    for iters in (0, -2):
+        with pytest.raises(ValueError, match="iters"):
+            tcf.ell_power_iteration(data, sk, v, iters)
+        with pytest.raises(ValueError, match="iters"):
+            tcf.power_plan(sk.n_sites, sk.n_slots, iters)
+    assert tck.launch_counts() == before  # plain versions count no launch

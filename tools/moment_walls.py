@@ -7,8 +7,11 @@ where a sweep's steps are launch-bound: on ``rashba_dp_wave((64,64,4))``
 (K = 8) and ``ldos((32,32,2), order=512)`` (K = 4), and on
 ``swave_superconductor((200,200,1))`` (N = 40000, S = 5)
 ``ldos((100,100,0), order=512)`` (K = 4); each computes its own spectral bound
-(60 products), as the phase's calls do.  Run it on a machine with one NVIDIA
-card and ``nvcc``, once per checkout, in turns, on the same card::
+(60 power iterations), as the phase's calls do.  Beside each call the bound
+alone (``spectral_bound`` on the same operator) is measured the same way, so
+a wall splits into the bound and the rest (the moment sweep and host work).
+Run it on a machine with one NVIDIA card and ``nvcc``, once per checkout, in
+turns, on the same card::
 
     python3 tools/moment_walls.py --root <checkout> --tag parent --out walls.jsonl
 
@@ -17,8 +20,9 @@ built into its own ``build/``).  Each call runs once to warm up, then
 ``--reps`` times (5), each wall on the host clock between two
 ``torch.cuda.synchronize()``; one JSON line per call gives the walls, their
 least, and the launches one call made (``launch_counts``, the kernels it
-launched only), appended to ``--out`` and printed, after a line with the
-card's name and power limit.
+launched only), and the same three for its bound alone (``bound_*``),
+appended to ``--out`` and printed, after a line with the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ def main(argv) -> int:
     sys.path.insert(0, args.root)
     from bodge_tpu_torch.models.systems import rashba_dp_wave, swave_superconductor
     from bodge_tpu_torch.ops import cuda_spmm as ck
+    from bodge_tpu_torch.ops.chebyshev import spectral_bound
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -54,16 +59,17 @@ def main(argv) -> int:
     energies = np.linspace(-1.0, 1.0, 41)
     rashba = rashba_dp_wave((64, 64, 4))
     square = swave_superconductor((200, 200, 1))
-    calls = {
+    calls = {  # label: (the call, its operator)
         "rashba 64x64x4: free_energy(T=0.01, order=256, samples=8)":
-            lambda: rashba.free_energy(0.01, method="kpm", order=256, samples=8),
+            (lambda: rashba.free_energy(0.01, method="kpm", order=256, samples=8), rashba),
         "rashba 64x64x4: ldos((32,32,2), order=512)":
-            lambda: rashba.ldos((32, 32, 2), energies, method="kpm", order=512),
+            (lambda: rashba.ldos((32, 32, 2), energies, method="kpm", order=512), rashba),
         "200x200: ldos((100,100,0), order=512)":
-            lambda: square.ldos((100, 100, 0), energies, method="kpm", order=512),
+            (lambda: square.ldos((100, 100, 0), energies, method="kpm", order=512), square),
     }
-    lines = []
-    for label, fn in calls.items():
+
+    def measure(fn):
+        """(least wall, walls, launches of one call) of ``fn`` after a warm-up."""
         fn()
         torch.cuda.synchronize()
         before = ck.launch_counts()
@@ -78,8 +84,15 @@ def main(argv) -> int:
             fn()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+        return min(walls), walls, launched
+
+    lines = []
+    for label, (fn, system) in calls.items():
+        least, walls, launched = measure(fn)
+        b_least, b_walls, b_launched = measure(lambda: spectral_bound(system.data, system.skeleton))
         lines.append({"tool": "moment_walls", "tag": args.tag, "root": args.root, "nvidia_smi": smi,
-                      "call": label, "wall_s_least": min(walls), "walls_s": walls, "launches": launched})
+                      "call": label, "wall_s_least": least, "walls_s": walls, "launches": launched,
+                      "bound_wall_s_least": b_least, "bound_walls_s": b_walls, "bound_launches": b_launched})
         print(json.dumps(lines[-1]), flush=True)
     if args.out:
         with open(args.out, "a") as f:
