@@ -26,11 +26,6 @@ from bodge_tpu_torch.ops import blocksparse as tbs
 from bodge_tpu_torch.ops import cuda_spmm as ck
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
-
-from tests.test_torch_banded import single_blas_thread  # noqa: E402,F401  (autouse: one BLAS thread per test)
 
 C128 = torch.complex128
 

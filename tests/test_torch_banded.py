@@ -3,44 +3,14 @@ bandwidth) identical to ``bodge_tpu``'s, and the banded eigensolver against
 the reference's on the same block data.  Both sides are NumPy / SciPy on the
 host, so the tolerance is LAPACK round-off (1e-10)."""
 
-import contextlib
-
 import numpy as np
 import pytest
-import torch
 
 import bodge_tpu as J
 import bodge_tpu_torch as T
 from bodge_tpu.ops import banded as jbanded
 from bodge_tpu_torch.ops import banded as tbanded
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
-
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
-
-
-@contextlib.contextmanager
-def one_blas_thread():
-    """One BLAS thread inside the block.  NumPy's and SciPy's OpenBLAS would
-    otherwise fan every small QR, eigh and product of the host algebra out to
-    all cores and spin there against the suite's other workers — which slows
-    the test tenfold and, worse, the long JAX tests running beside it."""
-    try:
-        from threadpoolctl import threadpool_limits
-    except ImportError:  # no limiter at hand: run as is
-        yield
-        return
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
-
-
-@pytest.fixture(autouse=True)
-def single_blas_thread():
-    """Every test of this file (and of the files that import this fixture)
-    runs under :func:`one_blas_thread`."""
-    with one_blas_thread():
-        yield
 
 
 def ring_lattice(pkg, n):

@@ -29,14 +29,9 @@ from bodge_tpu_torch.ops import lanczos as tlz
 from bodge_tpu_torch.ops.spmm import chebyshev_step_bytes, spmm_bytes
 from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy
 from tests.test_pallas import random_system
-from tests.test_torch_banded import one_blas_thread, single_blas_thread  # noqa: F401  (autouse fixture)
 from tests.test_torch_gather import build_ring
 from tests.test_torch_lanczos import bound_state_system
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
-
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
 
 SHAPE = (6, 5, 1)  # the system of the reference's own bf16 test (tests/test_pallas.py)
 ENERGIES = np.linspace(-1.5, 1.5, 7)

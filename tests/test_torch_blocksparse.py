@@ -15,10 +15,6 @@ from bodge_tpu_torch.ops import blocksparse as tbs
 import torch
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
-
 
 def _same_skeleton(a, b):
     assert a.shape == b.shape

@@ -23,10 +23,6 @@ from bodge_tpu_torch.ops import cuda_spmm as tk
 from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
-
 SCALE = 7.5  # shared Chebyshev scale, above the norm of both test systems
 
 

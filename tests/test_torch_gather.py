@@ -30,12 +30,8 @@ from bodge_tpu_torch.ops import cuda_gather as cg
 from bodge_tpu_torch.ops import cuda_spmm as ck
 from bodge_tpu_torch.ops.spmm import spmm as tspmm
 from bodge_tpu_torch.utils.convert import gather_layout_from_numpy, tensor_from_numpy
-from tests.test_torch_banded import ring_lattice, single_blas_thread  # noqa: F401  (autouse fixture)
+from tests.test_torch_banded import ring_lattice
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
-
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
 
 
 def build_ring(pkg, n, mu=0.4, delta=0.3, **kw):

@@ -15,10 +15,6 @@ from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy, to_numpy
 import torch
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
-
 
 def _quickstart(pkg, L=8, **kw):
     """The README quickstart through the ``with`` DSL."""

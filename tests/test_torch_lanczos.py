@@ -8,19 +8,13 @@ kernels in complex128."""
 
 import numpy as np
 import pytest
-import torch
 
 import bodge_tpu as J
 import bodge_tpu_torch as T
 from bodge_tpu.ops import lanczos as jlz
 from bodge_tpu_torch.ops import lanczos as tlz
-from tests.test_torch_banded import one_blas_thread, single_blas_thread  # noqa: F401  (autouse fixture)
 from tests.test_torch_gather import build_ring
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
-
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
 
 
 def swave_system(pkg, shape, delta=0.2, mu=0.5, m=0.0, pot=0.0, **kw):
@@ -75,8 +69,7 @@ def lowest_reference(system, nev):
 def bound_states():
     """The bound-state lattice, nev = 8, seed 3: the port's run."""
     st = bound_state_system(T, device="cpu")
-    with one_blas_thread():  # a module fixture runs outside the per-test limit
-        E, X, info = tlz.lowest_eigenstates(st.data, st.skeleton, 8, full_output=True, seed=3)
+    E, X, info = tlz.lowest_eigenstates(st.data, st.skeleton, 8, full_output=True, seed=3)
     return st, E, X, info
 
 

@@ -15,13 +15,8 @@ from bodge_tpu_torch.ops import cuda_filter as tcf
 from bodge_tpu_torch.ops import cuda_spmm as tck
 from bodge_tpu_torch.ops import lanczos as tlz
 import bodge_tpu_torch as T
-from tests.test_torch_banded import single_blas_thread  # noqa: F401  (autouse fixture)
 from tests.test_torch_lanczos import swave_system
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
-
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
 
 
 def _rr_inputs():
@@ -61,8 +56,6 @@ def _helper_case(name, mod):
 def test_numpy_pieces_bit_equal(name):
     _same_arrays(_helper_case(name, tlz), _helper_case(name, jlz))
     assert tlz._ORDER_BUCKETS == jlz._ORDER_BUCKETS and tlz._RES_C == jlz._RES_C
-
-
 
 
 # The filter kernel's launch plan (pure arithmetic) at the widths the solver's

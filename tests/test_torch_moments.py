@@ -20,12 +20,7 @@ from bodge_tpu.ops import chebyshev as jkpm
 from bodge_tpu_torch.ops import cuda_filter as tcf
 from bodge_tpu_torch.ops import cuda_spmm as tck
 from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy
-from tests.test_torch_banded import single_blas_thread  # noqa: F401  (autouse fixture: one BLAS thread)
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
-
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
 
 SCALE = 7.5  # above the norm of both systems
 ORDERS = (1, 2, 7, 32)

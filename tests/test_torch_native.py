@@ -21,13 +21,7 @@ from bodge_tpu import native as jnative
 from bodge_tpu.ops import blocksparse as jbs
 from bodge_tpu_torch import native
 from bodge_tpu_torch.ops import blocksparse as tbs
-from tests.test_torch_banded import one_blas_thread, single_blas_thread  # noqa: F401  (autouse fixture)
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
-
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.  The
-# native tier takes its OpenMP thread count from torch.
-torch.set_num_threads(1)
 
 SHAPE = (6, 5, 1)
 

@@ -34,13 +34,8 @@ from bodge_tpu_torch.ops import chebyshev as tkpm
 from bodge_tpu_torch.ops import cuda_spmm as ck
 from bodge_tpu_torch.ops import planar as tpl
 from bodge_tpu_torch.parallel import RowSharding, free_energy_kpm_sharded, make_row_mesh
-from tests.test_torch_banded import one_blas_thread, single_blas_thread  # noqa: F401  (autouse fixture)
 from tests.test_torch_gather import build_ring
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
-
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
 
 SHAPE = (6, 5, 1)
 ENERGIES = np.linspace(-1.5, 1.5, 7)

@@ -13,12 +13,7 @@ import torch
 from bodge_tpu.utils import profiling as jprof
 from bodge_tpu_torch.utils import profiling as tprof
 from bodge_tpu_torch.utils import trace as ttrace
-from tests.test_torch_banded import single_blas_thread  # noqa: F401  (autouse fixture)
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
-
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
 
 
 def test_roofline_matches_reference():

@@ -20,11 +20,6 @@ from bodge_tpu_torch.models import selfconsistency as tsc
 from bodge_tpu_torch.utils.convert import tensor_from_numpy
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
-
-from tests.test_torch_banded import single_blas_thread  # noqa: E402,F401  (autouse: one BLAS thread per test)
 
 CHANNELS = [None, "dwave", ("pwave", "e_z * p_x")]
 SHAPE = (8, 6, 1)

@@ -11,12 +11,8 @@ import bodge_tpu as J
 import bodge_tpu_torch as T
 from bodge_tpu.utils import serialization as jser
 from bodge_tpu_torch.utils import serialization as tser
-from tests.test_torch_banded import ring_lattice, single_blas_thread  # noqa: F401  (autouse fixture)
+from tests.test_torch_banded import ring_lattice
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
-
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
 
 
 def build(pkg, kind, **kw):

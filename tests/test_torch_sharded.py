@@ -14,8 +14,8 @@ The ranks import neither ``jax`` nor ``bodge_tpu``: this module imports them
 only inside its tests.
 
 The reference's ``impl="pallas_sharded"`` objective runs interpret-mode
-Pallas inside ``shard_map``; its own test costs about 20 minutes of the
-suite, so it is not called here.
+Pallas inside ``shard_map``; its own test costs about 70 s of the suite
+(six workers, one BLAS thread each, 8-core CPU), so it is not called here.
 """
 
 import sys
@@ -53,23 +53,11 @@ from bodge_tpu_torch.parallel import (
 from bodge_tpu_torch.parallel.cuda_sharded import moments_sharded_ad
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
-
 SHAPE = (12, 3, 2)  # four ranks of three x-planes: the overlap split has an interior
 ORDER, K, SCALE, TEMP = 16, 4, 6.0, 0.1
 SITES = [5, 30, 41, 70]
 ENERGIES = np.linspace(-1.0, 1.0, 9)
 OBJECTIVE = dict(V=1.5, temperature=0.1, method="kpm", order=16, samples=4)
-
-
-@pytest.fixture(autouse=True)
-def single_blas_thread():
-    from tests.test_torch_banded import one_blas_thread  # imported here: the ranks import this module
-
-    with one_blas_thread():
-        yield
 
 
 def build_system(pkg, **kw):
@@ -104,7 +92,6 @@ def _objective(system, pairing, task, **kw):
 
 def _rank(rank, world, port, task, queue):
     """One gloo rank: every sharded entry point on CPU tensors."""
-    torch.set_num_threads(1)
     assert initialize_multihost(f"localhost:{port}", world, rank, backend="gloo") and is_multihost()
     try:
         data, v = task["data"], task["v"]

@@ -21,10 +21,6 @@ from bodge_tpu_torch.ops import spmm as tspmm
 from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
-
 
 def random_blocks(shape, pbc, seed=0):
     """Random complex blocks on every structural slot of the cubic skeleton;

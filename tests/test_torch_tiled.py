@@ -20,10 +20,6 @@ from bodge_tpu_torch.ops import chebyshev as tkpm
 from bodge_tpu_torch.ops import cuda_spmm as ck
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
-
 
 def build_system(pkg, shape, pbc, seed=12, **kw):
     """The system of the reference's plane-layout tests: open or periodic bonds,

@@ -6,14 +6,9 @@ their own so that no test file of the port outgrows the others (the suite's
 scheduler starts the files with the most tests first)."""
 
 import pytest
-import torch
 
 from tests.test_torch_tiled import check_tiled_plain_against_general
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
-
-# One intra-op thread: the suite runs several workers side by side, and idle
-# OpenMP threads of a multi-threaded torch would spin against them.
-torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("shape", [(2, 6, 1), (2, 2, 2), (16, 1, 1), (1, 1, 7), (1, 1, 1)])
