@@ -37,14 +37,19 @@ bytes; vectors and sums stay in the vectors' precision — as the reference's
 Pallas paths do; :func:`spectral_bound` stays on the complex operator, its
 5 % margin covering the ≤ 2⁻⁹·‖H‖ by which the rounding can move the
 spectrum.  Any probe
-count K goes through one launch per step.  Probes are drawn with NumPy from
-an integer ``seed``.  The moments come off the device once; the
+count K goes through one launch per step.  Random probes and the spectral
+bound's start vector are drawn with NumPy from an integer ``seed``; the start
+vector is drawn once per lattice size, seed and dtype and kept on the host
+(:func:`kpm_input_counts`), and the LDOS probes are built on the operator's
+device (:func:`site_probes`).  The moments come off the device once; the
 reconstruction (damping kernels, Chebyshev series, coefficient fits) is tiny
 host mathematics in float64 whatever the operator's dtype.
 """
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -104,8 +109,9 @@ def spectral_bound(
     robustly — Chebyshev recursions diverge exponentially if any
     eigenvalue escapes the interval.
 
-    The start vector is complex normal, drawn with NumPy from ``seed`` or
-    with ``torch.randn`` from ``generator`` when one is given.  On the general
+    The start vector is complex normal, drawn with NumPy from ``seed`` (once
+    per lattice size, seed and dtype: :func:`_seeded_start_vector`) or with
+    ``torch.randn`` from ``generator`` when one is given.  On the general
     step on the card where :func:`~bodge_tpu_torch.ops.cuda_filter.power_plan`
     fits (:func:`~bodge_tpu_torch.ops.cuda_spmm.power_mode`), the ``iters``
     iterations are one launch of
@@ -115,14 +121,12 @@ def spectral_bound(
     inside.
     """
     data, impl = _operator_and_impl(data, impl)
-    shape = (sk.n_sites, BLOCK, 1)
     if generator is not None:
-        v = torch.randn(shape, dtype=torch.complex128, generator=generator,
+        v = torch.randn((sk.n_sites, BLOCK, 1), dtype=torch.complex128, generator=generator,
                         device=generator.device)
+        v = _as_tensor(v, data)
     else:
-        rng = np.random.default_rng(seed)
-        v = torch.as_tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
-    v = _as_tensor(v, data)
+        v = _seeded_start_vector(sk.n_sites, seed, data)
     if impl in ("stencil", "gather"):
         product = lambda w: spmm(data, sk, w, impl=impl)
     else:  # cast (and, on a generic skeleton, relabel) once, not in every iteration
@@ -134,6 +138,56 @@ def spectral_bound(
             return float(ell_power_iteration(data, plan.sk, v, iters, impl="cuda")) * 1.05
         product = lambda w: plan.spmm(data, w)
     return float(power_recursion(product, v, iters)) * 1.05
+
+
+# spectral_bound's seeded start vectors: the last few drawn, each cast to its
+# operator's dtype, in pinned memory for an operator on the card.
+START_VECTORS_KEPT = 4
+_start_vectors: OrderedDict = OrderedDict()
+_start_vector_lock = threading.Lock()
+_kpm_inputs = {"start_vector.hits": 0, "start_vector.misses": 0}
+
+
+def kpm_input_counts() -> dict:
+    """``{"start_vector.hits": …, "start_vector.misses": …}``: how often
+    :func:`spectral_bound` found its seeded start vector kept, and how often
+    it drew one, since the last :func:`reset_kpm_input_counts`."""
+    with _start_vector_lock:
+        return dict(_kpm_inputs)
+
+
+def reset_kpm_input_counts() -> None:
+    with _start_vector_lock:
+        for key in _kpm_inputs:
+            _kpm_inputs[key] = 0
+
+
+def _seeded_start_vector(n_sites: int, seed: int, like) -> torch.Tensor:
+    """The power iteration's start vector ``[n_sites, 4, 1]`` from ``seed``, in
+    ``like``'s dtype on its device: NumPy's complex normal draw, cast on the
+    host as a pageable upload would cast it, so the numbers are the same bit
+    for bit.  The cast draw is kept for the last :data:`START_VECTORS_KEPT`
+    ``(n_sites, seed, dtype)`` keys, pinned where ``like`` is on the card, and
+    each call gets its own copy: a non-blocking upload from pinned memory, or
+    a clone on the CPU."""
+    pinned = like.device.type == "cuda"
+    key = (int(n_sites), int(seed), like.dtype, pinned)
+    with _start_vector_lock:
+        host = _start_vectors.get(key)
+        _kpm_inputs["start_vector.misses" if host is None else "start_vector.hits"] += 1
+        if host is not None:
+            _start_vectors.move_to_end(key)
+    if host is None:
+        rng = np.random.default_rng(seed)
+        shape = (n_sites, BLOCK, 1)
+        host = torch.as_tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).to(like.dtype)
+        if pinned:
+            host = host.pin_memory()
+        with _start_vector_lock:
+            _start_vectors[key] = host
+            while len(_start_vectors) > START_VECTORS_KEPT:
+                _start_vectors.popitem(last=False)
+    return host.to(like.device, non_blocking=True) if pinned else host.clone()
 
 
 def rademacher_probes(N, samples, seed, dtype, default_seed=42) -> np.ndarray:
@@ -296,13 +350,30 @@ LORENTZ_LAMBDA = 4.0
 
 def ldos_site_probes(N: int, site_indices, dtype) -> np.ndarray:
     """One-hot orbital probes for LDOS: ``[N, 4, 4·n_sites]`` with a unit
-    column per (site, orbital)."""
+    column per (site, orbital), in NumPy (the row-sharded path shards them on
+    the host; :func:`site_probes` builds the same block on a device)."""
     site_indices = np.asarray(site_indices, dtype=np.int64)
     n_sites = len(site_indices)
     K = BLOCK * n_sites
     v0 = np.zeros((N, BLOCK, K), dtype=dtype)
     cols = np.arange(K)
     v0[np.repeat(site_indices, BLOCK), np.tile(np.arange(BLOCK), n_sites), cols] = 1.0
+    return v0
+
+
+def site_probes(N: int, site_indices, like) -> torch.Tensor:
+    """:func:`ldos_site_probes` built on ``like``'s device in ``like``'s dtype:
+    a block of zeros and one indexed write of its ``4·n_sites`` ones, so only
+    their flat indices cross to the device.  Site indices follow NumPy's
+    indexing (``-N ≤ i < N``, negative ones from the end); others raise
+    ``IndexError``."""
+    sites = np.asarray(site_indices, dtype=np.int64).reshape(-1)
+    if sites.size and (sites.min() < -N or sites.max() >= N):
+        raise IndexError(f"site index out of range for {N} sites: {sites.min()}…{sites.max()}")
+    K = BLOCK * len(sites)
+    flat = (np.repeat(sites % N, BLOCK) * BLOCK + np.tile(np.arange(BLOCK), len(sites))) * K + np.arange(K)
+    v0 = torch.zeros((N, BLOCK, K), dtype=like.dtype, device=like.device)
+    v0.view(-1)[torch.as_tensor(flat, device=like.device)] = 1
     return v0
 
 
@@ -379,7 +450,7 @@ def ldos_kpm_sites(
     data, impl = _operator_and_impl(data, impl)
     order, kernel, scale = _kpm_setup(data, sk, order, kernel, scale, eta, impl)
     site_indices = np.asarray(site_indices, dtype=np.int64)
-    v0 = ldos_site_probes(sk.n_sites, site_indices, numpy_dtype(data.dtype))
+    v0 = site_probes(sk.n_sites, site_indices, data)
     mu = moments(data, sk, v0, order, scale, impl=impl, operator_dtype=operator_dtype)  # [order, 4·n_sites]
     return ldos_from_moments(mu, energies, scale, kernel, len(site_indices))
 
