@@ -41,7 +41,7 @@ from .common import (
     σ3,
 )
 from .hamiltonian import Hamiltonian
-from .lattice import CubicLattice, Lattice
+from .lattice import CubicLattice, HoneycombLattice, Lattice
 from .models.order_parameters import dwave, pwave, ssd, swave
 
 __version__ = "0.1.0"

@@ -12,6 +12,9 @@ Parity target: ``bodge/lattice.py`` — an abstract ``Lattice`` contract
   directions, for periodic boundary conditions.
 - ``__iter__`` yields on-site pairs, then bonds, then edges.
 
+Beyond the reference, ``HoneycombLattice`` draws the honeycomb as a brick
+wall in the box's coordinates; its skeleton is generic, not a stencil.
+
 Vectorized additions: every concrete lattice also exposes *vectorized*
 NumPy index/coordinate arrays (``site_coords``, ``bond_arrays``,
 ``edge_arrays``, ``index_array``) so that Hamiltonian assembly can be a
@@ -222,3 +225,82 @@ class CubicLattice(Lattice):
         src = np.concatenate([lo, hi])
         dst = np.concatenate([hi, lo])
         return src, dst
+
+
+class HoneycombLattice(Lattice):
+    """Honeycomb lattice with open boundaries, drawn as a brick wall.
+
+    ``HoneycombLattice(Lx, Ly)`` holds ``Ly`` zigzag chains of ``Lx`` sites
+    each, with coordinates ``(x, y, 0)``: every bond along x is present, and a
+    bond between ``(x, y)`` and ``(x, y + 1)`` only where ``x + y`` is even.
+    That graph is the honeycomb's (each site has at most three neighbours),
+    with zigzag edges at ``y = 0`` and ``y = Ly − 1``.  Sites are numbered
+    x-major as in the box, ``index = y + Ly·x``, so neighbours along x lie
+    ``Ly`` rows apart.  There are no edges (no periodic wrap).
+
+    It is no :class:`CubicLattice`: its skeleton is generic, built from the
+    vectorised arrays (``site_coords``, ``bond_arrays``, ``edge_arrays``,
+    ``index_array``), and the KPM sweeps on it take the windowed gather
+    kernels of :mod:`bodge_tpu_torch.ops.cuda_gather`.
+    """
+
+    @typecheck
+    def __init__(self, Lx: int, Ly: int):
+        if Lx < 1 or Ly < 1:
+            raise ValueError(f"a honeycomb needs Lx, Ly >= 1, got {(Lx, Ly)}")
+        super().__init__((Lx, Ly, 1))
+
+    # -- Scalar API ---------------------------------------------------------
+    @typecheck
+    def index(self, coord: Coord) -> Index:
+        x, y, z = coord
+        Lx, Ly, _ = self.shape
+        if not (0 <= x < Lx and 0 <= y < Ly and z == 0):
+            raise ValueError(f"Coordinate {coord} out of bounds")
+        return y + Ly * x
+
+    def sites(self) -> Iterator[Coord]:
+        Lx, Ly, _ = self.shape
+        for x in range(Lx):
+            for y in range(Ly):
+                yield (x, y, 0)
+
+    def bonds(self) -> Iterator[Coords]:
+        """Nearest-neighbour pairs, both directions: the y-bonds, then the x-bonds."""
+        for src, dst in zip(*self.bond_arrays()):
+            yield tuple(int(v) for v in src), tuple(int(v) for v in dst)
+
+    def edges(self) -> Iterator[Coords]:
+        return iter(())
+
+    # -- Vectorized API ----------------------------------------------------
+    @cached_property
+    def site_coords(self) -> np.ndarray:
+        """``[N, 3]`` int32 coordinates of every site, in index order."""
+        return CubicLattice(self.shape).site_coords
+
+    def index_array(self, coords: np.ndarray) -> np.ndarray:
+        """Vectorized coord→index map for an ``[..., 3]`` coordinate array."""
+        coords = np.asarray(coords)
+        if np.any(coords < 0) or np.any(coords >= np.array(self.shape)):
+            raise ValueError("Coordinate out of bounds")
+        return coords[..., 1] + self.shape[1] * coords[..., 0]
+
+    def bond_arrays(self):
+        """Directed bond pairs as a ``([B, 3], [B, 3])`` coordinate-array pair:
+        the y-bonds (from ``(x, y)`` to ``(x, y + 1)`` where ``x + y`` is even,
+        and back), then the x-bonds (both directions)."""
+        c = self.site_coords
+        up = c[(c[:, 1] < self.shape[1] - 1) & ((c[:, 0] + c[:, 1]) % 2 == 0)]
+        right = c[c[:, 0] < self.shape[0] - 1]
+        src, dst = [], []
+        for lo, step in ((up, (0, 1, 0)), (right, (1, 0, 0))):
+            hi = lo + np.array(step, dtype=lo.dtype)
+            src += [lo, hi]
+            dst += [hi, lo]
+        return np.concatenate(src), np.concatenate(dst)
+
+    def edge_arrays(self):
+        """No edges: ``([0, 3], [0, 3])``."""
+        empty = np.zeros((0, 3), dtype=np.int32)
+        return empty, empty

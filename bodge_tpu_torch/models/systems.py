@@ -20,7 +20,7 @@ import numpy as np
 
 from ..common import jσ2, σ0, σ1, σ2, σ3
 from ..hamiltonian import Hamiltonian
-from ..lattice import CubicLattice
+from ..lattice import CubicLattice, HoneycombLattice
 from .order_parameters import dwave, pwave
 
 
@@ -57,6 +57,34 @@ def swave_superconductor(
         onsite=lambda ci: h_on,
         pairing_onsite=pairing_onsite,
         hopping=lambda ci, cj: np.where(_bond_mask(ci, cj), -t * σ0, 0),
+    )
+    return system
+
+
+def graphene_swave(
+    shape: Tuple[int, int, int],
+    t: float = 1.0,
+    mu: float = 0.3,
+    delta: float = 0.1,
+    dtype=None,
+    device=None,
+) -> Hamiltonian:
+    """Graphene with on-site s-wave pairing induced by proximity, as a zigzag ribbon.
+
+    ``shape = (Lx, Ly, 1)`` gives an Lx×Ly brick wall (:class:`HoneycombLattice`:
+    Ly zigzag chains of Lx sites, open boundaries).  h_ii = −μσ0, Δ_ii = Δ jσ2,
+    and the nearest-neighbour hopping −tσ0 on every bond the lattice lists
+    (Castro Neto et al., Rev. Mod. Phys. 81, 109 (2009)).  The skeleton is
+    generic, so the KPM sweeps take the windowed gather kernels.
+    """
+    Lx, Ly, Lz = shape
+    if Lz != 1:
+        raise ValueError(f"a graphene ribbon is flat: shape (Lx, Ly, 1), got {shape}")
+    system = Hamiltonian(HoneycombLattice(Lx, Ly), dtype=dtype, device=device)
+    system.assemble(
+        onsite=lambda ci: -mu * σ0,
+        pairing_onsite=lambda ci: delta * jσ2,
+        hopping=lambda ci, cj: -t * σ0,
     )
     return system
 

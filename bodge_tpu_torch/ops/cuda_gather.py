@@ -49,6 +49,14 @@ count so that the ring fits the 227 KB of shared memory a block may use; it
 returns ``None`` when not even the window at ``TK = 1`` fits.  The wrappers launch their kernel on
 a CUDA tensor or raise; the plain versions run only for a CPU tensor or on
 ``impl="plain"``.
+
+Tracing.  A plan built (a miss of :func:`plan_gather`'s cache: the RCM
+relabelling on a skeleton's first plan, and the window plan) runs inside the
+span :data:`PLAN_SPAN`; :class:`~bodge_tpu_torch.ops.cuda_spmm.StepPlan`'s
+relabelling of the operator and the vectors, and its way back, inside
+:data:`RELABEL_SPAN` (:func:`bodge_tpu_torch.utils.trace.annotate`).
+:func:`gather_counts` counts all three; they are copies and host work, not
+launches, so :func:`~bodge_tpu_torch.ops.cuda_spmm.launch_counts` leaves them out.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.trace import annotate
 from . import cuda_spmm as ck
 from .blocksparse import BLOCK, Skeleton
 
@@ -74,6 +83,33 @@ CLUSTER_CONSUMERS = 512  # consumer threads a block of the cluster form at most 
 CLUSTER_MIN_TILE = 64  # rows a tile of the cluster form at least, unless forced
 CLUSTER_STAGES = 3  # operator stages of the cluster form (depth + 1) where a forced tile names none
 BF16_BLOCK_BYTES = 64  # a 4x4 block in the bf16 form
+PLAN_SPAN = "bodge.gather.plan"
+RELABEL_SPAN = "bodge.gather.relabel"
+
+_counts = {"plans": 0, "operator_relabels": 0, "vector_relabels": 0}
+
+
+def gather_counts() -> dict:
+    """``{"plans": …, "operator_relabels": …, "vector_relabels": …}`` since the
+    last :func:`reset_gather_counts`: the plans :func:`plan_gather` built (its
+    cache's misses), and the operators and the vectors (into the sweep's order
+    and back) that :class:`~bodge_tpu_torch.ops.cuda_spmm.StepPlan` relabelled
+    on the gather path."""
+    return dict(_counts)
+
+
+def reset_gather_counts() -> None:
+    for key in _counts:
+        _counts[key] = 0
+
+
+def traced_relabel(move, x, count: str):
+    """``move(x)`` — a layout's :meth:`GatherLayout.relabel` or
+    :meth:`GatherLayout.restore` — inside :data:`RELABEL_SPAN`, counted as
+    ``count`` ("operator_relabels" or "vector_relabels") in :func:`gather_counts`."""
+    _counts[count] += 1
+    with annotate(RELABEL_SPAN):
+        return move(x)
 
 
 @dataclass(frozen=True, eq=False)  # identity hash: usable as a cache key
@@ -330,7 +366,6 @@ def _layout(sk: Skeleton, K: int, relabelled, tile, bf16: bool) -> Optional[Gath
                         stage_bytes=launch.stage_bytes)
 
 
-@functools.lru_cache(maxsize=256)
 def plan_gather(sk: Skeleton, K: int, tile: Optional[int] = None, operator_dtype=None) -> Optional[GatherLayout]:
     """Gather-kernel plan for ``K`` probe columns and the operator form
     ``operator_dtype`` (``None``: complex64; ``"bf16"`` / ``torch.bfloat16``:
@@ -340,12 +375,23 @@ def plan_gather(sk: Skeleton, K: int, tile: Optional[int] = None, operator_dtype
 
     ``tile`` forces ``T``, ``(T, run)`` or, for the cluster form, ``(T, run,
     stages)`` (for measurements).  Plans are cached per
-    ``(skeleton, K, tile, form)``, and every plan of one skeleton shares the
-    relabelled skeleton, so device copies are made once.
+    ``(skeleton, K, tile, form)``, however the form is named, and every plan
+    of one skeleton shares the relabelled skeleton, so device copies are
+    made once.
     """
+    return _plan(sk, int(K), tile, _is_bf16(operator_dtype))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(sk: Skeleton, K: int, tile, bf16: bool) -> Optional[GatherLayout]:
     if sk.n_sites < 1 or K < 1:
         return None
-    return _layout(sk, int(K), _rcm_relabelled(sk), tile, _is_bf16(operator_dtype))
+    _counts["plans"] += 1
+    with annotate(PLAN_SPAN):
+        return _layout(sk, K, _rcm_relabelled(sk), tile, bf16)
+
+
+plan_gather.cache_clear = _plan.cache_clear  # empties the plans' cache
 
 
 def layout_from_rank(sk: Skeleton, rank, bwb: int, K: int, tile=None):

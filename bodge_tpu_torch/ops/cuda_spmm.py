@@ -1349,7 +1349,9 @@ class StepPlan:
     (:func:`resolve_path`).  :meth:`operator` and :meth:`enter` bring block
     data and vectors into the form the step takes — complex64 for the
     kernels, relabelled rows for the gather step — and :meth:`leave` brings a
-    vector back; all are differentiable except the bf16 form.
+    vector back; all are differentiable except the bf16 form.  On the gather
+    path each relabelling runs in the span ``bodge.gather.relabel`` and is
+    counted by :func:`~bodge_tpu_torch.ops.cuda_gather.gather_counts`.
     ``operator_dtype`` is the operator's storage as
     :func:`resolve_operator_storage` gives it: ``None`` (complex) or
     ``torch.bfloat16``, for which :meth:`operator` ends in
@@ -1374,6 +1376,7 @@ class StepPlan:
 
             self.layout = cg.plan_gather(sk, K, operator_dtype=operator_dtype)
             self.sk = self.layout.sk
+            self._traced = cg.traced_relabel
             self._step, self._plain_step, self._product = (
                 cg.ell_gather_cheb_step, cg.ell_gather_cheb_step_plain, cg.ell_gather_spmm)
         elif self.kind == "tiled":  # a step only: its product is the general ELL kernel's
@@ -1383,24 +1386,24 @@ class StepPlan:
             self._step, self._plain_step, self._product = ell_cheb_step, ell_cheb_step_plain, ell_spmm
         self._where = self.sk if self.layout is None else self.layout  # what the step's wrapper takes
 
-    def _form(self, x):
+    def _form(self, x, count: str):
         if self.backend == "cuda":
             x = as_kernel_operand(x)
-        return x if self.layout is None else self.layout.relabel(x)
+        return x if self.layout is None else self._traced(self.layout.relabel, x, count)
 
     def operator(self, data):
         """Block data ``[N, S, 4, 4]`` in the sweep's form (the bf16 form
         where the plan stores the operator so)."""
-        data = self._form(data)
+        data = self._form(data, "operator_relabels")
         return data if self.operator_dtype is None else bf16_operator(data)
 
     def enter(self, v):
         """A vector ``[N, 4, K]`` in the sweep's form."""
-        return self._form(v)
+        return self._form(v, "vector_relabels")
 
     def leave(self, y):
         """A vector of the sweep back in the original site order."""
-        return y if self.layout is None else self.layout.restore(y)
+        return y if self.layout is None else self._traced(self.layout.restore, y, "vector_relabels")
 
     def step(self, data, t_cur, t_prev, inv: float, out=None, sums: bool = True):
         """One fused Chebyshev step ``(t_next, partials)`` on operands in the
