@@ -76,6 +76,14 @@
 //     against its 0.0638 ms bound, the one-block form's 0.1435 (chip_smoke.py,
 //     the same card).  Partials are written per run, each block its columns.
 //
+// Light-cone form of the one-block complex64 step (ell_gather_cheb_step_window):
+// the same runs, of a shorter `run`, split rows [row0, row1) of the lattice
+// instead of [0, N), so that a sweep from probes on a few sites steps only the
+// rows it has reached (ops/cuda_spmm.LightCone) on every SM.  Each run still
+// reads the band around it from [0, N); rows outside [row0, row1) are neither
+// read as t_prev nor written.  The whole-lattice kernel keeps its signature:
+// both are gather_kernel, over one body, gather_run.
+//
 // Aliasing as in ell_spmm.cu: t_next must not alias t_cur (other blocks stage
 // it); it may alias t_prev (each thread reads its own entries before writing).
 // All element offsets are 64-bit.
@@ -206,13 +214,14 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// One block a run: the ring filled by all threads, one barrier a tile.
+// One block a run: the ring filled by all threads, one barrier a tile.  The
+// block walks its run, rows [r0, r1).
 
 template <bool CHEB, int VEC, typename OP>
-__global__ void __launch_bounds__(MAX_THREADS)
-gather_kernel(const OP* __restrict__ data, const int* __restrict__ rel,
-              const float2* __restrict__ t_cur, const float2* t_prev, float2* t_next,
-              float* __restrict__ partials, float two_inv, Plan pl) {
+__device__ __forceinline__ void gather_run(const OP* __restrict__ data, const int* __restrict__ rel,
+                                           const float2* __restrict__ t_cur, const float2* t_prev, float2* t_next,
+                                           float* __restrict__ partials, float two_inv, Plan pl, long long r0,
+                                           long long r1) {
   extern __shared__ float4 ring4[];
   float2* ring = reinterpret_cast<float2*>(ring4);
 
@@ -230,8 +239,6 @@ gather_kernel(const OP* __restrict__ data, const int* __restrict__ rel,
   const int lg_tkv = lg_tk - (VEC == 2 ? 1 : 0);
   const int lg_site = lg_tkv + 2;  // log2 of the copies a row: 4 orbitals x TK/VEC
 
-  const long long r0 = (long long)blockIdx.x * pl.run;
-  const long long r1 = min(r0 + pl.run, N);
   const long long base = r0 - bwb;        // global row g sits in ring row (g - base) mod R
   const long long hi = min(N, r1 + bwb);  // rows past this are never read
   const int tiles = (int)((r1 - r0 + T - 1) / T);
@@ -385,7 +392,27 @@ gather_kernel(const OP* __restrict__ data, const int* __restrict__ rel,
   }
 }
 
+// The whole lattice: run b is rows [b * run, (b + 1) * run) of [0, N).
+template <bool CHEB, int VEC, typename OP>
+__global__ void __launch_bounds__(MAX_THREADS)
+gather_kernel(const OP* __restrict__ data, const int* __restrict__ rel,
+              const float2* __restrict__ t_cur, const float2* t_prev, float2* t_next,
+              float* __restrict__ partials, float two_inv, Plan pl) {
+  const long long r0 = (long long)blockIdx.x * pl.run;
+  gather_run<CHEB, VEC, OP>(data, rel, t_cur, t_prev, t_next, partials, two_inv, pl, r0, min(r0 + pl.run, pl.N));
+}
 
+// The light-cone form (WIN): the runs split rows [row0, row1) of the lattice
+// instead, each block reading the band around its run from [0, N) as above.
+template <bool CHEB, int VEC, typename OP, bool WIN>
+__global__ void __launch_bounds__(MAX_THREADS)
+gather_kernel(const OP* __restrict__ data, const int* __restrict__ rel,
+              const float2* __restrict__ t_cur, const float2* t_prev, float2* t_next,
+              float* __restrict__ partials, float two_inv, Plan pl, long long row0, long long row1) {
+  static_assert(WIN, "the whole lattice is the form without a row range");
+  const long long r0 = row0 + (long long)blockIdx.x * pl.run;
+  gather_run<CHEB, VEC, OP>(data, rel, t_cur, t_prev, t_next, partials, two_inv, pl, r0, min(r0 + pl.run, row1));
+}
 
 // The cluster form's consumers: one site n, its bf16 operator blocks at
 // `drow` and its offsets at `rrow` in shared memory, the neighbours in the
@@ -622,12 +649,29 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 template <bool CHEB, int VEC, typename OP>
 int launch(const void* data, const void* rel, const void* t_cur, const void* t_prev, void* t_next,
            void* partials, float two_inv, const Plan& pl, int threads, int ctas, size_t smem, cudaStream_t stream) {
-  auto kernel = gather_kernel<CHEB, VEC, OP>;
+  void (*kernel)(const OP*, const int*, const float2*, const float2*, float2*, float*, float, Plan) =
+      gather_kernel<CHEB, VEC, OP>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)ctas, (unsigned)((pl.K + pl.TK - 1) / pl.TK), 1);
   kernel<<<grid, threads, smem, stream>>>((const OP*)data, (const int*)rel, (const float2*)t_cur,
                                           (const float2*)t_prev, (float2*)t_next, (float*)partials, two_inv, pl);
+  return (int)cudaGetLastError();
+}
+
+// The light-cone form, complex64: `ctas` runs of pl.run rows split [row0, row1).
+template <bool CHEB, int VEC>
+int launch_window(const void* data, const void* rel, const void* t_cur, const void* t_prev, void* t_next,
+                  void* partials, float two_inv, const Plan& pl, long long row0, long long row1, int threads,
+                  int ctas, size_t smem, cudaStream_t stream) {
+  void (*kernel)(const float4*, const int*, const float2*, const float2*, float2*, float*, float, Plan, long long,
+                 long long) = gather_kernel<CHEB, VEC, float4, true>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)ctas, (unsigned)((pl.K + pl.TK - 1) / pl.TK), 1);
+  kernel<<<grid, threads, smem, stream>>>((const float4*)data, (const int*)rel, (const float2*)t_cur,
+                                          (const float2*)t_prev, (float2*)t_next, (float*)partials, two_inv, pl,
+                                          row0, row1);
   return (int)cudaGetLastError();
 }
 
@@ -658,19 +702,24 @@ int launch_cluster(const void* data, const void* rel, const void* t_cur, const v
 
 size_t round16(size_t v) { return (v + 15) & ~(size_t)15; }
 
+// The launch of either form on the whole lattice, or (window) of the
+// one-block complex64 form's light-cone instantiation on rows [row0, row1).
 template <bool CHEB>
 int dispatch(const void* data, int bf16, const void* rel, const void* t_cur, const void* t_prev, void* t_next,
              void* partials, float two_inv, long long N, int S, int K, int TK, int T, int bwb, int D,
-             long long run, int ctas, int threads, int cluster, void* stream) {
+             long long run, int ctas, int threads, int cluster, void* stream, bool window = false,
+             long long row0 = 0, long long row1 = 0) {
   const int max_threads = cluster == 2 ? MAX_CONSUMERS : MAX_THREADS;
+  if (!window) row1 = N;
   if (!power_of_two(TK) || TK > 32 || !power_of_two(threads) || threads > max_threads ||
       threads < TK || N < 0 || S < 1 || K < 1 || T < 1 || bwb < 0 || D < 0 ||
-      D > (cluster == 2 ? MAX_STAGES - 1 : MAX_DEPTH) ||
-      run < 1 || ctas < 0 || ctas != (N + run - 1) / run || (cluster != 1 && cluster != 2) ||
+      D > (cluster == 2 ? MAX_STAGES - 1 : MAX_DEPTH) || row0 < 0 || row1 < row0 || row1 > N ||
+      run < 1 || ctas < 0 || ctas != (row1 - row0 + run - 1) / run || (cluster != 1 && cluster != 2) ||
+      (window && (cluster != 1 || bf16)) ||
       (cluster == 2 && (!bf16 || threads < 32 || TK > 4 || T % 4 || run % 4 || ((uintptr_t)data & 15) ||
                         ((uintptr_t)rel & 15))))
     return (int)cudaErrorInvalidValue;
-  if (N == 0) return 0;
+  if (row1 == row0) return 0;
   const int vec = (TK % 2 == 0 && K % 2 == 0) ? 2 : 1;
   const int stride = BLK * TK + vec;
   const long long R = 2 * (long long)bwb + (long long)(D + 1) * T;
@@ -686,6 +735,12 @@ int dispatch(const void* data, int bf16, const void* rel, const void* t_cur, con
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (CHEB && smem < 2 * threads * sizeof(float)) smem = 2 * threads * sizeof(float);  // the tree
   const cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (CHEB) {
+    if (window) {
+      auto go = vec == 2 ? launch_window<CHEB, 2> : launch_window<CHEB, 1>;
+      return go(data, rel, t_cur, t_prev, t_next, partials, two_inv, sp.p, row0, row1, threads, ctas, smem, st);
+    }
+  }
   if (cluster == 2) {
     auto go = vec == 2 ? launch_cluster<CHEB, 2> : launch_cluster<CHEB, 1>;
     return go(data, rel, t_cur, t_prev, t_next, partials, two_inv, sp, threads, ctas, smem, st);
@@ -699,7 +754,7 @@ int dispatch(const void* data, int bf16, const void* rel, const void* t_cur, con
 
 }  // namespace
 
-// Both entry points launch on the given stream, do not synchronise, allocate
+// The entry points launch on the given stream, do not synchronise, allocate
 // nothing, and return the CUDA error of the launch (0 = launched).  The plan
 // (ops/cuda_gather.plan_gather): TK probe columns a block and `run` rows a
 // block (cluster = 1) or a pair of blocks (cluster = 2, 2*TK columns a pair),
@@ -723,4 +778,16 @@ extern "C" int ell_gather_cheb_step_launch(const void* data, int bf16, const voi
                                            int cluster, void* stream) {
   return dispatch<true>(data, bf16, rel, t_cur, t_prev, t_next, partials, 2.0f * inv, N, S, K, TK, T,
                         bwb, D, run, ctas, threads, cluster, stream);
+}
+
+// The light-cone form: the step on relabelled rows [row0, row1), split into
+// ctas = ceil((row1 - row0) / run) runs; partials are ctas rows of 2K floats.
+// The complex64 operator and the one-block form only.
+extern "C" int ell_gather_cheb_step_window_launch(const void* data, const void* rel, const void* t_cur,
+                                                  const void* t_prev, void* t_next, void* partials, float inv,
+                                                  long long N, long long row0, long long row1, int S, int K,
+                                                  int TK, int T, int bwb, int D, long long run, int ctas,
+                                                  int threads, void* stream) {
+  return dispatch<true>(data, 0, rel, t_cur, t_prev, t_next, partials, 2.0f * inv, N, S, K, TK, T, bwb, D, run,
+                        ctas, threads, 1, stream, true, row0, row1);
 }

@@ -77,6 +77,16 @@
 // thread block of the range.  The bound is the same as above, plus the two
 // halo planes read once.
 //
+// Light-cone form (template flag WIN): ell_cheb_step_window computes the step
+// on rows [row0, row1) of the whole lattice, with no halo: the rows a sweep
+// from probes on a few sites has reached (ops/cuda_spmm.LightCone).  Rows
+// outside the range are neither read as t_prev nor written; partials hold one
+// row per thread block of the range.  Complex64 only.  The whole-lattice
+// instantiation keeps its rows [0, N) fixed at compile time: a row range read
+// at run time made it 13 % slower.  The light-cone form loads each slot's
+// operator block ahead of its vector rows, which puts it at the whole form's
+// time a row.
+//
 // Operator forms (template parameter OP, operator_form.cuh): the forward
 // kernels and their halo forms take the operator as complex64 (OP = float4)
 // or in the bf16 form (OP = uint4: each entry a bf16 (re, im) pair, a block
@@ -114,7 +124,7 @@ __device__ __forceinline__ void cfma(float2& acc, float dre, float dim, const fl
 }
 
 // The halo planes of a slab and the rows it computes.  Without HALO, P = 0,
-// the planes are null and the rows are [0, N).
+// the planes are null and the rows are [0, N), or [row0, row1) with WIN.
 struct Halo {
   const float2* vm;  // vector plane before the slab, [P, 4, K]
   const float2* vp;  // vector plane after the slab
@@ -146,7 +156,7 @@ __device__ __forceinline__ const float4* blk_at(const float4* data, const Halo& 
   return data + ((size_t)col * S + slot) * BLK_FLOAT4;
 }
 
-template <bool CHEB, bool ADJ, bool HALO, typename OP>
+template <bool CHEB, bool ADJ, bool HALO, typename OP, bool WIN = false>
 __global__ void __launch_bounds__(THREADS)
 ell_kernel(const OP* __restrict__ data, const int* __restrict__ cols,
            const int* __restrict__ mirror, int mirror_per_row,
@@ -157,8 +167,8 @@ ell_kernel(const OP* __restrict__ data, const int* __restrict__ cols,
   const int kk = tid & (TK - 1);
   const int nn = tid / TK;
   const int TN = THREADS / TK;
-  const long long n = (HALO ? halo.row0 : 0) + (long long)blockIdx.x * TN + nn;
-  const long long end = HALO ? halo.row1 : N;
+  const long long n = (HALO || WIN ? halo.row0 : 0) + (long long)blockIdx.x * TN + nn;
+  const long long end = HALO || WIN ? halo.row1 : N;
   const int k = blockIdx.y * TK + kk;
   const int pad = HALO ? -halo.P : 0;  // columns below this are padding
 
@@ -173,6 +183,16 @@ ell_kernel(const OP* __restrict__ data, const int* __restrict__ cols,
     for (int s = 0; s < S; ++s) {
       const int col = __ldg(crow + s);
       if (col < pad) continue;  // padding slot
+      // The light-cone form loads the slot's operator block before the vector
+      // rows: with its row range read at run time, ptxas otherwise issues
+      // those loads after the gathers, and the step took 16 % longer a row
+      // than the whole-lattice form, whose schedule hoists them itself (H100,
+      // 10^6 sites, K = 64: 4.08 against 3.53 ms on the same rows).
+      float2 dw[WIN ? BLK : 1][WIN ? BLK : 1];
+      if constexpr (WIN && !ADJ) {
+#pragma unroll
+        for (int a = 0; a < BLK; ++a) opform::load_row(drow + (size_t)s * opform::Op<OP>::PER_BLOCK, a, dw[a]);
+      }
       const float2* vrow = vec_row<HALO>(t_cur, halo, col, N, K) + k;
       float2 vb[BLK];
 #pragma unroll
@@ -196,7 +216,12 @@ ell_kernel(const OP* __restrict__ data, const int* __restrict__ cols,
 #pragma unroll
         for (int a = 0; a < BLK; ++a) {
           float2 d[BLK];  // entries (a,0) .. (a,3)
-          opform::load_row(blk, a, d);
+          if constexpr (WIN) {
+#pragma unroll
+            for (int b = 0; b < BLK; ++b) d[b] = dw[a][b];
+          } else {
+            opform::load_row(blk, a, d);
+          }
           cfma(acc[a], d[0].x, d[0].y, vb[0]);
           cfma(acc[a], d[1].x, d[1].y, vb[1]);
           cfma(acc[a], d[2].x, d[2].y, vb[2]);
@@ -340,6 +365,22 @@ extern "C" int ell_cheb_step_launch(const void* data, int bf16, const void* cols
   if (N == 0) return 0;
   launch_forward<true, false>(bf16, N, data, cols, t_cur, t_prev, t_next, partials, 2.0f * inv, whole(N),
                               N, S, K, TK, stream);
+  return (int)cudaGetLastError();
+}
+
+// The light-cone form: rows [row0, row1) of t_next are written (partials:
+// one row per thread block of the range); the complex64 operator only.
+extern "C" int ell_cheb_step_window_launch(const void* data, const void* cols, const void* t_cur,
+                                           const void* t_prev, void* t_next, void* partials, float inv,
+                                           long long N, long long row0, long long row1, int S, int K,
+                                           int TK, void* stream) {
+  if (bad_tile(TK) || N < 0 || S < 1 || K < 1 || bad_range(N, row0, row1)) return (int)cudaErrorInvalidValue;
+  if (row1 == row0) return 0;
+  const Halo rows = {nullptr, nullptr, nullptr, nullptr, 0, row0, row1};
+  ell_kernel<true, false, false, float4, true>
+      <<<grid_for(row1 - row0, K, TK), THREADS, 0, (cudaStream_t)stream>>>(
+          (const float4*)data, (const int*)cols, nullptr, 0, (const float2*)t_cur, (const float2*)t_prev,
+          (float2*)t_next, (float*)partials, 2.0f * inv, NO_EPILOGUE, rows, N, S, K, TK);
   return (int)cudaGetLastError();
 }
 

@@ -263,7 +263,7 @@ def _identity_probes(N: int, dtype, what: str) -> np.ndarray:
 
 
 def moments(data, sk: Skeleton, v0, order: int, scale: float, impl: Optional[str] = None,
-            operator_dtype=None):
+            operator_dtype=None, *, support=None):
     """Chebyshev moments of H/scale against probe vectors ``v0: [N, 4, K]``.
 
     Returns a real ``[order, K]`` tensor on ``data``'s device.  ``v0`` may be
@@ -286,6 +286,11 @@ def moments(data, sk: Skeleton, v0, order: int, scale: float, impl: Optional[str
     bf16 the sweep runs on the bf16 form — the kernels' bf16 instantiations
     on the card, the plain versions on its exact upcast on the CPU; the
     ``"stencil"`` / ``"gather"`` scans multiply with the same rounded blocks.
+
+    ``support``: the sites outside which every column of ``v0`` is zero, where
+    the caller built the probes on them (:func:`ldos_kpm_sites`); the fused
+    recursion then steps only the rows their light cone has reached
+    (:func:`~bodge_tpu_torch.ops.cuda_spmm.moments_fused`).
     """
     data, impl = _operator_and_impl(data, impl)
     v0 = _as_tensor(v0, data)
@@ -295,7 +300,7 @@ def moments(data, sk: Skeleton, v0, order: int, scale: float, impl: Optional[str
         if storage is not None:
             data = operator_values(bf16_operator(data), data.dtype)
         return _moments_scan(data, sk, v0, inv, order, impl)
-    return moments_fused(data, sk, v0, inv, order, impl=impl, operator_dtype=storage)
+    return moments_fused(data, sk, v0, inv, order, impl=impl, operator_dtype=storage, support=support)
 
 
 def _host_moments(mu) -> np.ndarray:
@@ -443,7 +448,8 @@ def ldos_kpm_sites(
     """Batched KPM LDOS for many sites in one moment sweep.
 
     All 4·n_sites orbital probes ride a single Chebyshev scan as extra SpMM
-    columns, so an LDOS *map* costs barely more than one site.
+    columns, so an LDOS *map* costs barely more than one site; the scan steps
+    only the rows the probes' light cone has reached.
     Returns ``[n_sites, n_energies]`` (electron component, as in
     :func:`ldos_kpm`).
     """
@@ -451,7 +457,8 @@ def ldos_kpm_sites(
     order, kernel, scale = _kpm_setup(data, sk, order, kernel, scale, eta, impl)
     site_indices = np.asarray(site_indices, dtype=np.int64)
     v0 = site_probes(sk.n_sites, site_indices, data)
-    mu = moments(data, sk, v0, order, scale, impl=impl, operator_dtype=operator_dtype)  # [order, 4·n_sites]
+    mu = moments(data, sk, v0, order, scale, impl=impl, operator_dtype=operator_dtype,
+                 support=site_indices)  # [order, 4·n_sites]
     return ldos_from_moments(mu, energies, scale, kernel, len(site_indices))
 
 

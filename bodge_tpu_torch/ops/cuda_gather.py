@@ -13,8 +13,10 @@ product):
 - :func:`ell_gather_cheb_step` — the fused Chebyshev step
   ``t_next = 2·inv·(H t_cur) − t_prev`` with per-thread-block partial sums of
   ``Re⟨t_cur,t_cur⟩`` and ``Re⟨t_next,t_cur⟩`` per probe column.
+- :func:`ell_gather_cheb_step_window` — the same step on a range of
+  relabelled rows, the light-cone form of a sweep from probes on a few sites.
 
-Both are CUDA C++ in ``csrc/ell_gather.cu`` (replacing ``_gather_kernel``
+All are CUDA C++ in ``csrc/ell_gather.cu`` (replacing ``_gather_kernel``
 under ``spmm_gather_packed``, ``pallas_gather.py:261``): each run of ``run``
 relabelled rows and each column tile has one SM, which walks the run in tiles
 of ``T``; the window ``[a − bwb, a + T + bwb)`` of vector rows slides through
@@ -425,6 +427,19 @@ def ell_gather_cheb_step_plain(data, gl: GatherLayout, t_cur, t_prev, inv: float
     return ck.cheb_tail_plain(ell_gather_spmm_plain(data, gl, t_cur), t_cur, t_prev, inv, sums)
 
 
+def ell_gather_cheb_step_window_plain(data, gl: GatherLayout, t_cur, t_prev, inv: float, rows, sums: bool = True):
+    """Plain version of :func:`ell_gather_cheb_step_window`: :func:`ell_gather_cheb_step_plain`
+    on relabelled rows ``rows = (r0, r1)`` alone, ``t_next`` zero elsewhere."""
+    r0, r1 = rows
+    gathered = t_cur[gl.device_window_index(t_cur.device)[r0:r1]]  # [rows, S, 4, K]
+    data = ck.operator_values(data[r0:r1], t_cur.dtype)
+    if gl.sk.has_padding:
+        data = data * gl.sk.device_valid(t_cur.device)[r0:r1, :, None, None]
+    S = gl.sk.n_slots
+    hv = torch.bmm(data.transpose(1, 2).reshape(r1 - r0, BLOCK, S * BLOCK), gathered.reshape(r1 - r0, S * BLOCK, -1))
+    return ck.cheb_tail_window_plain(hv, t_cur, t_prev, inv, rows, sums)
+
+
 # --------------------------------------------------------------------------
 # Wrappers.
 # --------------------------------------------------------------------------
@@ -519,6 +534,56 @@ def ell_gather_cheb_step_bf16(data, gl: GatherLayout, t_cur, t_prev, inv: float,
 
 
 ell_gather_cheb_step_bf16.launches = 0
+
+
+def window_runs(gl: GatherLayout, rows) -> tuple:
+    """``(run, ctas)`` of the light-cone step on ``rows = (r0, r1)``: the
+    plan's ``gl.ctas`` runs split the range, ``run = max(T, ceil(W / ctas))``
+    rows each, so every SM of the plan keeps a run as the range narrows."""
+    width = rows[1] - rows[0]
+    run = max(gl.T, -(-width // gl.ctas))
+    return run, -(-width // run)
+
+
+def ell_gather_cheb_step_window(data, gl: GatherLayout, t_cur, t_prev, inv: float, rows, *, out=None,
+                                impl: Optional[str] = None):
+    """:func:`ell_gather_cheb_step` on relabelled rows ``rows = (r0, r1)``
+    alone, the light-cone step
+    (:class:`~bodge_tpu_torch.ops.cuda_spmm.LightCone`): ``t_next`` is
+    written on those rows and nowhere else (``out=None``: a zeroed buffer),
+    one row of partials a run (:func:`window_runs`).  The kernel is an
+    instantiation of its own of the one-block form; the complex64 operator
+    only."""
+    _check_layout(gl)
+    rows = ck._window_rows(rows, gl.sk.n_sites)
+    if ck._resolve(impl, t_cur) == "plain":
+        return ell_gather_cheb_step_window_plain(data, gl, t_cur, t_prev, inv, rows)
+    N, S, K = ck._check_call(data, gl.sk, t_cur)
+    if gl.cluster != 1:
+        raise ValueError("the light-cone step takes the one-block form's plan (the complex64 operator's)")
+    shape = (N, BLOCK, K)
+    if t_prev is not None:
+        ck._check_operand("t_prev", t_prev, shape, t_cur.device)
+    if out is None:
+        out = torch.zeros_like(t_cur)
+    else:
+        ck._check_operand("out", out, shape, t_cur.device)
+    if out.untyped_storage().data_ptr() == t_cur.untyped_storage().data_ptr():
+        raise ValueError("out must not share memory with t_cur (other thread blocks stage it)")
+    run, ctas = window_runs(gl, rows)
+    partials = torch.empty((ctas, 2 * K), dtype=torch.float32, device=t_cur.device)
+    with torch.cuda.device(t_cur.device):
+        err = ck._library().ell_gather_cheb_step_window_launch(
+            data.data_ptr(), gl.device_rel(t_cur.device).data_ptr(), t_cur.data_ptr(), ck._ptr(t_prev),
+            out.data_ptr(), partials.data_ptr(), float(inv), N, rows[0], rows[1], S, K, gl.TK, gl.T, gl.bwb,
+            gl.depth, run, ctas, gl.threads, torch.cuda.current_stream().cuda_stream,
+        )
+    ck._raise_on(err, "ell_gather_cheb_step_window")
+    ell_gather_cheb_step_window.launches += 1
+    return out, partials
+
+
+ell_gather_cheb_step_window.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -116,6 +116,16 @@ it.  Asking for a path that cannot run (``"cuda_gather"`` without a feasible
 plan, ``"cuda_tiled"`` on a generic skeleton, any ``"cuda*"`` on a CPU
 tensor) raises; nothing gives way to another path.
 
+Light-cone forms.  A sweep from probes that are nonzero on a few sites alone
+(the LDOS probes) need not step the whole lattice: after ``m`` products its
+vectors are zero beyond ``m`` bands of the operator's nonzero blocks around
+those sites (:class:`LightCone`).  :func:`ell_cheb_step_window` and
+:func:`~bodge_tpu_torch.ops.cuda_gather.ell_gather_cheb_step_window` run the
+two steps on such a range of rows, instantiations of their own beside the
+whole-lattice ones; :func:`moments_fused` takes them while the range is not
+yet the whole lattice, where its caller names the probes' sites
+(``support``), and counts the rows in :func:`window_counts`.
+
 Each wrapper counts its launches in a plain integer attribute
 (``ell_spmm.launches`` and so on; :func:`launch_counts` reads them all),
 raised where the kernel is launched and nowhere else.
@@ -126,6 +136,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import weakref
 from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Optional, Tuple
@@ -136,7 +147,7 @@ import torch
 from ..common import jσ2
 from . import _build
 from .blocksparse import BLOCK, Skeleton
-from .spmm import default_impl, spmm_gather, spmm_stencil
+from .spmm import batched_operator, default_impl, spmm_gather, spmm_stencil
 
 THREADS = 256  # threads per block in csrc/ell_spmm.cu
 TILED_THREADS = 256  # threads per block in csrc/stencil_tiled.cu
@@ -151,7 +162,7 @@ KERNELS = ("ell_spmm", "ell_cheb_step", "ell_spmm_adjoint", "ell_block_outer",
            "ell_spmm_bf16", "ell_cheb_step_bf16", "ell_spmm_halo_bf16", "ell_cheb_step_halo_bf16",
            "ell_gather_spmm_bf16", "ell_gather_cheb_step_bf16", "stencil_cheb_step_tiled_bf16",
            "ell_cheb_filter", "ell_cheb_filter_bf16", "ell_cheb_moments", "ell_cheb_moments_bf16",
-           "ell_power_iteration")
+           "ell_power_iteration", "ell_cheb_step_window", "ell_gather_cheb_step_window")
 FILTER_KERNELS = ("ell_cheb_filter", "ell_cheb_filter_bf16")
 MOMENT_KERNELS = ("ell_cheb_moments", "ell_cheb_moments_bf16")
 POWER_KERNELS = ("ell_power_iteration",)
@@ -319,6 +330,28 @@ def cheb_tail_plain(hv, t_cur, t_prev, inv: float, sums: bool = True):
     return t_next, torch.cat([cc, nc])[None, :]
 
 
+def cheb_tail_window_plain(hv, t_cur, t_prev, inv: float, rows, sums: bool = True):
+    """:func:`cheb_tail_plain` on rows ``rows = (r0, r1)``, from ``hv``, those
+    rows of ``H t_cur``: ``(t_next, partials[1, 2K])`` with ``t_next`` zero
+    outside the rows, as the light-cone steps leave them."""
+    r0, r1 = rows
+    prev = None if t_prev is None else t_prev[r0:r1]
+    part, partials = cheb_tail_plain(hv, t_cur[r0:r1], prev, inv, sums)
+    t_next = torch.zeros_like(t_cur, dtype=part.dtype)
+    t_next[r0:r1] = part
+    return t_next, partials
+
+
+def ell_cheb_step_window_plain(data, sk: Skeleton, t_cur, t_prev, inv: float, rows, sums: bool = True):
+    """Plain version of :func:`ell_cheb_step_window`: :func:`ell_cheb_step_plain`
+    on rows ``rows = (r0, r1)`` alone (the same batched product on those rows)."""
+    r0, r1 = rows
+    A = batched_operator(operator_values(data, t_cur.dtype), sk)[r0:r1]
+    gathered = t_cur[sk.device_safe_cols(t_cur.device)[r0:r1]]  # [rows, S, 4, K]
+    hv = torch.bmm(A, gathered.reshape(r1 - r0, A.shape[-1], -1))
+    return cheb_tail_window_plain(hv, t_cur, t_prev, inv, rows, sums)
+
+
 def stencil_cheb_step_tiled_plain(data, sk: Skeleton, t_cur, t_prev, inv: float, sums: bool = True):
     """Plain version of :func:`stencil_cheb_step_tiled`: the product by
     ``torch.roll`` stencil arithmetic on ``sk.slots`` (no ``cols`` read), then
@@ -395,10 +428,12 @@ def _library():
             "ell_block_outer_halo_launch": (outer, [p] * 8 + [f, i, ll, i, i, i, i, p]),
             "ell_spmm_launch": (spmm, [p, i, p, p, p, ll, i, i, i, p]),
             "ell_cheb_step_launch": (spmm, [p, i, p, p, p, p, p, f, ll, i, i, i, p]),
+            "ell_cheb_step_window_launch": (spmm, [p] * 6 + [f, ll, ll, ll, i, i, i, p]),
             "ell_spmm_adjoint_launch": (spmm, [p, p, p, i, p, p, f, p, p, p, p, p, ll, i, i, i, p]),
             "ell_block_outer_launch": (outer, [p, p, p, p, p, p, f, i, ll, i, i, i, p]),
             "ell_gather_spmm_launch": (gather, [p, i, p, p, p, ll, i, i, i, i, i, i, ll, i, i, i, p]),
             "ell_gather_cheb_step_launch": (gather, [p, i, p, p, p, p, p, f, ll, i, i, i, i, i, i, ll, i, i, i, p]),
+            "ell_gather_cheb_step_window_launch": (gather, [p] * 6 + [f, ll, ll, ll, i, i, i, i, i, i, ll, i, i, p]),
             "stencil_cheb_step_tiled_launch": (
                 tiled, [p, i, p, p, p, p, f, i, i, i, i, i, i, i, i, i, i, i, ip, ip, p]),
             "ell_cheb_filter_launch": (filt, [p, i, p, p, p, i, f, p, p, p, ll, i, i, i, i, p]),
@@ -585,6 +620,51 @@ def ell_cheb_step_bf16(data, sk: Skeleton, t_cur, t_prev, inv: float, *, out=Non
 
 
 ell_cheb_step_bf16.launches = 0
+
+
+def _window_rows(rows, N: int) -> Tuple[int, int]:
+    r0, r1 = (int(r) for r in rows)
+    if not 0 <= r0 <= r1 <= N:
+        raise ValueError(f"rows {rows} do not lie in [0, {N}]")
+    return r0, r1
+
+
+def ell_cheb_step_window(data, sk: Skeleton, t_cur, t_prev, inv: float, rows, *, out=None,
+                         impl: Optional[str] = None):
+    """:func:`ell_cheb_step` on rows ``rows = (r0, r1)`` alone, the light-cone
+    step (:class:`LightCone`): ``t_next`` is written on those rows and nowhere
+    else, so rows outside keep what ``out`` holds (``None``: a zeroed buffer),
+    and ``partials`` has one row per thread block of the range.  The kernel
+    is an instantiation of its own; the complex64 operator only."""
+    N = sk.n_sites
+    rows = _window_rows(rows, N)
+    if _resolve(impl, t_cur) == "plain":
+        return ell_cheb_step_window_plain(data, sk, t_cur, t_prev, inv, rows)
+    N, S, K = _check_call(data, sk, t_cur)
+    shape = (N, BLOCK, K)
+    if t_prev is not None:
+        _check_operand("t_prev", t_prev, shape, t_cur.device)
+    if out is None:
+        out = torch.zeros_like(t_cur)
+    else:
+        _check_operand("out", out, shape, t_cur.device)
+    if out.untyped_storage().data_ptr() == t_cur.untyped_storage().data_ptr():
+        raise ValueError("out must not share memory with t_cur (other threads read it)")
+    tk = probe_tile(K)
+    r0, r1 = rows
+    partials = torch.empty((-(-(r1 - r0) // (THREADS // tk)), 2 * K), dtype=torch.float32, device=t_cur.device)
+    with torch.cuda.device(t_cur.device):
+        err = _library().ell_cheb_step_window_launch(
+            data.data_ptr(), sk.device_cols(t_cur.device).data_ptr(), t_cur.data_ptr(), _ptr(t_prev),
+            out.data_ptr(), partials.data_ptr(), float(inv), N, r0, r1, S, K, tk,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "ell_cheb_step_window")
+    ell_cheb_step_window.launches += 1
+    return out, partials
+
+
+ell_cheb_step_window.launches = 0
 
 
 def sm_count() -> int:
@@ -1257,8 +1337,8 @@ ell_block_outer_halo.launches = 0
 def _wrappers():
     from .cuda_filter import (ell_cheb_filter, ell_cheb_filter_bf16, ell_cheb_moments, ell_cheb_moments_bf16,
                               ell_power_iteration)
-    from .cuda_gather import (ell_gather_cheb_step, ell_gather_cheb_step_bf16, ell_gather_spmm,
-                              ell_gather_spmm_bf16)
+    from .cuda_gather import (ell_gather_cheb_step, ell_gather_cheb_step_bf16, ell_gather_cheb_step_window,
+                              ell_gather_spmm, ell_gather_spmm_bf16)
 
     return (ell_spmm, ell_cheb_step, ell_spmm_adjoint, ell_block_outer,
             ell_gather_spmm, ell_gather_cheb_step, stencil_cheb_step_tiled,
@@ -1266,7 +1346,7 @@ def _wrappers():
             ell_spmm_bf16, ell_cheb_step_bf16, ell_spmm_halo_bf16, ell_cheb_step_halo_bf16,
             ell_gather_spmm_bf16, ell_gather_cheb_step_bf16, stencil_cheb_step_tiled_bf16,
             ell_cheb_filter, ell_cheb_filter_bf16, ell_cheb_moments, ell_cheb_moments_bf16,
-            ell_power_iteration)
+            ell_power_iteration, ell_cheb_step_window, ell_gather_cheb_step_window)
 
 
 def launch_counts() -> dict:
@@ -1379,11 +1459,14 @@ class StepPlan:
             self._traced = cg.traced_relabel
             self._step, self._plain_step, self._product = (
                 cg.ell_gather_cheb_step, cg.ell_gather_cheb_step_plain, cg.ell_gather_spmm)
+            self._window_step = cg.ell_gather_cheb_step_window
         elif self.kind == "tiled":  # a step only: its product is the general ELL kernel's
             self._step, self._plain_step, self._product = (
                 stencil_cheb_step_tiled, stencil_cheb_step_tiled_plain, ell_spmm)
+            self._window_step = None
         else:
             self._step, self._plain_step, self._product = ell_cheb_step, ell_cheb_step_plain, ell_spmm
+            self._window_step = ell_cheb_step_window
         self._where = self.sk if self.layout is None else self.layout  # what the step's wrapper takes
 
     def _form(self, x, count: str):
@@ -1405,11 +1488,17 @@ class StepPlan:
         """A vector of the sweep back in the original site order."""
         return y if self.layout is None else self._traced(self.layout.restore, y, "vector_relabels")
 
+    rows = None  # the rows the steps run on: None, all of them; (r0, r1), the light-cone form on those
+
     def step(self, data, t_cur, t_prev, inv: float, out=None, sums: bool = True):
         """One fused Chebyshev step ``(t_next, partials)`` on operands in the
         sweep's form.  ``sums=False`` tells a plain version to skip the column
         sums (``partials`` is then ``None``); the kernels form them in the same
-        pass either way."""
+        pass either way.  With ``self.rows = (r0, r1)`` (:func:`moments_fused`
+        sets it step by step from :meth:`light_cone`) the light-cone form runs
+        on those rows alone."""
+        if self.rows is not None:
+            return self._window_step(data, self._where, t_cur, t_prev, inv, self.rows, out=out, impl=self.backend)
         if self.backend == "plain":
             return self._plain_step(data, self._where, t_cur, t_prev, inv, sums)
         return self._step(data, self._where, t_cur, t_prev, inv, out=out, impl="cuda")
@@ -1417,6 +1506,85 @@ class StepPlan:
     def spmm(self, data, v):
         """``H v`` on operands in the sweep's form."""
         return self._product(data, self._where, v, impl=self.backend)
+
+    def light_cone(self, data, sites) -> Optional["LightCone"]:
+        """The :class:`LightCone` of a sweep from probes that are nonzero on the
+        sites ``sites`` (original indices) alone, in the sweep's order, or
+        ``None`` where this plan has no light-cone step (the tiled step, the
+        bf16 form) or the cone is the whole lattice from the first step.
+        ``data`` is the operator in the original order.  The band is the gather
+        plan's ``bwb`` on the gather path, else :func:`nonzero_bandwidth`."""
+        if self._window_step is None or self.operator_dtype is not None:
+            return None
+        N = self.sk.n_sites
+        rows = np.asarray(sites, dtype=np.int64).reshape(-1) % N
+        if self.layout is not None:
+            rows, band = self.layout.rank[rows], self.layout.bwb
+        else:
+            band = nonzero_bandwidth(data, self.sk)
+        cone = LightCone(int(rows.min()), int(rows.max()), band, N)
+        return None if cone.rows(1) is None else cone
+
+
+@dataclass(frozen=True)
+class LightCone:
+    """The rows a sweep's vectors can be nonzero on.  Probes nonzero on rows
+    ``[lo, hi]`` alone, and an operator whose nonzero blocks lie within
+    ``band`` rows of the diagonal (in the sweep's order), give ``t_m`` zero
+    outside ``[lo − m·band, hi + m·band]``."""
+
+    lo: int
+    hi: int
+    band: int
+    n: int
+
+    def rows(self, m: int) -> Optional[Tuple[int, int]]:
+        """``(r0, r1)``, the rows ``t_m`` can be nonzero on, cut to ``[0, n)``;
+        ``None`` once they are the whole lattice."""
+        r0, r1 = max(0, self.lo - m * self.band), min(self.n, self.hi + m * self.band + 1)
+        return None if (r0, r1) == (0, self.n) else (r0, r1)
+
+
+def nonzero_bandwidth(data, sk: Skeleton) -> int:
+    """``max |n − cols[n, s]|`` over the slots whose block holds a nonzero
+    entry: the band that bounds a product's reach, which the column table
+    alone does not (a stencil skeleton names its wrap-around columns on open
+    boundaries too, with zero blocks).  Computed on ``data``'s device with no
+    temporary larger than ``[N, S]``, and kept beside ``sk``'s device copies
+    until another operator, or this one after an in-place write (its
+    ``_version``), asks."""
+    kept = sk._device_cache.get("nonzero_band")
+    if kept is not None and kept[0]() is data and kept[1] == data._version:
+        return kept[2]
+    with torch.no_grad():
+        cols = sk.device_cols(data.device)
+        nonzero = torch.zeros(cols.shape, dtype=torch.bool, device=data.device)
+        for a in range(BLOCK):
+            for b in range(BLOCK):
+                nonzero |= data[:, :, a, b] != 0
+        nonzero &= cols >= 0
+        reach = (cols - torch.arange(cols.shape[0], dtype=cols.dtype, device=cols.device)[:, None]).abs_()
+        band = int(reach.masked_fill_(~nonzero, 0).max()) if cols.numel() else 0
+    sk._device_cache["nonzero_band"] = (weakref.ref(data), data._version, band)
+    return band
+
+
+_windows = {"steps": 0, "window_steps": 0, "rows": 0, "lattice_rows": 0}
+
+
+def window_counts() -> dict:
+    """Of the sweeps :func:`moments_fused` ran on a :class:`LightCone` since
+    :func:`reset_window_counts`: their ``steps``, the ``window_steps`` among
+    them that ran on part of the lattice (light-cone launches, on the card),
+    the ``rows`` all steps computed, and ``lattice_rows`` = N × ``steps``,
+    what the whole-lattice steps would have computed.  Sweeps without a cone
+    count nothing."""
+    return dict(_windows)
+
+
+def reset_window_counts() -> None:
+    for key in _windows:
+        _windows[key] = 0
 
 
 # --------------------------------------------------------------------------
@@ -1799,7 +1967,7 @@ def moments_mode(plan: StepPlan, data, K: int, order: int) -> str:
 
 
 def moments_fused(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optional[str] = None,
-                  operator_dtype=None):
+                  operator_dtype=None, support=None):
     """KPM moments ``μ_m[k] = Re⟨v0_k|T_m(inv·H)|v0_k⟩`` as a ``[order, K]`` real tensor.
 
     The counterpart of ``moments_pallas_fused``: one half-scaled first step
@@ -1824,35 +1992,72 @@ def moments_fused(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optio
     depend on the order, so the moments need no way back).
     ``operator_dtype`` (``None`` or ``torch.bfloat16``, see :class:`StepPlan`)
     stores the operator in the bf16 form for the sweep.
+
+    ``support`` names the sites (original indices) outside which every probe
+    column is zero, where the caller knows them: the per-step recursion then
+    runs each step on the rows the probes' :class:`LightCone` has reached
+    (:meth:`StepPlan.light_cone`), the light-cone forms while those are not
+    the whole lattice.  Without it the steps run on the whole lattice.
     """
     K = v0.shape[-1]
     plan = impl if isinstance(impl, StepPlan) else StepPlan(sk, K, impl, v0, operator_dtype)
-    data, v0 = plan.operator(data), plan.enter(v0)
+    operator, v0 = plan.operator(data), plan.enter(v0)
     inv = float(inv)
-    if moments_mode(plan, data, K, order) in ("registers", "global"):
+    if moments_mode(plan, operator, K, order) in ("registers", "global"):
         from .cuda_filter import ell_cheb_moments
 
-        return ell_cheb_moments(data, plan.sk, v0, inv, order, impl="cuda")
+        return ell_cheb_moments(operator, plan.sk, v0, inv, order, impl="cuda")
+    cone = None if support is None else plan.light_cone(data, support)
+    if cone is None:
+        def step(t_cur, t_prev, scale, out):
+            return plan.step(operator, t_cur, t_prev, scale, out=out)
 
-    def step(t_cur, t_prev, scale, out):
-        return plan.step(data, t_cur, t_prev, scale, out=out)
+        return moment_recursion(step, v0, inv, order)
 
-    return moment_recursion(step, v0, inv, order)
+    def step_on(t_cur, t_prev, scale, out, rows):
+        plan.rows = rows
+        return plan.step(operator, t_cur, t_prev, scale, out=out)
+
+    try:
+        return moment_recursion(step_on, v0, inv, order, cone)
+    finally:
+        plan.rows = None
 
 
-def moment_recursion(step, v0, inv: float, order: int):
+def moment_recursion(step, v0, inv: float, order: int, cone: Optional[LightCone] = None):
     """The doubled-moment recursion one ``step`` a fused step:
     ``step(t_cur, t_prev, scale, out)`` returns ``(2·scale·H t_cur − t_prev,
     partials[rows, 2K])`` (``t_prev=None`` means zero), written into ``out``
     where it is not ``None`` and the step takes it.  The first step is
     half-scaled; from the third on ``t_next`` goes into ``t_prev``'s buffer
     (the caller's ``v0`` is never written).  Each step's partials are reduced
-    on the device and stacked at the end: ``[order, K]`` moments."""
+    on the device and stacked at the end: ``[order, K]`` moments.
+
+    With a :class:`LightCone` the step producing ``t_m`` takes a fifth
+    argument, ``cone.rows(m)`` (``None`` once that is the whole lattice), and the two buffers
+    the recursion allocates come zeroed, so that the rows a light-cone step
+    leaves are zero when the buffer comes back as ``t_prev``; the steps are
+    counted in :func:`window_counts`."""
     inv = float(inv)
-    t_cur, pp = step(v0, None, 0.5 * inv, None)
+    first = second = None
+    if cone is not None:
+        first, second = torch.zeros_like(v0), torch.zeros_like(v0)
+
+    def run(m, t_cur, t_prev, scale, out):
+        if cone is None:
+            return step(t_cur, t_prev, scale, out)
+        rows = cone.rows(m)
+        _windows["steps"] += 1
+        _windows["window_steps"] += rows is not None
+        _windows["rows"] += cone.n if rows is None else rows[1] - rows[0]
+        _windows["lattice_rows"] += cone.n
+        return step(t_cur, t_prev, scale, out, rows)
+
+    t_cur, pp = run(1, v0, None, 0.5 * inv, first)
     sums, t_prev = [pp.sum(dim=0)], v0
     for i in range(sweep_launches(order) - 1):
-        t_next, pp = step(t_cur, t_prev, inv, t_prev if i > 0 else None)  # i == 0: t_prev is the caller's v0
+        out = t_prev if i > 0 else second  # i == 0: t_prev is the caller's v0
+        t_next, pp = run(i + 2, t_cur, t_prev, inv, out)
         sums.append(pp.sum(dim=0))
         t_prev, t_cur = t_cur, t_next
     return moments_from_sums(torch.stack(sums), v0.shape[-1], order)

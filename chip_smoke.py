@@ -40,7 +40,7 @@ of ``examples/torch_*.py`` as a user would.  Every line of output is one JSON ob
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it fails at once.  ``--quick`` stops after the small
 kernel checks (for a first look at a new kernel) and prints no result line;
-``--phases main,widths,grad,gap,dwave,generic,tiled,lowest,bf16,sharded,native,planar,examples``
+``--phases main,widths,grad,gap,dwave,generic,tiled,lowest,bf16,sharded,native,planar,examples,window``
 runs only the named phases (and prints no result line unless all ran); ``--profile`` adds a
 ``torch.profiler`` table of one gradient to the ``gap`` phase; ``--log PATH``
 also writes the JSON records of the run to ``PATH``.
@@ -82,14 +82,21 @@ model); ``planar``: the planar façade calls at 1000×1000 (launch counters read
 here), the conversion's time and memory, the planar dense spectra at 16×16, a
 planar operator through the sharded free energy, and the sharded ``solve_gap``
 at 512² against the field write before the packed inserts; ``examples``: the
-four example scripts as subprocesses, each ending in its JSON result line.
+four example scripts as subprocesses, each ending in its JSON result line;
+``window``: the two light-cone steps (``ell_cheb_step_window``,
+``ell_gather_cheb_step_window``) at 10⁶ sites and K = 64 on three window widths
+against the whole-lattice steps (bit-equal on the window, zero outside, the
+partial sums to rounding), each form timed in µs per 1000 rows.  The LDOS
+calls of ``main`` and ``generic`` take the light-cone step while their
+probes' cone grows, and their launch counters say so.
 The small kernel checks hold the filter and moment kernels in both modes and both
 operator forms, and the power kernel in both modes (also at the lattices of the
 main path's bounds), against their plain versions and the per-step kernels, and the bf16
 instantiations too, on the bf16 form of
 every small operator (the gather pair on the bf16 operator's plans: the
 cluster form at the planned and forced tiles and stage counts, near 227 KB
-and at 48-56 KB of shared memory).
+and at 48-56 KB of shared memory), and the light-cone steps on the middle
+half of each small operator's rows against the whole-lattice steps.
 """
 
 from __future__ import annotations
@@ -265,7 +272,7 @@ def main(argv) -> int:
     profile = "--profile" in argv
     log_path = argv[argv.index("--log") + 1] if "--log" in argv else None
     all_phases = ("main", "widths", "grad", "gap", "dwave", "generic", "tiled", "lowest", "bf16", "sharded",
-                  "native", "planar", "examples")
+                  "native", "planar", "examples", "window")
     phases = tuple(argv[argv.index("--phases") + 1].split(",")) if "--phases" in argv else all_phases
     if not set(phases) <= set(all_phases):
         print(f"chip_smoke: unknown phase in {phases} (known: {all_phases})", file=sys.stderr)
@@ -347,6 +354,13 @@ def main(argv) -> int:
         del graph
         return best
 
+    def cone_steps(data, sk, sites, K, order) -> int:
+        """Light-cone launches of an LDOS sweep from ``sites`` (flat indices):
+        one a fused step while its probes' cone (``StepPlan.light_cone``) is
+        not yet the whole lattice; the sweep's other steps run on all of it."""
+        cone = ck.StepPlan(sk, K, None, data).light_cone(data, sites)
+        return 0 if cone is None else sum(cone.rows(m) is not None for m in range(1, ck.sweep_launches(order) + 1))
+
     # ------------------------------------------------------------------ 1. device
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -405,6 +419,23 @@ def main(argv) -> int:
     # against the plain version in complex128, relative to the largest of the
     # 2K sums — each is a float32 sum over all 4N entries, and <t_next,t_cur>
     # may cancel, so its error scales with the terms, not with the result.
+    def window_agrees(window, plain_window, whole_next, N):
+        """A light-cone step ``window(rows)`` on rows [N/4, N − N/4) against the
+        whole-lattice step's ``whole_next`` (bit-equal there), zero elsewhere
+        (its buffer comes zeroed), and its partial sums against the plain
+        version's in complex128 (1e-4 of the largest, as the whole step's)."""
+        rows = (N // 4, N - N // 4)
+        t_n, pp = window(rows)
+        torch.cuda.synchronize()
+        _, pp_want = plain_window(rows)
+        sums, want = pp.double().sum(dim=0), pp_want[0]
+        rel = float((sums - want).abs().max() / want.abs().max())
+        as_bits = lambda t: torch.view_as_real(t).view(torch.int32)
+        r0, r1 = rows
+        ok = (torch.equal(as_bits(t_n[r0:r1]), as_bits(whole_next[r0:r1])) and not bool((t_n[:r0] != 0).any())
+              and not bool((t_n[r1:] != 0).any()) and rel <= 1e-4)
+        return ok, rel
+
     def compare(data, sk, K, seed):
         N = sk.n_sites
         t_cur, t_prev = random_vector(N, K, seed), random_vector(N, K, seed + 1)
@@ -423,7 +454,11 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         first_ref, _ = ck.ell_cheb_step_plain(data, sk, t_cur, None, inv)
         sums, sums_ref = pp.double().sum(dim=0), pp_ref[0]
-        ok = (
+        ok_window, rel_window = window_agrees(
+            lambda rows: ck.ell_cheb_step_window(data, sk, t_cur, t_prev, inv, rows),
+            lambda rows: ck.ell_cheb_step_window_plain(data.to(c128), sk, t_cur.to(c128), t_prev.to(c128), inv, rows),
+            t_next, N)
+        ok = ok_window and (
             torch.allclose(y, y_ref, atol=2e-4, rtol=2e-4)
             and torch.allclose(t_next, n_ref, atol=2e-4, rtol=2e-4)
             and torch.allclose(first, first_ref, atol=2e-4, rtol=2e-4)
@@ -436,6 +471,7 @@ def main(argv) -> int:
             "ell_spmm": float((y - y_ref).abs().max()),
             "ell_cheb_step": float((t_next - n_ref).abs().max()),
             "partials_rel": float((sums - sums_ref).abs().max() / sums_ref.abs().max()),
+            "window_partials_rel": rel_window,
         }
 
     def random_blocks(sk, seed):
@@ -527,7 +563,7 @@ def main(argv) -> int:
     ck.reset_launch_counts()
     shapes = [(6, 5, 1), (4, 7, 1), (4, 4, 3), (3, 1, 5), (5, 6, 4), (16, 1, 1), (2, 6, 1)]
     probe_counts = [1, 3, 4, 8, 33]
-    small_err = {"ell_spmm": 0.0, "ell_cheb_step": 0.0, "partials_rel": 0.0,
+    small_err = {"ell_spmm": 0.0, "ell_cheb_step": 0.0, "partials_rel": 0.0, "window_partials_rel": 0.0,
                  "ell_spmm_adjoint": 0.0, "ell_block_outer": 0.0,
                  "ell_spmm_bf16": 0.0, "ell_cheb_step_bf16": 0.0, "bf16_partials_rel": 0.0}
     cases = [(str(shape), *random_system(shape, seed=i)) for i, shape in enumerate(shapes)]
@@ -608,6 +644,12 @@ def main(argv) -> int:
             lambda prev, out: cg.ell_gather_cheb_step(d, gl, t_cur, prev, 0.125, out=out),
             lambda cur, prev, dt: cg.ell_gather_cheb_step_plain(d.to(dt), gl, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
             lambda prev: ck.ell_cheb_step(d, gl.sk, t_cur, prev, 0.125), t_cur, t_prev)
+        whole_next, _ = cg.ell_gather_cheb_step(d, gl, t_cur, t_prev, 0.125)
+        ok_window, rel_window = window_agrees(
+            lambda rows: cg.ell_gather_cheb_step_window(d, gl, t_cur, t_prev, 0.125, rows),
+            lambda rows: cg.ell_gather_cheb_step_window_plain(d.to(c128), gl, t_cur.to(c128), t_prev.to(c128), 0.125,
+                                                              rows),
+            whole_next, N)
         # The bf16 instantiations on the bf16 form of the relabelled operator.
         d16 = ck.bf16_operator(d)
         y16 = cg.ell_gather_spmm(d16, gl16, t_cur)
@@ -620,9 +662,11 @@ def main(argv) -> int:
             lambda cur, prev, dt: cg.ell_gather_cheb_step_plain(d16, gl16, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
             lambda prev: ck.ell_cheb_step(d16, gl16.sk, t_cur, prev, 0.125), t_cur, t_prev)
         ok16 = close(y16, y16_want) and close(y16, y16_general) and torch.equal(y16, y16_again) and ok16_step
-        ok = close(y, y_want) and close(y, y_general) and close(y, y_natural) and torch.equal(y, y_again) and ok_step
+        ok = (close(y, y_want) and close(y, y_general) and close(y, y_natural) and torch.equal(y, y_again) and ok_step
+              and ok_window)
         return ok and ok16, {"ell_gather_spmm": float((y - y_want).abs().max()), "ell_gather_cheb_step": err_step,
-                             "gather_partials_rel": rel, "ell_gather_spmm_bf16": float((y16 - y16_want).abs().max()),
+                             "gather_partials_rel": rel, "gather_window_partials_rel": rel_window,
+                             "ell_gather_spmm_bf16": float((y16 - y16_want).abs().max()),
                              "ell_gather_cheb_step_bf16": err16_step, "gather_bf16_partials_rel": rel16}
 
     def compare_tiled(data, sk, K, seed, tile=None, bf16=False):
@@ -670,6 +714,7 @@ def main(argv) -> int:
                     ("generic 12x9", bs.skeleton_from_lattice(CubicLattice((12, 9, 1)))),
                     (f"pairs(23, S={sk_pairs.n_slots})", sk_pairs)]
     gather_err = {"ell_gather_spmm": 0.0, "ell_gather_cheb_step": 0.0, "gather_partials_rel": 0.0,
+                  "gather_window_partials_rel": 0.0,
                   "ell_gather_spmm_bf16": 0.0, "ell_gather_cheb_step_bf16": 0.0, "gather_bf16_partials_rel": 0.0}
     # Each case at the planned tile; T = 32 (pairs(23): N smaller than one tile,
     # and not a multiple of it); runs of one tile and of five (more tiles than
@@ -757,7 +802,8 @@ def main(argv) -> int:
         fail("the tiled step accepted a generic skeleton")
     except ValueError:
         pass
-    emit({"phase": "kernels", "held": ["ell_gather_spmm", "ell_gather_cheb_step", "stencil_cheb_step_tiled",
+    emit({"phase": "kernels", "held": ["ell_gather_spmm", "ell_gather_cheb_step", "ell_gather_cheb_step_window",
+                                       "stencil_cheb_step_tiled",
                                        "ell_gather_spmm_bf16", "ell_gather_cheb_step_bf16",
                                        "stencil_cheb_step_tiled_bf16"],
           "gather_shapes": len(gather_cases), "tiled_shapes": len(tiled_shapes),
@@ -1387,10 +1433,11 @@ def main(argv) -> int:
         energies = np.linspace(-1.0, 1.0, 41)
         expected = counts()  # the backward kernels stay at 0 on this path
 
-        def call(label, fn, order, K, sk, bound=False, products=0):
+        def call(label, fn, order, K, sk, bound=False, products=0, window=0):
             """Run one entry point, synchronised; account for the launches it must
-            make: its moment sweep (``order``), its spectral bound (``bound``) and
-            ``products`` ell_spmm launches besides."""
+            make: its moment sweep (``order``; ``window`` of its steps in the
+            light-cone form), its spectral bound (``bound``) and ``products``
+            ell_spmm launches besides."""
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn()
@@ -1399,7 +1446,8 @@ def main(argv) -> int:
             steps = ck.sweep_launches(order) if order else 0
             mode = cf.moments_plan(sk.n_sites, K, sk.n_slots, order)["mode"] if order else None
             if mode == "per_step":  # 10⁶ sites: one ell_cheb_step launch a fused step
-                expected["ell_cheb_step"] += steps
+                expected["ell_cheb_step"] += steps - window
+                expected["ell_cheb_step_window"] += window
             elif mode is not None:  # one launch of the moment kernel a sweep
                 expected["ell_cheb_moments"] += 1
                 expected["ell_cheb_moments.steps"] += steps
@@ -1438,13 +1486,15 @@ def main(argv) -> int:
         F_warm = call("free_energy(T=0.5, kpm, order=256, samples=8)",
                       lambda: big.free_energy(0.5, method="kpm", order=256, samples=8, scale=scale_big),
                       256, 8, sk_big)
+        centre = [big.lattice[(500, 500, 0)]]
         rho = call("ldos((500,500,0), order=512)",
                    lambda: big.ldos((500, 500, 0), energies, method="kpm", order=512, scale=scale_big),
-                   512, 4, sk_big)
+                   512, 4, sk_big, window=cone_steps(big.data, sk_big, centre, 4, 512))
         sites = [(100 + 50 * i, 100 + 50 * j, 0) for i in range(4) for j in range(4)]
+        flat = [big.lattice[c] for c in sites]
         rho_map = call("ldos_map(16 sites, order=512)",
                        lambda: big.ldos_map(sites, energies, method="kpm", order=512, scale=scale_big),
-                       512, 64, sk_big)
+                       512, 64, sk_big, window=cone_steps(big.data, sk_big, flat, 64, 512))
         dos = call("dos(order=256, samples=8)",
                    lambda: big.dos(energies, order=256, samples=8, scale=scale_big), 256, 8, sk_big)
         v_big = random_vector(sk_big.n_sites, 8, 7)
@@ -1478,6 +1528,7 @@ def main(argv) -> int:
         outside = np.abs(energies) >= 0.5  # beyond the s-wave gap Δ = 0.3
         check(main_launches == expected, f"launch counters {main_launches} != expected {expected}")
         check(main_launches["ell_spmm"] > 0 and main_launches["ell_cheb_step"] > 0
+              and main_launches["ell_cheb_step_window"] == 2 * ck.sweep_launches(512)
               and main_launches["ell_cheb_moments"] == 3 and main_launches["ell_power_iteration"] == 3
               and cf.power_plan(sk_big.n_sites, sk_big.n_slots, ITERS)["mode"] == "per_step",
               "a kernel of the main path was never launched, or the 10⁶ bounds were not per step")
@@ -2054,17 +2105,20 @@ def main(argv) -> int:
 
         expected = counts()
 
-        def call(label, fn, order, K, bound_iters=0):
+        def call(label, fn, order, K, bound_iters=0, sites=None):
+            """As phase main's: an LDOS sweep from ``sites`` takes the light-cone step while its cone grows."""
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             steps = ck.sweep_launches(order) if order else 0
-            expected["ell_gather_cheb_step"] += steps
+            window = 0 if sites is None else cone_steps(frozen.data, sk, sites, K, order)
+            expected["ell_gather_cheb_step"] += steps - window
+            expected["ell_gather_cheb_step_window"] += window
             expected["ell_gather_spmm"] += bound_iters
             emit({"phase": "generic", "call": label, "wall_s": wall, "K": K, "gather_cheb_launches": steps,
-                  "gather_spmm_launches": bound_iters})
+                  "light_cone_launches": window, "gather_spmm_launches": bound_iters})
             return out
 
         ITERS = 60
@@ -2077,10 +2131,11 @@ def main(argv) -> int:
         F_warm = call("free_energy(T=0.5, kpm, order=256, samples=8, scale=)",
                       lambda: frozen.free_energy(0.5, method="kpm", order=256, samples=8, scale=scale), 256, 8)
         rho = call("ldos(flat index, order=512)",
-                   lambda: frozen.ldos(site, energies, method="kpm", order=512, scale=scale), 512, 4)
+                   lambda: frozen.ldos(site, energies, method="kpm", order=512, scale=scale), 512, 4, sites=[site])
+        map_sites = [site, site + 1000, site + 5000, 17]
         rho_map = call("ldos_map(4 flat indices, order=512)",
-                       lambda: frozen.ldos_map([site, site + 1000, site + 5000, 17], energies, method="kpm",
-                                               order=512, scale=scale), 512, 16)
+                       lambda: frozen.ldos_map(map_sites, energies, method="kpm", order=512, scale=scale), 512, 16,
+                       sites=map_sites)
         dos = call("dos(order=256, samples=8)",
                    lambda: frozen.dos(energies, order=256, samples=8, scale=scale), 256, 8)
         v = random_vector(N, 8, 7)
@@ -2088,10 +2143,12 @@ def main(argv) -> int:
         generic_launches = ck.launch_counts()  # read right after the path
         peak_GB = torch.cuda.max_memory_allocated() / 1e9
         mid, outside = len(energies) // 2, np.abs(energies) >= 0.5
-        check(generic_launches == expected and (expected["ell_gather_spmm"], expected["ell_gather_cheb_step"]) == (121, 896),
+        check(generic_launches == expected and expected["ell_gather_spmm"] == 121
+              and expected["ell_gather_cheb_step"] + expected["ell_gather_cheb_step_window"] == 896,
               f"launch counters {generic_launches} != expected {expected} (121 / 896)")
         check(generic_launches["ell_gather_spmm"] > 0 and generic_launches["ell_gather_cheb_step"] > 0
-              and generic_launches["ell_spmm"] == 0 and generic_launches["ell_cheb_step"] == 0,
+              and generic_launches["ell_spmm"] == 0 and generic_launches["ell_cheb_step"] == 0
+              and generic_launches["ell_cheb_step_window"] == 0,
               "the generic path did not go through the gather kernels alone")
         check(math.isfinite(F_cold) and F_warm < F_cold < 0, "F not finite or not falling with T")
         check(rho.shape == (41,) and np.isfinite(rho).all() and rho.min() >= -1e-6
@@ -3666,6 +3723,98 @@ def main(argv) -> int:
                   f"examples/{script} failed (exit {proc.returncode})")
         emit({"phase": "examples", "wall_s": time.perf_counter() - phase_t0})
 
+    def phase_window():
+        """The two light-cone steps at 10⁶ sites, K = 64, against their
+        whole-lattice steps on the card: ell_cheb_step_window on the 1000×1000
+        s-wave lattice, ell_gather_cheb_step_window on the 4096×256 graphene
+        ribbon in its relabelled order, each on centred windows of N/64, N/8 and
+        N/2 rows.  The inputs are what a sweep leaves: random on the window less
+        one band at each end, zero elsewhere.  t_next must be bit-equal to the
+        whole step's on the window and zero outside it, the partial sums within
+        1e-5 of the largest (other block boundaries); each form is timed (CUDA
+        events, 20 launches) and reported in µs per 1000 rows."""
+        from bodge_tpu_torch.models.systems import graphene_swave
+
+        K, inv = 64, 0.125
+        before = ck.launch_counts()
+        big = swave_superconductor((1000, 1000, 1))
+        ribbon = graphene_swave((4096, 256, 1))
+        gl = cg.plan_gather(ribbon.skeleton, K)
+        data_r = gl.relabel(ribbon.data).contiguous()
+        del ribbon
+        forms = (("ell_cheb_step_window", "swave 1000x1000", big.data, big.skeleton, big.skeleton,
+                  ck.nonzero_bandwidth(big.data, big.skeleton), ck.ell_cheb_step, ck.ell_cheb_step_window,
+                  ck.ell_cheb_step_window_plain, 0),
+                 ("ell_gather_cheb_step_window", "graphene 4096x256, relabelled", data_r, gl.sk, gl, gl.bwb,
+                  cg.ell_gather_cheb_step, cg.ell_gather_cheb_step_window, cg.ell_gather_cheb_step_window_plain,
+                  gl.sk.n_sites * gl.sk.n_slots * 4))
+        gen = torch.Generator(device=dev).manual_seed(1801)
+        rows_out = {}
+        for name, label, data, sk, where, band, whole, window, plain, extra_bytes in forms:
+            N = sk.n_sites
+            t_cur, t_prev = (torch.zeros((N, 4, K), dtype=c64, device=dev) for _ in range(2))
+            whole_out, win_out = torch.empty_like(t_cur), torch.zeros_like(t_cur)
+            per_width = []
+            for share in (64, 8, 2):
+                width = N // share
+                r0 = (N - width) // 2
+                rows = (r0, r0 + width)
+                inner = slice(r0 + band, r0 + width - band)
+                for t in (t_cur, t_prev):
+                    t.zero_()
+                    t[inner] = torch.randn(t[inner].shape, dtype=c64, device=dev, generator=gen)
+                win_out.zero_()
+                t_w, p_w = whole(data, where, t_cur, t_prev, inv, out=whole_out, impl="cuda")
+                t_n, p_n = window(data, where, t_cur, t_prev, inv, rows, out=win_out, impl="cuda")
+                torch.cuda.synchronize()
+                as_bits = lambda t: torch.view_as_real(t).view(torch.int32)
+                bit_equal = torch.equal(as_bits(t_n[rows[0]:rows[1]]), as_bits(t_w[rows[0]:rows[1]]))
+                zero_outside = not bool((t_n[:rows[0]] != 0).any() or (t_n[rows[1]:] != 0).any()
+                                        or (t_w[:rows[0]] != 0).any() or (t_w[rows[1]:] != 0).any())
+                sums_w, sums_n = p_w.double().sum(dim=0), p_n.double().sum(dim=0)
+                rel = float((sums_n - sums_w).abs().max() / sums_w.abs().max())
+                whole_ms = timed_ms(lambda: whole(data, where, t_cur, t_prev, inv, out=whole_out, impl="cuda"), 20)
+                window_ms = timed_ms(lambda: window(data, where, t_cur, t_prev, inv, rows, out=win_out, impl="cuda"),
+                                     20)
+                rec = {"phase": "window", "form": name, "shape": label, "N": N, "K": K, "band": band,
+                       "rows": list(rows), "width": width, "bit_equal_on_window": bit_equal,
+                       "zero_outside": zero_outside, "partials_rel": rel, "whole_ms": whole_ms,
+                       "window_ms": window_ms, "us_per_1000_rows_whole": whole_ms * 1e6 / N,
+                       "us_per_1000_rows_window": window_ms * 1e6 / width,
+                       "window_over_whole_per_row": (window_ms / width) / (whole_ms / N)}
+                emit(rec)
+                per_width.append(rec)
+                check(bit_equal and zero_outside and rel <= 1e-5,
+                      f"{name} on rows {rows} differs from the whole-lattice step: {rec}")
+            # Both forms on inputs random on every row, beside the sweep's inputs above (zero
+            # outside the window): whether a row's cost depends on what it holds.
+            rows = tuple(per_width[-1]["rows"])
+            for t in (t_cur, t_prev):
+                t.copy_(torch.randn(t.shape, dtype=c64, device=dev, generator=gen))
+            dense = {"whole_ms": timed_ms(lambda: whole(data, where, t_cur, t_prev, inv, out=whole_out, impl="cuda"), 20),
+                     "window_ms": timed_ms(lambda: window(data, where, t_cur, t_prev, inv, rows, out=win_out,
+                                                          impl="cuda"), 20)}
+            emit({"phase": "window", "form": name, "inputs": "random on every row", "rows": list(rows), **dense,
+                  "us_per_1000_rows_whole": dense["whole_ms"] * 1e6 / N,
+                  "us_per_1000_rows_window": dense["window_ms"] * 1e6 / (rows[1] - rows[0])})
+            # The plain version beside the widest window, for the kernels' table.
+            t_n, _ = window(data, where, t_cur, t_prev, inv, rows, out=win_out.zero_(), impl="cuda")
+            want, _ = plain(data, where, t_cur, t_prev, inv, rows)
+            err = float((t_n - want).abs().max())
+            check(torch.allclose(t_n, want, atol=2e-4, rtol=2e-4), f"{name} differs from its plain version by {err}")
+            plain_ms = timed_ms(lambda: plain(data, where, t_cur, t_prev, inv, rows), 3)
+            width = rows[1] - rows[0]
+            rows_out[name] = bound_row(name, f"{label}, rows {rows[0]}..{rows[1]}", sk, K,
+                                       per_width[-1]["window_ms"], plain_ms,
+                                       chebyshev_step_bytes(sk, K, 8) * width // N + extra_bytes * width // N,
+                                       spmm_flops(sk, K) * width // N, err, None, "none", [per_width[-1]["window_ms"]])
+            del t_cur, t_prev, whole_out, win_out, t_n, want
+            torch.cuda.empty_cache()
+        launched = launched_since(before)
+        check(launched["ell_cheb_step_window"] > 0 and launched["ell_gather_cheb_step_window"] > 0,
+              f"the window phase launched no light-cone step: {launched}")
+        return launched, rows_out
+
     results = {}
     if "main" in phases:
         results["main"] = phase_main()
@@ -3679,7 +3828,7 @@ def main(argv) -> int:
         phase_dwave()
     for name, phase in (("generic", phase_generic), ("tiled", phase_tiled), ("lowest", phase_lowest),
                         ("bf16", phase_bf16), ("sharded", phase_sharded), ("native", phase_native),
-                        ("planar", phase_planar), ("examples", phase_examples)):
+                        ("planar", phase_planar), ("examples", phase_examples), ("window", phase_window)):
         if name in phases:
             results[name] = phase()
 
@@ -3721,6 +3870,9 @@ def main(argv) -> int:
         "ell_cheb_moments_bf16": "bodge_tpu/ops/pallas_spmm.py:1547",
         # The product under the reference's power-iteration scan (bodge_tpu/ops/chebyshev.py:134), one launch here.
         "ell_power_iteration": "bodge_tpu/ops/pallas_spmm.py:440",
+        # The same fused steps on the rows an LDOS sweep's probes have reached (the reference steps all rows).
+        "ell_cheb_step_window": "bodge_tpu/ops/pallas_spmm.py:468",
+        "ell_gather_cheb_step_window": "bodge_tpu/ops/pallas_gather.py:261",
     }
     for name in ("ell_spmm", "ell_cheb_step", "ell_spmm_halo", "ell_cheb_step_halo", "ell_gather_spmm",
                  "ell_gather_cheb_step", "stencil_cheb_step_tiled"):
@@ -3728,6 +3880,7 @@ def main(argv) -> int:
     sources = dict.fromkeys(ck.KERNELS, "bodge_tpu_torch/csrc/ell_spmm.cu")
     sources["ell_block_outer"] = "bodge_tpu_torch/csrc/ell_block_outer.cu"
     sources["ell_gather_spmm"] = sources["ell_gather_cheb_step"] = "bodge_tpu_torch/csrc/ell_gather.cu"
+    sources["ell_gather_cheb_step_window"] = "bodge_tpu_torch/csrc/ell_gather.cu"
     sources["stencil_cheb_step_tiled"] = "bodge_tpu_torch/csrc/stencil_tiled.cu"
     sources["ell_block_outer_halo"] = "bodge_tpu_torch/csrc/ell_block_outer.cu"
     sources["ell_gather_spmm_bf16"] = sources["ell_gather_cheb_step_bf16"] = "bodge_tpu_torch/csrc/ell_gather.cu"
@@ -3739,8 +3892,8 @@ def main(argv) -> int:
              "planar_entry_points": "planar"}
     kernels = []
     for name in ck.KERNELS:
-        row = next(results[p][1][name] for p in ("main", "gap", "generic", "tiled", "sharded", "bf16", "lowest")
-                   if name in results[p][1])
+        row = next(results[p][1][name] for p in ("main", "gap", "generic", "tiled", "sharded", "bf16", "lowest",
+                                                 "window") if name in results[p][1])
         by_path = {label: results[p][0][name] for label, p in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],

@@ -202,7 +202,9 @@ def test_ldos_map_on_the_card_takes_the_gather_step():
     before = ck.launch_counts()
     got = card.ldos_map(sites, ENERGIES, method="kpm", order=order)
     launched = {k: v - before[k] for k, v in ck.launch_counts().items()}
-    assert launched["ell_gather_cheb_step"] == ck.sweep_launches(order) and launched["ell_gather_spmm"] == 60
+    # the LDOS probes' light cone stays inside the ribbon: every step is the light-cone form
+    assert launched["ell_gather_cheb_step_window"] == ck.sweep_launches(order) and launched["ell_gather_cheb_step"] == 0
+    assert launched["ell_gather_spmm"] == 60
     assert launched["ell_cheb_step"] == 0 and launched["ell_spmm"] == 0 and launched["ell_cheb_moments"] == 0
     assert cg.gather_counts()["operator_relabels"] == 2
     assert np.allclose(got, want, atol=2e-4 * np.abs(want).max(), rtol=0)  # float32 sums in two orders

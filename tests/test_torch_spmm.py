@@ -218,7 +218,7 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         "ell_spmm_bf16": 0, "ell_cheb_step_bf16": 0, "ell_spmm_halo_bf16": 0, "ell_cheb_step_halo_bf16": 0,
         "ell_gather_spmm_bf16": 0, "ell_gather_cheb_step_bf16": 0, "stencil_cheb_step_tiled_bf16": 0,
         "ell_cheb_filter": 0, "ell_cheb_filter_bf16": 0, "ell_cheb_moments": 0, "ell_cheb_moments_bf16": 0,
-        "ell_power_iteration": 0,
+        "ell_power_iteration": 0, "ell_cheb_step_window": 0, "ell_gather_cheb_step_window": 0,
         "ell_cheb_filter.steps": 0, "ell_cheb_filter_bf16.steps": 0, "ell_cheb_moments.steps": 0,
         "ell_cheb_moments_bf16.steps": 0, "ell_power_iteration.steps": 0,
     }
