@@ -17,7 +17,7 @@ Parity target: ``bodge/hamiltonian.py:5-387``.  Semantics preserved:
 Storage is a padded block-ELL ``torch`` tensor ``[N, S, 4, 4]`` on one
 device; assembly writes are batched indexed writes on that device; the
 spectral observables run on the Chebyshev/KPM path driven by the
-hand-written CUDA kernels of :mod:`bodge_tpu_torch.ops.cuda_spmm`.
+hand-written CUDA kernels of :mod:`bodge_tpu_torch.ops.cuda_ell`.
 
 Device and precision policy: ``Hamiltonian(lattice, dtype=None,
 device=None)`` lives on the CUDA device unless the caller asks for the CPU
@@ -40,13 +40,13 @@ native C++ tier (:mod:`bodge_tpu_torch.native`) where it builds, and through
 writes.  The façade's own calls always compute on the complex operator:
 complex arithmetic is native on the card.  :meth:`Hamiltonian.device_operator`
 hands out the planar split-complex form under ``BODGE_PLANAR=1``
-(:func:`use_planar_device_path`) for callers of the planar entry points
-(:mod:`bodge_tpu_torch.ops.planar`), which give the complex calls' results.
+(:func:`~bodge_tpu_torch.ops.planar.use_planar_device_path`) for callers of
+the planar entry points (:mod:`bodge_tpu_torch.ops.planar`), which give the
+complex calls' results.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -67,19 +67,10 @@ from .ops import blocksparse as bs
 from .ops import chebyshev
 from .ops import dense as dense_ops
 from .ops.blocksparse import BLOCK, Skeleton
+from .ops.planar import to_planar, use_planar_device_path
 from .ops.spmm import spmm as _spmm
 
 HERMITICITY_TOL = 1e-6
-
-
-def use_planar_device_path() -> bool:
-    """Whether the device representation is the planar (split-complex
-    float32) form: ``BODGE_PLANAR=1`` / ``0`` as in the reference, and False
-    by default — complex arithmetic is native on the card (the reference
-    defaults to True only on a TPU).  :meth:`Hamiltonian.device_operator` and
-    :func:`bodge_tpu_torch.ops.chebyshev.default_impl` read it; the façade's
-    own calls compute on the complex operator either way."""
-    return os.environ.get("BODGE_PLANAR") == "1"
 
 
 class Hamiltonian:
@@ -139,14 +130,13 @@ class Hamiltonian:
     def device_operator(self):
         """The operator in the device representation, cached per version: the
         complex block tensor on the Hamiltonian's device, or its planar form
-        ``[2, N, S, 4, 4]`` float32 there under :func:`use_planar_device_path`."""
-        from .ops import planar as pl_ops
-
+        ``[2, N, S, 4, 4]`` float32 there under
+        :func:`~bodge_tpu_torch.ops.planar.use_planar_device_path`."""
         kind = "planar" if use_planar_device_path() else "complex"
         cache = getattr(self, "_dev_cache", None)
         if cache is not None and cache[0] == self._version and cache[1] == kind:
             return cache[2]
-        op = pl_ops.to_planar(self._data) if kind == "planar" else self._data
+        op = to_planar(self._data) if kind == "planar" else self._data
         self._dev_cache = (self._version, kind, op)
         return op
 

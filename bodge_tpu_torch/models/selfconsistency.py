@@ -31,7 +31,7 @@ row-sharded objective is ``impl="cuda_sharded"`` (the reference's
 ``"pallas_sharded"``) or ``"plain_sharded"``, and it inserts the field into
 each rank's slab of the natural ELL data with the port's counterparts of the
 reference's packed inserts
-(:func:`~bodge_tpu_torch.ops.cuda_spmm.plane_packed_insert_swave` / ``_bond``).
+(:func:`~bodge_tpu_torch.ops.cuda_ell.plane_packed_insert_swave` / ``_bond``).
 """
 
 from __future__ import annotations
@@ -46,8 +46,8 @@ from ..common import jσ2
 from ..ops import blocksparse as bs
 from ..ops.blocksparse import BLOCK, Skeleton
 from ..ops.chebyshev import _KERNELS, chebyshev_coefficients, rademacher_probes, spectral_bound
-from ..ops.cuda_spmm import (insert_onsite_pairing, moments_fused_ad, plane_packed_insert_bond,
-                              plane_packed_insert_swave, resolve_path)
+from ..ops.cuda_ell import insert_onsite_pairing, plane_packed_insert_bond, plane_packed_insert_swave
+from ..ops.cuda_spmm import moments_fused_ad, resolve_path
 from ..ops.dense import free_energy_from_spectrum
 from ..ops.spmm import spmm
 

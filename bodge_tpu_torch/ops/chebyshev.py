@@ -57,9 +57,9 @@ import torch
 
 from ..common import numpy_dtype
 from .blocksparse import BLOCK, Skeleton
-from .cuda_spmm import (StepPlan, bf16_operator, moments_fused, operator_values, power_mode, power_recursion,
-                        resolve_operator_storage)
-from .planar import complex_operator
+from .cuda_ell import bf16_operator, operator_values, power_recursion, resolve_operator_storage
+from .cuda_spmm import StepPlan, moments_fused, power_sweep
+from .planar import complex_operator, use_planar_device_path
 from .spmm import spmm
 
 DEFAULT_ORDER = 512
@@ -67,13 +67,11 @@ DEFAULT_ORDER = 512
 
 def default_impl() -> str:
     """The implementation ``impl=None`` stands for in the KPM entry points:
-    ``"planar"`` under :func:`~bodge_tpu_torch.hamiltonian.use_planar_device_path`
+    ``"planar"`` under :func:`~bodge_tpu_torch.ops.planar.use_planar_device_path`
     (``BODGE_PLANAR=1``: the operator crosses the planar boundary and the
     sweep runs the complex kernels on its complex form), else ``"auto"``: the
     step :func:`~bodge_tpu_torch.ops.cuda_spmm.resolve_path` chooses from the
     tensor's device and the skeleton."""
-    from ..hamiltonian import use_planar_device_path
-
     return "planar" if use_planar_device_path() else "auto"
 
 
@@ -111,14 +109,12 @@ def spectral_bound(
 
     The start vector is complex normal, drawn with NumPy from ``seed`` (once
     per lattice size, seed and dtype: :func:`_seeded_start_vector`) or with
-    ``torch.randn`` from ``generator`` when one is given.  On the general
-    step on the card where :func:`~bodge_tpu_torch.ops.cuda_filter.power_plan`
-    fits (:func:`~bodge_tpu_torch.ops.cuda_spmm.power_mode`), the ``iters``
-    iterations are one launch of
-    :func:`~bodge_tpu_torch.ops.cuda_filter.ell_power_iteration`; elsewhere
-    (the gather and tiled steps, lattices too large for a plan, the plain
-    versions) a loop of one product a step with no host synchronisation
-    inside.
+    ``torch.randn`` from ``generator`` when one is given.  The ``iters``
+    iterations are :func:`~bodge_tpu_torch.ops.cuda_spmm.power_sweep` on the
+    step :func:`~bodge_tpu_torch.ops.cuda_spmm.resolve_path` chooses: one
+    launch of the power kernel where its plan fits, else a loop of one product
+    a step with no host synchronisation inside; ``"stencil"`` / ``"gather"``
+    run that loop on the plain products.
     """
     data, impl = _operator_and_impl(data, impl)
     if generator is not None:
@@ -128,16 +124,12 @@ def spectral_bound(
     else:
         v = _seeded_start_vector(sk.n_sites, seed, data)
     if impl in ("stencil", "gather"):
-        product = lambda w: spmm(data, sk, w, impl=impl)
+        norm = power_recursion(lambda w: spmm(data, sk, w, impl=impl), v, iters)
     else:  # cast (and, on a generic skeleton, relabel) once, not in every iteration
         plan = StepPlan(sk, 1, impl, data)
-        data, v = plan.operator(data), plan.enter(v)
-        if power_mode(plan, data, iters) in ("registers", "global"):
-            from .cuda_filter import ell_power_iteration
-
-            return float(ell_power_iteration(data, plan.sk, v, iters, impl="cuda")) * 1.05
-        product = lambda w: plan.spmm(data, w)
-    return float(power_recursion(product, v, iters)) * 1.05
+        data, v = plan.operator(data), plan.enter(v)  # the original start vector is freed here
+        norm = power_sweep(plan, data, v, iters)
+    return float(norm) * 1.05
 
 
 # spectral_bound's seeded start vectors: the last few drawn, each cast to its
@@ -150,8 +142,10 @@ _kpm_inputs = {"start_vector.hits": 0, "start_vector.misses": 0}
 
 def kpm_input_counts() -> dict:
     """``{"start_vector.hits": …, "start_vector.misses": …}``: how often
-    :func:`spectral_bound` found its seeded start vector kept, and how often
-    it drew one, since the last :func:`reset_kpm_input_counts`."""
+    :func:`spectral_bound` (and the row-sharded bound,
+    :func:`~bodge_tpu_torch.parallel.cuda_sharded.spectral_bound_sharded`)
+    found its seeded start vector kept, and how often it drew one, since the
+    last :func:`reset_kpm_input_counts`."""
     with _start_vector_lock:
         return dict(_kpm_inputs)
 
@@ -282,7 +276,7 @@ def moments(data, sk: Skeleton, v0, order: int, scale: float, impl: Optional[str
 
     ``operator_dtype``: the operator's storage (``"f32"`` / ``"bf16"``;
     ``None`` reads ``BODGE_OPERATOR_STORAGE``,
-    :func:`~bodge_tpu_torch.ops.cuda_spmm.resolve_operator_storage`).  With
+    :func:`~bodge_tpu_torch.ops.cuda_ell.resolve_operator_storage`).  With
     bf16 the sweep runs on the bf16 form — the kernels' bf16 instantiations
     on the card, the plain versions on its exact upcast on the CPU; the
     ``"stencil"`` / ``"gather"`` scans multiply with the same rounded blocks.

@@ -24,7 +24,7 @@ the sites a block and the pairs a thread.  Where no plan fits — a block's
 sites would not fit its share of shared memory, which happens from about
 44 000 sites at S = 5 (85 000 in the bf16 form) — it answers ``"per_step"``, and
 :func:`~bodge_tpu_torch.ops.cuda_spmm.filter_sweep` runs one
-:func:`~bodge_tpu_torch.ops.cuda_spmm.ell_cheb_step` launch an order there.
+:func:`~bodge_tpu_torch.ops.cuda_ell.ell_cheb_step` launch an order there.
 
 Counters: ``ell_cheb_filter.launches`` (one a sweep) and
 ``ell_cheb_filter.steps`` (Σ(order − 1)), and the same pair on the bf16
@@ -59,10 +59,10 @@ only.  Each block writes its sum of ``|w_k|²`` into a ``[iters, grid]`` row;
 after the grid barrier every block sums the row in the same order and divides
 by the same norm.  :func:`power_plan` is :func:`filter_plan` at K = 1 with a
 block's 32-byte reduction buffer; where it answers ``"per_step"``,
-``spectral_bound`` keeps one ``ell_spmm`` launch a step.  Its counters are
-``ell_power_iteration.launches`` (one a bound) and
-``ell_power_iteration.steps`` (``iters``: the ``ell_spmm`` launches it stands
-for).
+:func:`~bodge_tpu_torch.ops.cuda_spmm.power_sweep` runs one ``ell_spmm``
+launch a step.  Its counters are ``ell_power_iteration.launches`` (one a
+bound) and ``ell_power_iteration.steps`` (``iters``: the ``ell_spmm``
+launches it stands for).
 """
 
 from __future__ import annotations
@@ -74,14 +74,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import cuda_spmm as ck
+from . import cuda_ell as ce
 from .blocksparse import Skeleton
 from .spmm import batched_operator, spmm_batched
 
 FILTER_THREADS = 256  # threads a block (THREADS in csrc/ell_filter.cu)
 FILTER_BLOCKS_PER_SM = 4  # __launch_bounds__(256, 4): at most 64 registers a thread
 # Shared memory a block may stage so that four blocks fit an SM.
-FILTER_SMEM_CAP = ck.SM_SHARED // FILTER_BLOCKS_PER_SM - ck.BLOCK_RESERVED
+FILTER_SMEM_CAP = ce.SM_SHARED // FILTER_BLOCKS_PER_SM - ce.BLOCK_RESERVED
 MODES = ("registers", "global")
 MOMENTS_PARTIALS_CAP = 1 << 28  # bytes of a moment sweep's [steps, grid, 2K] float32 partials, at most
 POWER_BLOCK_BYTES = 32  # a power block's reduction buffer: one float a warp (WARPS in csrc/ell_filter.cu)
@@ -127,7 +127,7 @@ def moments_plan(N: int, K: int, S: int, order: int, *, bf16: bool = False, mode
     order = int(order)
     if order < 1:
         raise ValueError(f"moments_plan needs order >= 1, got {order}")
-    return _plan("moment", N, K, S, bf16, mode, sms, steps=ck.sweep_launches(order))
+    return _plan("moment", N, K, S, bf16, mode, sms, steps=ce.sweep_launches(order))
 
 
 def power_plan(N: int, S: int, iters: int, *, mode: Optional[str] = None, sms: Optional[int] = None) -> dict:
@@ -156,7 +156,7 @@ def _plan(what: str, N: int, K: int, S: int, bf16: bool, mode: Optional[str], sm
         raise ValueError(f"{what} plan needs N, K, S >= 1, got {N}, {K}, {S}")
     if mode not in (None, *MODES):
         raise ValueError(f"mode {mode!r}: None, 'registers' or 'global'")
-    sms = ck.sm_count() if sms is None else int(sms)
+    sms = ce.sm_count() if sms is None else int(sms)
     slots = FILTER_BLOCKS_PER_SM * sms
     site = _site_bytes(S, bf16, K if what == "moment" else 0)
     block = POWER_BLOCK_BYTES if what == "power" else 0
@@ -203,24 +203,24 @@ def _coefficients(coeffs) -> list:
 
 def ell_cheb_filter_plain(data, sk: Skeleton, v, coeffs, inv: float):
     """Plain version of :func:`ell_cheb_filter`: the per-step recursion of
-    :func:`~bodge_tpu_torch.ops.cuda_spmm.ell_cheb_step_plain` (any device,
+    :func:`~bodge_tpu_torch.ops.cuda_ell.ell_cheb_step_plain` (any device,
     complex64 or complex128, either operator form), the operator brought into
     the batched product's form once a sweep, as the kernel stages it once."""
-    A = batched_operator(ck.operator_values(data, v.dtype), sk)
+    A = batched_operator(ce.operator_values(data, v.dtype), sk)
 
     def step(t_cur, t_prev, scale, out):
-        return ck.cheb_tail_plain(spmm_batched(A, sk, t_cur), t_cur, t_prev, scale, sums=False)[0]
+        return ce.cheb_tail_plain(spmm_batched(A, sk, t_cur), t_cur, t_prev, scale, sums=False)[0]
 
-    return ck.filter_recursion(step, v, _coefficients(coeffs), inv)
+    return ce.filter_recursion(step, v, _coefficients(coeffs), inv)
 
 
 @functools.lru_cache(maxsize=64)
 def _occupancy(device: int, kind: str, bf16: bool, registers: bool, sb: int, S: int, K: int) -> int:
     blocks, smem = ctypes.c_int(0), ctypes.c_longlong(0)
     with torch.cuda.device(device):
-        err = ck._library().ell_cheb_sweep_occupancy(SWEEPS[kind], int(bf16), int(registers), sb, S, K,
+        err = ce._library().ell_cheb_sweep_occupancy(SWEEPS[kind], int(bf16), int(registers), sb, S, K,
                                                      ctypes.byref(blocks), ctypes.byref(smem))
-    ck._raise_on(err, "ell_cheb_sweep_occupancy")
+    ce._raise_on(err, "ell_cheb_sweep_occupancy")
     return blocks.value
 
 
@@ -249,13 +249,13 @@ def _launch_sweep(counter, kind: str, plan: dict, v, S: int, K: int, bf16: bool,
                          + (f", {steps} steps" if kind != "filter" else "")
                          + f" ({caller} runs the per-step path there)")
     with torch.cuda.device(v.device):
-        held = occupancy(plan, S, K, bf16=bf16, kind=kind) * ck.sm_count()
+        held = occupancy(plan, S, K, bf16=bf16, kind=kind) * ce.sm_count()
         if plan["grid"] > held:
             raise RuntimeError(f"{counter.__name__}: the plan's {plan['grid']} blocks exceed the {held} the card "
                                f"holds at once ({FILTER_BLOCKS_PER_SM} an SM assumed)")
         scratch = torch.empty((2, *v.shape), dtype=v.dtype, device=v.device)
         err = launch(scratch[0].data_ptr(), scratch[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
-    ck._raise_on(err, counter.__name__)
+    ce._raise_on(err, counter.__name__)
     counter.launches += 1
     counter.steps += steps
 
@@ -273,15 +273,15 @@ def ell_cheb_filter(data, sk: Skeleton, v, coeffs, inv: float, *, mode: Optional
     ``data`` in the bf16 form launches the bf16 instantiation, counted as
     :func:`ell_cheb_filter_bf16`."""
     coeffs = _coefficients(coeffs)
-    if ck._resolve(impl, v) == "plain":
+    if ce._resolve(impl, v) == "plain":
         return ell_cheb_filter_plain(data, sk, v, coeffs, inv)
-    N, S, K, bf16 = ck._check_forward(data, sk, v)
-    plan = filter_plan(N, K, S, bf16=bf16, mode=mode, sms=ck.sm_count())
+    N, S, K, bf16 = ce._check_forward(data, sk, v)
+    plan = filter_plan(N, K, S, bf16=bf16, mode=mode, sms=ce.sm_count())
     c = torch.tensor(coeffs, dtype=torch.float32).to(v.device)
     y = torch.empty_like(v)
     _launch_sweep(
         ell_cheb_filter_bf16 if bf16 else ell_cheb_filter, "filter", plan, v, S, K, bf16, len(coeffs) - 1,
-        lambda p0, p1, stream: ck._library().ell_cheb_filter_launch(
+        lambda p0, p1, stream: ce._library().ell_cheb_filter_launch(
             data.data_ptr(), int(bf16), sk.device_cols(v.device).data_ptr(), v.data_ptr(), c.data_ptr(),
             len(coeffs), float(inv), p0, p1, y.data_ptr(), N, S, K, plan["sites_per_block"],
             int(plan["mode"] == "registers"), stream))
@@ -295,7 +295,7 @@ ell_cheb_filter.steps = 0
 def ell_cheb_filter_bf16(data, sk: Skeleton, v, coeffs, inv: float, *, mode: Optional[str] = None,
                          impl: Optional[str] = None):
     """:func:`ell_cheb_filter` with the operator in the bf16 form, which it requires."""
-    ck._require_bf16(data, "ell_cheb_filter_bf16")
+    ce._require_bf16(data, "ell_cheb_filter_bf16")
     return ell_cheb_filter(data, sk, v, coeffs, inv, mode=mode, impl=impl)
 
 
@@ -305,19 +305,19 @@ ell_cheb_filter_bf16.steps = 0
 
 def ell_cheb_moments_plain(data, sk: Skeleton, v0, inv: float, order: int):
     """Plain version of :func:`ell_cheb_moments`: the per-step recursion of
-    :func:`~bodge_tpu_torch.ops.cuda_spmm.ell_cheb_step_plain` with its column
+    :func:`~bodge_tpu_torch.ops.cuda_ell.ell_cheb_step_plain` with its column
     sums (any device, complex64 or complex128, either operator form), the
     operator brought into the batched product's form once a sweep, as the
     kernel stages it once.  ``[order, K]`` real moments."""
     order = int(order)
     if order < 1:
         raise ValueError(f"order must be >= 1, got {order}")
-    A = batched_operator(ck.operator_values(data, v0.dtype), sk)
+    A = batched_operator(ce.operator_values(data, v0.dtype), sk)
 
     def step(t_cur, t_prev, scale, out):
-        return ck.cheb_tail_plain(spmm_batched(A, sk, t_cur), t_cur, t_prev, scale)
+        return ce.cheb_tail_plain(spmm_batched(A, sk, t_cur), t_cur, t_prev, scale)
 
-    return ck.moment_recursion(step, v0, inv, order)
+    return ce.moment_recursion(step, v0, inv, order)
 
 
 def ell_cheb_moments(data, sk: Skeleton, v0, inv: float, order: int, *, mode: Optional[str] = None,
@@ -339,19 +339,19 @@ def ell_cheb_moments(data, sk: Skeleton, v0, inv: float, order: int, *, mode: Op
     order = int(order)
     if order < 1:
         raise ValueError(f"order must be >= 1, got {order}")
-    if ck._resolve(impl, v0) == "plain":
+    if ce._resolve(impl, v0) == "plain":
         return ell_cheb_moments_plain(data, sk, v0, inv, order)
-    N, S, K, bf16 = ck._check_forward(data, sk, v0)
-    plan = moments_plan(N, K, S, order, bf16=bf16, mode=mode, sms=ck.sm_count())
+    N, S, K, bf16 = ce._check_forward(data, sk, v0)
+    plan = moments_plan(N, K, S, order, bf16=bf16, mode=mode, sms=ce.sm_count())
     steps = plan["steps"]
     partials = torch.empty((steps, plan["grid"], 2 * K), dtype=torch.float32, device=v0.device)
     _launch_sweep(
         ell_cheb_moments_bf16 if bf16 else ell_cheb_moments, "moment", plan, v0, S, K, bf16, steps,
-        lambda p0, p1, stream: ck._library().ell_cheb_moments_launch(
+        lambda p0, p1, stream: ce._library().ell_cheb_moments_launch(
             data.data_ptr(), int(bf16), sk.device_cols(v0.device).data_ptr(), v0.data_ptr(), steps, float(inv),
             p0, p1, partials.data_ptr(), N, S, K, plan["sites_per_block"], int(plan["mode"] == "registers"),
             stream))
-    return ck.moments_from_sums(partials.sum(dim=1), K, order)
+    return ce.moments_from_sums(partials.sum(dim=1), K, order)
 
 
 ell_cheb_moments.launches = 0
@@ -361,7 +361,7 @@ ell_cheb_moments.steps = 0
 def ell_cheb_moments_bf16(data, sk: Skeleton, v0, inv: float, order: int, *, mode: Optional[str] = None,
                           impl: Optional[str] = None):
     """:func:`ell_cheb_moments` with the operator in the bf16 form, which it requires."""
-    ck._require_bf16(data, "ell_cheb_moments_bf16")
+    ce._require_bf16(data, "ell_cheb_moments_bf16")
     return ell_cheb_moments(data, sk, v0, inv, order, mode=mode, impl=impl)
 
 
@@ -378,19 +378,19 @@ def _iterations(iters) -> int:
 
 def ell_power_iteration_plain(data, sk: Skeleton, v, iters: int):
     """Plain version of :func:`ell_power_iteration`: the per-step loop of
-    :func:`~bodge_tpu_torch.ops.cuda_spmm.power_recursion` (the reference's
+    :func:`~bodge_tpu_torch.ops.cuda_ell.power_recursion` (the reference's
     ``_power_iteration``) on the batched product (any device, complex64 or
     complex128), the operator brought into the batched product's form once, as
     the kernel stages it once.  A 0-d real tensor."""
     iters = _iterations(iters)
-    A = batched_operator(ck.operator_values(data, v.dtype), sk)
-    return ck.power_recursion(lambda w: spmm_batched(A, sk, w), v, iters)
+    A = batched_operator(ce.operator_values(data, v.dtype), sk)
+    return ce.power_recursion(lambda w: spmm_batched(A, sk, w), v, iters)
 
 
 def ell_power_iteration(data, sk: Skeleton, v, iters: int, *, mode: Optional[str] = None,
                         impl: Optional[str] = None):
     """``‖H w‖`` after ``iters`` normalised applications of the operator to
-    ``v`` ``[N, 4, 1]`` (:func:`~bodge_tpu_torch.ops.cuda_spmm.power_recursion`'s
+    ``v`` ``[N, 4, 1]`` (:func:`~bodge_tpu_torch.ops.cuda_ell.power_recursion`'s
     result, the reference's ``norms[-1]``), a 0-d float32 tensor, in one launch
     of the power kernel.
 
@@ -403,17 +403,17 @@ def ell_power_iteration(data, sk: Skeleton, v, iters: int, *, mode: Optional[str
     bf16 form); on a CPU tensor, or with ``impl="plain"``, it runs
     :func:`ell_power_iteration_plain`."""
     iters = _iterations(iters)
-    if ck._resolve(impl, v) == "plain":
+    if ce._resolve(impl, v) == "plain":
         return ell_power_iteration_plain(data, sk, v, iters)
-    N, S, K = ck._check_call(data, sk, v)
+    N, S, K = ce._check_call(data, sk, v)
     if K != 1:
         raise ValueError(f"ell_power_iteration takes one column, got K = {K}")
-    plan = power_plan(N, S, iters, mode=mode, sms=ck.sm_count())
+    plan = power_plan(N, S, iters, mode=mode, sms=ce.sm_count())
     v = v / torch.linalg.norm(v)
     partials = torch.empty((iters, plan["grid"]), dtype=torch.float32, device=v.device)
     _launch_sweep(
         ell_power_iteration, "power", plan, v, S, 1, False, iters,
-        lambda p0, p1, stream: ck._library().ell_power_iteration_launch(
+        lambda p0, p1, stream: ce._library().ell_power_iteration_launch(
             data.data_ptr(), sk.device_cols(v.device).data_ptr(), v.data_ptr(), iters, p0, p1,
             partials.data_ptr(), N, S, plan["sites_per_block"], stream))
     return partials[-1].sum().sqrt()

@@ -43,8 +43,8 @@ moments need no way back, and vectors return through
 :meth:`GatherLayout.restore`.  ``layout.sk`` is the relabelled skeleton
 (``cols`` and the per-row ``trans_slot`` permuted consistently; the slot order
 within a row is unchanged), which the backward kernels
-(:func:`~bodge_tpu_torch.ops.cuda_spmm.ell_spmm_adjoint`,
-:func:`~bodge_tpu_torch.ops.cuda_spmm.ell_block_outer`) take as it is.
+(:func:`~bodge_tpu_torch.ops.cuda_ell.ell_spmm_adjoint`,
+:func:`~bodge_tpu_torch.ops.cuda_ell.ell_block_outer`) take as it is.
 
 :func:`plan_gather` picks ``TK``, ``T``, the depth, the run and the thread
 count so that the ring fits the 227 KB of shared memory a block may use; it
@@ -71,7 +71,7 @@ import numpy as np
 import torch
 
 from ..utils.trace import annotate
-from . import cuda_spmm as ck
+from . import cuda_ell as ce
 from .blocksparse import BLOCK, Skeleton
 
 PAD_REL = -(2**31)  # rel entry of a padding slot (INT_MIN in the kernel)
@@ -277,7 +277,7 @@ def _cluster_plan(N: int, bwb: int, K: int, slots: int, tile=None):
     """
     forced = (tile,) if isinstance(tile, int) else tuple(tile or ())
     T_forced, run_forced, stages_forced = (forced + (None, None, None))[:3]
-    tkc = min(ck.probe_tile(K), MAX_WINDOW_TK)
+    tkc = min(ce.probe_tile(K), MAX_WINDOW_TK)
     if tkc < 2:
         return None
     TK = tkc // 2
@@ -298,7 +298,7 @@ def _cluster_plan(N: int, bwb: int, K: int, slots: int, tile=None):
             return None
         _, T, stages = max(plans)
     threads = min(CLUSTER_CONSUMERS, max(32, 1 << (T * TK - 1).bit_length()))
-    pairs = max(1, ck.sm_count() // (2 * -(-K // tkc)))
+    pairs = max(1, ce.sm_count() // (2 * -(-K // tkc)))
     run = max(T, -(-N // pairs // 4) * 4) if run_forced is None else int(run_forced)
     return LaunchPlan((T, TK, stages - 1, run, -(-N // run), threads, _cluster_smem(bwb, TK, K, T, stages, slots)),
                       cluster=2, stage_bytes=T * slots * (BF16_BLOCK_BYTES + 4))
@@ -323,7 +323,7 @@ def _launch_plan(N: int, bwb: int, K: int, tile=None, operator_dtype=None, slots
     cluster form's stages too).
     """
     T_forced, run_forced = (tile, None) if tile is None or isinstance(tile, int) else tuple(tile)[:2]
-    tk_cap = min(ck.probe_tile(K), MAX_WINDOW_TK)
+    tk_cap = min(ce.probe_tile(K), MAX_WINDOW_TK)
     for TK in (8, 4, 2, 1):
         if TK > tk_cap or not _feasible(bwb, TK, MIN_TILE if T_forced is None else T_forced):
             continue
@@ -340,7 +340,7 @@ def _launch_plan(N: int, bwb: int, K: int, tile=None, operator_dtype=None, slots
         else:
             T, depth = beyond, 0
         threads = min(THREADS, max(32, 1 << (T * TK - 1).bit_length()))
-        blocks = max(1, ck.sm_count() // -(-K // TK))
+        blocks = max(1, ce.sm_count() // -(-K // TK))
         run = max(T, -(-N // blocks)) if run_forced is None else int(run_forced)
         ring = 2 * bwb + (depth + 1) * T
         if _is_bf16(operator_dtype):
@@ -353,8 +353,8 @@ def _launch_plan(N: int, bwb: int, K: int, tile=None, operator_dtype=None, slots
 
 def _is_bf16(operator_dtype) -> bool:
     """Whether ``operator_dtype`` names the bf16 form (``None``: complex64;
-    otherwise the names :func:`~bodge_tpu_torch.ops.cuda_spmm.resolve_operator_storage` takes)."""
-    return operator_dtype is not None and ck.resolve_operator_storage(operator_dtype) is not None
+    otherwise the names :func:`~bodge_tpu_torch.ops.cuda_ell.resolve_operator_storage` takes)."""
+    return operator_dtype is not None and ce.resolve_operator_storage(operator_dtype) is not None
 
 
 def _layout(sk: Skeleton, K: int, relabelled, tile, bf16: bool) -> Optional[GatherLayout]:
@@ -415,7 +415,7 @@ def ell_gather_spmm_plain(data, gl: GatherLayout, v):
     """Plain version of :func:`ell_gather_spmm`: the neighbours are the rows
     ``n + rel[n, s]``, resolved by indexing; padding slots contribute nothing."""
     gathered = v[gl.device_window_index(v.device)]  # [N, S, 4, K]
-    data = ck.operator_values(data, v.dtype)
+    data = ce.operator_values(data, v.dtype)
     if gl.sk.has_padding:
         data = data * gl.sk.device_valid(v.device)[..., None, None]
     N, S = gl.sk.cols.shape
@@ -424,7 +424,7 @@ def ell_gather_spmm_plain(data, gl: GatherLayout, v):
 
 def ell_gather_cheb_step_plain(data, gl: GatherLayout, t_cur, t_prev, inv: float, sums: bool = True):
     """Plain version of :func:`ell_gather_cheb_step`: ``(t_next, partials[1, 2K])``."""
-    return ck.cheb_tail_plain(ell_gather_spmm_plain(data, gl, t_cur), t_cur, t_prev, inv, sums)
+    return ce.cheb_tail_plain(ell_gather_spmm_plain(data, gl, t_cur), t_cur, t_prev, inv, sums)
 
 
 def ell_gather_cheb_step_window_plain(data, gl: GatherLayout, t_cur, t_prev, inv: float, rows, sums: bool = True):
@@ -432,12 +432,12 @@ def ell_gather_cheb_step_window_plain(data, gl: GatherLayout, t_cur, t_prev, inv
     on relabelled rows ``rows = (r0, r1)`` alone, ``t_next`` zero elsewhere."""
     r0, r1 = rows
     gathered = t_cur[gl.device_window_index(t_cur.device)[r0:r1]]  # [rows, S, 4, K]
-    data = ck.operator_values(data[r0:r1], t_cur.dtype)
+    data = ce.operator_values(data[r0:r1], t_cur.dtype)
     if gl.sk.has_padding:
         data = data * gl.sk.device_valid(t_cur.device)[r0:r1, :, None, None]
     S = gl.sk.n_slots
     hv = torch.bmm(data.transpose(1, 2).reshape(r1 - r0, BLOCK, S * BLOCK), gathered.reshape(r1 - r0, S * BLOCK, -1))
-    return ck.cheb_tail_window_plain(hv, t_cur, t_prev, inv, rows, sums)
+    return ce.cheb_tail_window_plain(hv, t_cur, t_prev, inv, rows, sums)
 
 
 # --------------------------------------------------------------------------
@@ -459,18 +459,18 @@ def ell_gather_spmm(data, gl: GatherLayout, v, *, impl: Optional[str] = None):
     tensor, or with ``impl="plain"``, it is :func:`ell_gather_spmm_plain`.
     """
     _check_layout(gl)
-    if ck._resolve(impl, v) == "plain":
+    if ce._resolve(impl, v) == "plain":
         return ell_gather_spmm_plain(data, gl, v)
-    N, S, K, bf16 = ck._check_forward(data, gl.sk, v)
+    N, S, K, bf16 = ce._check_forward(data, gl.sk, v)
     rel = gl.device_rel(v.device)
     y = torch.empty_like(v)
-    lib = ck._library()
+    lib = ce._library()
     with torch.cuda.device(v.device):
         err = lib.ell_gather_spmm_launch(
             data.data_ptr(), int(bf16), rel.data_ptr(), v.data_ptr(), y.data_ptr(), N, S, K, gl.TK, gl.T,
             gl.bwb, gl.depth, gl.run, gl.ctas, gl.threads, gl.cluster, torch.cuda.current_stream().cuda_stream,
         )
-    ck._raise_on(err, "ell_gather_spmm_bf16" if bf16 else "ell_gather_spmm")
+    ce._raise_on(err, "ell_gather_spmm_bf16" if bf16 else "ell_gather_spmm")
     (ell_gather_spmm_bf16 if bf16 else ell_gather_spmm).launches += 1
     return y
 
@@ -480,7 +480,7 @@ ell_gather_spmm.launches = 0
 
 def ell_gather_spmm_bf16(data, gl: GatherLayout, v, *, impl: Optional[str] = None):
     """:func:`ell_gather_spmm` with the operator in the bf16 form, which it requires."""
-    ck._require_bf16(data, "ell_gather_spmm_bf16")
+    ce._require_bf16(data, "ell_gather_spmm_bf16")
     return ell_gather_spmm(data, gl, v, impl=impl)
 
 
@@ -491,34 +491,34 @@ def ell_gather_cheb_step(
     data, gl: GatherLayout, t_cur, t_prev, inv: float, *, out=None, impl: Optional[str] = None
 ):
     """Fused Chebyshev step in relabelled order: ``(t_next, partials)`` as
-    :func:`~bodge_tpu_torch.ops.cuda_spmm.ell_cheb_step`, with one row of
+    :func:`~bodge_tpu_torch.ops.cuda_ell.ell_cheb_step`, with one row of
     partials per thread block (``gl.ctas`` rows).  ``out`` (kernel only) may be
     ``t_prev`` itself, never ``t_cur``.  ``data`` in the bf16 form launches
     the bf16 instantiation, counted as :func:`ell_gather_cheb_step_bf16`.
     """
     _check_layout(gl)
-    if ck._resolve(impl, t_cur) == "plain":
+    if ce._resolve(impl, t_cur) == "plain":
         return ell_gather_cheb_step_plain(data, gl, t_cur, t_prev, inv)
-    N, S, K, bf16 = ck._check_forward(data, gl.sk, t_cur)
+    N, S, K, bf16 = ce._check_forward(data, gl.sk, t_cur)
     shape = (N, BLOCK, K)
     if t_prev is not None:
-        ck._check_operand("t_prev", t_prev, shape, t_cur.device)
+        ce._check_operand("t_prev", t_prev, shape, t_cur.device)
     if out is None:
         out = torch.empty_like(t_cur)
     else:
-        ck._check_operand("out", out, shape, t_cur.device)
+        ce._check_operand("out", out, shape, t_cur.device)
     if out.untyped_storage().data_ptr() == t_cur.untyped_storage().data_ptr():
         raise ValueError("out must not share memory with t_cur (other thread blocks stage it)")
     rel = gl.device_rel(t_cur.device)
     partials = torch.empty((gl.ctas, 2 * K), dtype=torch.float32, device=t_cur.device)
-    lib = ck._library()
+    lib = ce._library()
     with torch.cuda.device(t_cur.device):
         err = lib.ell_gather_cheb_step_launch(
-            data.data_ptr(), int(bf16), rel.data_ptr(), t_cur.data_ptr(), ck._ptr(t_prev), out.data_ptr(),
+            data.data_ptr(), int(bf16), rel.data_ptr(), t_cur.data_ptr(), ce._ptr(t_prev), out.data_ptr(),
             partials.data_ptr(), float(inv), N, S, K, gl.TK, gl.T, gl.bwb, gl.depth, gl.run, gl.ctas,
             gl.threads, gl.cluster, torch.cuda.current_stream().cuda_stream,
         )
-    ck._raise_on(err, "ell_gather_cheb_step_bf16" if bf16 else "ell_gather_cheb_step")
+    ce._raise_on(err, "ell_gather_cheb_step_bf16" if bf16 else "ell_gather_cheb_step")
     (ell_gather_cheb_step_bf16 if bf16 else ell_gather_cheb_step).launches += 1
     return out, partials
 
@@ -529,7 +529,7 @@ ell_gather_cheb_step.launches = 0
 def ell_gather_cheb_step_bf16(data, gl: GatherLayout, t_cur, t_prev, inv: float, *, out=None,
                               impl: Optional[str] = None):
     """:func:`ell_gather_cheb_step` with the operator in the bf16 form, which it requires."""
-    ck._require_bf16(data, "ell_gather_cheb_step_bf16")
+    ce._require_bf16(data, "ell_gather_cheb_step_bf16")
     return ell_gather_cheb_step(data, gl, t_cur, t_prev, inv, out=out, impl=impl)
 
 
@@ -555,61 +555,33 @@ def ell_gather_cheb_step_window(data, gl: GatherLayout, t_cur, t_prev, inv: floa
     instantiation of its own of the one-block form; the complex64 operator
     only."""
     _check_layout(gl)
-    rows = ck._window_rows(rows, gl.sk.n_sites)
-    if ck._resolve(impl, t_cur) == "plain":
+    rows = ce._window_rows(rows, gl.sk.n_sites)
+    if ce._resolve(impl, t_cur) == "plain":
         return ell_gather_cheb_step_window_plain(data, gl, t_cur, t_prev, inv, rows)
-    N, S, K = ck._check_call(data, gl.sk, t_cur)
+    N, S, K = ce._check_call(data, gl.sk, t_cur)
     if gl.cluster != 1:
         raise ValueError("the light-cone step takes the one-block form's plan (the complex64 operator's)")
     shape = (N, BLOCK, K)
     if t_prev is not None:
-        ck._check_operand("t_prev", t_prev, shape, t_cur.device)
+        ce._check_operand("t_prev", t_prev, shape, t_cur.device)
     if out is None:
         out = torch.zeros_like(t_cur)
     else:
-        ck._check_operand("out", out, shape, t_cur.device)
+        ce._check_operand("out", out, shape, t_cur.device)
     if out.untyped_storage().data_ptr() == t_cur.untyped_storage().data_ptr():
         raise ValueError("out must not share memory with t_cur (other thread blocks stage it)")
     run, ctas = window_runs(gl, rows)
     partials = torch.empty((ctas, 2 * K), dtype=torch.float32, device=t_cur.device)
     with torch.cuda.device(t_cur.device):
-        err = ck._library().ell_gather_cheb_step_window_launch(
-            data.data_ptr(), gl.device_rel(t_cur.device).data_ptr(), t_cur.data_ptr(), ck._ptr(t_prev),
+        err = ce._library().ell_gather_cheb_step_window_launch(
+            data.data_ptr(), gl.device_rel(t_cur.device).data_ptr(), t_cur.data_ptr(), ce._ptr(t_prev),
             out.data_ptr(), partials.data_ptr(), float(inv), N, rows[0], rows[1], S, K, gl.TK, gl.T, gl.bwb,
             gl.depth, run, ctas, gl.threads, torch.cuda.current_stream().cuda_stream,
         )
-    ck._raise_on(err, "ell_gather_cheb_step_window")
+    ce._raise_on(err, "ell_gather_cheb_step_window")
     ell_gather_cheb_step_window.launches += 1
     return out, partials
 
 
 ell_gather_cheb_step_window.launches = 0
 
-
-# --------------------------------------------------------------------------
-# The moment sweep on the gather step.
-# --------------------------------------------------------------------------
-def _gather_impl(impl: Optional[str], tensor) -> str:
-    return {"cuda": "cuda_gather", "plain": "plain_gather"}[ck._resolve(impl, tensor)]
-
-
-def moments_gather(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optional[str] = None):
-    """KPM moments ``[order, K]`` of a generic skeleton through the gather step.
-
-    The counterpart of ``moments_gather_packed``: ``data`` and ``v0`` come in
-    the original site order, are relabelled once, and the doubled-moment
-    recursion (:func:`~bodge_tpu_torch.ops.cuda_spmm.moments_fused`: three
-    vector buffers, one fused launch per step) runs in relabelled order.
-    ``impl``: ``None`` / ``"cuda"`` (kernel, CUDA tensors) or ``"plain"``.
-    Raises ``ValueError`` when no plan is feasible.
-    """
-    return ck.moments_fused(data, sk, v0, inv, order, impl=_gather_impl(impl, v0))
-
-
-def moments_gather_ad(data, sk: Skeleton, v0, inv: float, order: int, *, impl: Optional[str] = None):
-    """Differentiable :func:`moments_gather`: the gather step forward, the
-    adjoint-product and block-outer-product kernels backward on the
-    relabelled skeleton (the counterpart of ``spmm_gather_packed_ad`` under
-    ``moments_gather_packed``); the relabelling itself is an indexed copy that
-    ``torch.autograd`` differentiates."""
-    return ck.moments_fused_ad(data, sk, v0, inv, order, impl=_gather_impl(impl, v0))

@@ -61,8 +61,8 @@ import torch
 from ..common import resolve_device
 from .blocksparse import BLOCK, Skeleton
 from .chebyshev import jackson_kernel, spectral_bound
-from .cuda_spmm import (StepPlan, bf16_operator, filter_launches, filter_mode, filter_sweep, operator_values,
-                        resolve_operator_storage)
+from .cuda_ell import bf16_operator, operator_values, resolve_operator_storage
+from .cuda_spmm import StepPlan, filter_launches, filter_sweep, sweep_mode
 
 # Expansion orders are rounded up to one of these buckets.  High buckets
 # exist because resolving dense gap-edge clusters (van Hove pile-up: level
@@ -112,7 +112,7 @@ class _FilterEngine:
         """Filtered block Σ_m c_m T_m(H̃) V for host ``V: [N, 4, b]``."""
         plan = StepPlan(self.sk, V.shape[-1], self.impl, self.data, self.operator_dtype)
         v = plan.enter(torch.as_tensor(V).to(device=self.data.device, dtype=self.vector_dtype))
-        fused = filter_mode(plan, self.data, V.shape[-1]) in ("registers", "global")
+        fused = sweep_mode(plan, self.data, "filter", V.shape[-1]) in ("registers", "global")
         y = plan.leave(filter_sweep(plan, self.data, v, coeffs, inv_scale))
         self.steps += max(0, len(coeffs) - 1)
         self.launches += filter_launches(len(coeffs), fused)

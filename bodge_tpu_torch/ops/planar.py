@@ -34,6 +34,8 @@ so compare them by the projector onto the multiplet.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -43,10 +45,21 @@ from .blocksparse import Skeleton, ell_to_dense_torch, hermiticity_error
 REAL_DTYPE = torch.float32
 
 
+def use_planar_device_path() -> bool:
+    """Whether the device representation is the planar (split-complex
+    float32) form: ``BODGE_PLANAR=1`` / ``0`` as in the reference, and False
+    by default — complex arithmetic is native on the card (the reference
+    defaults to True only on a TPU).
+    :meth:`~bodge_tpu_torch.hamiltonian.Hamiltonian.device_operator` and
+    :func:`bodge_tpu_torch.ops.chebyshev.default_impl` read it; the façade's
+    own calls compute on the complex operator either way."""
+    return os.environ.get("BODGE_PLANAR") == "1"
+
+
 def is_planar(arr, base_ndim: int = 4) -> bool:
     """Whether ``arr`` is a planar array: a float32 / float64 ``[2, ...]`` of
     ``base_ndim`` trailing axes (4 for an operator, 3 for vectors) — not the
-    complex form, nor the bf16 form of :mod:`.cuda_spmm`."""
+    complex form, nor the bf16 form of :mod:`.cuda_ell`."""
     if isinstance(arr, torch.Tensor):
         real = arr.dtype in (torch.float32, torch.float64)
     else:

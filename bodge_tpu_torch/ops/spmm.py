@@ -15,7 +15,7 @@ live on one device:
   product; the plain version of the CUDA kernel.
 
 - ``impl="cuda"`` — the hand-written kernel of
-  :mod:`bodge_tpu_torch.ops.cuda_spmm` (complex64, CUDA tensors only);
+  :mod:`bodge_tpu_torch.ops.cuda_ell` (complex64, CUDA tensors only);
   ``impl="cuda_gather"`` — the windowed kernel of
   :mod:`bodge_tpu_torch.ops.cuda_gather` for generic skeletons.
 
@@ -115,7 +115,8 @@ def spmm(data, sk: Skeleton, v, *, impl: Optional[str] = None, operator_dtype=No
     (the kernels' bf16 instantiations on the card); ``None`` keeps the
     complex operator, as the reference's ``spmm_gather_pallas`` does.
     """
-    from .cuda_spmm import StepPlan, bf16_operator, operator_values, resolve_operator_storage
+    from .cuda_ell import bf16_operator, operator_values, resolve_operator_storage
+    from .cuda_spmm import StepPlan
 
     storage = None if operator_dtype is None else resolve_operator_storage(operator_dtype)
     if storage is not None and impl in ("gather", "plain", "stencil"):

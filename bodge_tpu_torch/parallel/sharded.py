@@ -11,7 +11,7 @@ ring of ranks (``batch_isend_irecv``); the ring wrap delivers rank P−1's last
 plane to rank 0, which is the periodic partner plane, so periodic and open
 boundaries work unmodified (open boundaries have zero wrap blocks).  On one
 rank the ring is a local copy.  The kernels take the two planes as separate
-buffers (:class:`~bodge_tpu_torch.ops.cuda_spmm.HaloSlab`), so the slab is
+buffers (:class:`~bodge_tpu_torch.ops.cuda_ell.HaloSlab`), so the slab is
 never copied.  Reductions (Chebyshev inner products, trace estimates) are
 ``all_reduce`` over the same ranks.
 
@@ -42,7 +42,7 @@ import torch.distributed as dist
 from ..common import numpy_dtype
 from ..ops.blocksparse import Skeleton
 from ..ops.chebyshev import _KERNELS, _doubled_moment_scan, chebyshev_coefficients, rademacher_probes
-from ..ops.cuda_spmm import HaloSlab, ell_spmm_halo, halo_slab
+from ..ops.cuda_ell import HaloSlab, ell_spmm_halo, halo_slab
 from ..ops.planar import complex_operator, is_planar
 
 AXIS = "rows"
@@ -406,7 +406,7 @@ def spmm_sharded(rs: RowSharding, data, v, impl: Optional[str] = None):
     ``data`` / ``v`` are the whole lattice's ``[N, S, 4, 4]`` / ``[N, 4, K]``
     (every rank takes its slab; the result is the whole ``[N, 4, K]`` on
     every rank) or this rank's slabs (the result is its slab).  ``impl`` as
-    for :func:`~bodge_tpu_torch.ops.cuda_spmm.ell_spmm_halo`: the kernel for
+    for :func:`~bodge_tpu_torch.ops.cuda_ell.ell_spmm_halo`: the kernel for
     CUDA tensors, the plain version for CPU tensors.
     """
     whole = rs.is_whole(torch.as_tensor(v))

@@ -292,12 +292,14 @@ def main(argv) -> int:
     from bodge_tpu_torch.ops import _build
     from bodge_tpu_torch.ops import blocksparse as bs
     from bodge_tpu_torch.ops import chebyshev as kpm
+    from bodge_tpu_torch.ops import cuda_ell as ce
     from bodge_tpu_torch.ops import cuda_filter as cf
     from bodge_tpu_torch.ops import cuda_gather as cg
     from bodge_tpu_torch.ops import cuda_spmm as ck
     from bodge_tpu_torch.ops import lanczos as lz
     from bodge_tpu_torch.ops.blocksparse import BLOCK
     from bodge_tpu_torch.ops.spmm import chebyshev_step_bytes, spmm_bytes, spmm_flops
+    from bodge_tpu_torch.parallel import cuda_sharded as cs
     from bodge_tpu_torch.utils import profiling
     from bodge_tpu_torch.utils.trace import annotate, trace
 
@@ -359,7 +361,7 @@ def main(argv) -> int:
         one a fused step while its probes' cone (``StepPlan.light_cone``) is
         not yet the whole lattice; the sweep's other steps run on all of it."""
         cone = ck.StepPlan(sk, K, None, data).light_cone(data, sites)
-        return 0 if cone is None else sum(cone.rows(m) is not None for m in range(1, ck.sweep_launches(order) + 1))
+        return 0 if cone is None else sum(cone.rows(m) is not None for m in range(1, ce.sweep_launches(order) + 1))
 
     # ------------------------------------------------------------------ 1. device
     smi = nvidia_smi_line()
@@ -440,23 +442,23 @@ def main(argv) -> int:
         N = sk.n_sites
         t_cur, t_prev = random_vector(N, K, seed), random_vector(N, K, seed + 1)
         inv = 0.125
-        y = ck.ell_spmm(data, sk, t_cur)
+        y = ce.ell_spmm(data, sk, t_cur)
         torch.cuda.synchronize()
-        y_ref = ck.ell_spmm_plain(data, sk, t_cur)
-        t_next, pp = ck.ell_cheb_step(data, sk, t_cur, t_prev, inv)
+        y_ref = ce.ell_spmm_plain(data, sk, t_cur)
+        t_next, pp = ce.ell_cheb_step(data, sk, t_cur, t_prev, inv)
         torch.cuda.synchronize()
-        n_ref, _ = ck.ell_cheb_step_plain(data, sk, t_cur, t_prev, inv)
-        _, pp_ref = ck.ell_cheb_step_plain(data.to(c128), sk, t_cur.to(c128), t_prev.to(c128), inv)
-        first, pp0 = ck.ell_cheb_step(data, sk, t_cur, None, inv)  # t_prev = 0
-        again, pp_again = ck.ell_cheb_step(data, sk, t_cur, t_prev.clone(), inv)
+        n_ref, _ = ce.ell_cheb_step_plain(data, sk, t_cur, t_prev, inv)
+        _, pp_ref = ce.ell_cheb_step_plain(data.to(c128), sk, t_cur.to(c128), t_prev.to(c128), inv)
+        first, pp0 = ce.ell_cheb_step(data, sk, t_cur, None, inv)  # t_prev = 0
+        again, pp_again = ce.ell_cheb_step(data, sk, t_cur, t_prev.clone(), inv)
         alias_buf = t_prev.clone()
-        aliased, pp_alias = ck.ell_cheb_step(data, sk, t_cur, alias_buf, inv, out=alias_buf)
+        aliased, pp_alias = ce.ell_cheb_step(data, sk, t_cur, alias_buf, inv, out=alias_buf)
         torch.cuda.synchronize()
-        first_ref, _ = ck.ell_cheb_step_plain(data, sk, t_cur, None, inv)
+        first_ref, _ = ce.ell_cheb_step_plain(data, sk, t_cur, None, inv)
         sums, sums_ref = pp.double().sum(dim=0), pp_ref[0]
         ok_window, rel_window = window_agrees(
-            lambda rows: ck.ell_cheb_step_window(data, sk, t_cur, t_prev, inv, rows),
-            lambda rows: ck.ell_cheb_step_window_plain(data.to(c128), sk, t_cur.to(c128), t_prev.to(c128), inv, rows),
+            lambda rows: ce.ell_cheb_step_window(data, sk, t_cur, t_prev, inv, rows),
+            lambda rows: ce.ell_cheb_step_window_plain(data.to(c128), sk, t_cur.to(c128), t_prev.to(c128), inv, rows),
             t_next, N)
         ok = ok_window and (
             torch.allclose(y, y_ref, atol=2e-4, rtol=2e-4)
@@ -491,34 +493,34 @@ def main(argv) -> int:
         N = sk.n_sites
         data = random_blocks(sk, seed + 2)
         v, g = random_vector(N, K, seed), random_vector(N, K, seed + 1)
-        y = ck.ell_spmm_adjoint(data, sk, v)
-        y_again = ck.ell_spmm_adjoint(data, sk, v)
-        h = ck.ell_block_outer(g, sk, v, 0.75)
-        h_again = ck.ell_block_outer(g, sk, v, 0.75, out=torch.full_like(h, 7.0))
+        y = ce.ell_spmm_adjoint(data, sk, v)
+        y_again = ce.ell_spmm_adjoint(data, sk, v)
+        h = ce.ell_block_outer(g, sk, v, 0.75)
+        h_again = ce.ell_block_outer(g, sk, v, 0.75, out=torch.full_like(h, 7.0))
         start = random_blocks(sk, seed + 3)
-        h_acc = ck.ell_block_outer(g, sk, v, 0.75, out=start.clone(), accumulate=True)
-        h_acc_again = ck.ell_block_outer(g, sk, v, 0.75, out=start.clone(), accumulate=True)
+        h_acc = ce.ell_block_outer(g, sk, v, 0.75, out=start.clone(), accumulate=True)
+        h_acc_again = ce.ell_block_outer(g, sk, v, 0.75, out=start.clone(), accumulate=True)
         shift = torch.linspace(-0.5, 1.5, K, device=dev)
         c2 = torch.linspace(1.0, -2.0, K, device=dev)
         x1, x2, add = (random_vector(N, K, seed + 4 + i) for i in range(3))
         neg, neg0 = torch.empty_like(v), torch.empty_like(v)
-        h_fused = ck.ell_block_outer(g, sk, v, 0.75, shift=shift, neg_out=neg)
-        h_shift = ck.ell_block_outer(None, sk, v, 0.75, shift=shift, neg_out=neg0)
+        h_fused = ce.ell_block_outer(g, sk, v, 0.75, shift=shift, neg_out=neg)
+        h_shift = ce.ell_block_outer(None, sk, v, 0.75, shift=shift, neg_out=neg0)
         buf = add.clone()
-        y_fused = ck.ell_spmm_adjoint(data, sk, v, alpha=-0.3, add=buf, axpy=((shift, x1), (c2, x2)), out=buf)
+        y_fused = ce.ell_spmm_adjoint(data, sk, v, alpha=-0.3, add=buf, axpy=((shift, x1), (c2, x2)), out=buf)
         torch.cuda.synchronize()
-        y_ref = ck.ell_spmm_adjoint_plain(data, sk, v)
-        h_ref = ck.ell_block_outer_plain(g, sk, v, 0.75)
+        y_ref = ce.ell_spmm_adjoint_plain(data, sk, v)
+        h_ref = ce.ell_block_outer_plain(g, sk, v, 0.75)
         G = g + shift * v
         y_fused_ref = -0.3 * y_ref + add + shift * x1 + c2 * x2
-        h_fused_ref = ck.ell_block_outer_plain(G, sk, v, 0.75)
+        h_fused_ref = ce.ell_block_outer_plain(G, sk, v, 0.75)
         close = lambda a, b: torch.allclose(a, b, atol=2e-4, rtol=2e-4)
         ok = (
             close(y, y_ref) and close(h, h_ref) and close(h_acc, start + h_ref)
             and torch.equal(y_again, y) and torch.equal(h_again, h) and torch.equal(h_acc_again, h_acc)
             and bool((h[~sk.device_valid(dev)] == 0).all())  # padding slots get zero
             and close(neg, -G) and close(h_fused, h_fused_ref)
-            and close(neg0, -shift * v) and close(h_shift, ck.ell_block_outer_plain(shift * v, sk, v, 0.75))
+            and close(neg0, -shift * v) and close(h_shift, ce.ell_block_outer_plain(shift * v, sk, v, 0.75))
             and close(y_fused, y_fused_ref) and y_fused.data_ptr() == buf.data_ptr()
         )
         return ok, {
@@ -534,22 +536,22 @@ def main(argv) -> int:
     # t_prev, t_prev = 0, and each launch counted under its own name.
     def compare_bf16(data, sk, K, seed):
         N = sk.n_sites
-        form = ck.bf16_operator(data)
+        form = ce.bf16_operator(data)
         t_cur, t_prev = random_vector(N, K, seed), random_vector(N, K, seed + 1)
         before = ck.launch_counts()
-        y = ck.ell_spmm(form, sk, t_cur)
-        y_again = ck.ell_spmm_bf16(form, sk, t_cur)
-        t_next, pp = ck.ell_cheb_step(form, sk, t_cur, t_prev, 0.125)
-        again, pp_again = ck.ell_cheb_step_bf16(form, sk, t_cur, t_prev.clone(), 0.125)
-        first, _ = ck.ell_cheb_step(form, sk, t_cur, None, 0.125)
+        y = ce.ell_spmm(form, sk, t_cur)
+        y_again = ce.ell_spmm_bf16(form, sk, t_cur)
+        t_next, pp = ce.ell_cheb_step(form, sk, t_cur, t_prev, 0.125)
+        again, pp_again = ce.ell_cheb_step_bf16(form, sk, t_cur, t_prev.clone(), 0.125)
+        first, _ = ce.ell_cheb_step(form, sk, t_cur, None, 0.125)
         buf = t_prev.clone()
-        aliased, pp_alias = ck.ell_cheb_step(form, sk, t_cur, buf, 0.125, out=buf)
+        aliased, pp_alias = ce.ell_cheb_step(form, sk, t_cur, buf, 0.125, out=buf)
         torch.cuda.synchronize()
         launched = launched_since(before)
-        y_ref = ck.ell_spmm_plain(form, sk, t_cur)
-        n_ref, _ = ck.ell_cheb_step_plain(form, sk, t_cur, t_prev, 0.125)
-        first_ref, _ = ck.ell_cheb_step_plain(form, sk, t_cur, None, 0.125)
-        _, pp_ref = ck.ell_cheb_step_plain(form, sk, t_cur.to(c128), t_prev.to(c128), 0.125)
+        y_ref = ce.ell_spmm_plain(form, sk, t_cur)
+        n_ref, _ = ce.ell_cheb_step_plain(form, sk, t_cur, t_prev, 0.125)
+        first_ref, _ = ce.ell_cheb_step_plain(form, sk, t_cur, None, 0.125)
+        _, pp_ref = ce.ell_cheb_step_plain(form, sk, t_cur.to(c128), t_prev.to(c128), 0.125)
         sums, sums_ref = pp.double().sum(dim=0), pp_ref[0]
         rel = float((sums - sums_ref).abs().max() / sums_ref.abs().max())
         close = lambda a, b: torch.allclose(a, b, atol=2e-4, rtol=2e-4)
@@ -637,13 +639,13 @@ def main(argv) -> int:
         y_again = cg.ell_gather_spmm(d, gl, t_cur)
         torch.cuda.synchronize()
         y_want = cg.ell_gather_spmm_plain(d, gl, t_cur)
-        y_general = ck.ell_spmm(d, gl.sk, t_cur)
-        y_natural = gl.relabel(ck.ell_spmm(data, sk, gl.restore(t_cur)))  # the same product in the original order
+        y_general = ce.ell_spmm(d, gl.sk, t_cur)
+        y_natural = gl.relabel(ce.ell_spmm(data, sk, gl.restore(t_cur)))  # the same product in the original order
         close = lambda a, b: torch.allclose(a, b, atol=2e-4, rtol=2e-4)
         ok_step, err_step, rel = step_agrees(
             lambda prev, out: cg.ell_gather_cheb_step(d, gl, t_cur, prev, 0.125, out=out),
             lambda cur, prev, dt: cg.ell_gather_cheb_step_plain(d.to(dt), gl, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
-            lambda prev: ck.ell_cheb_step(d, gl.sk, t_cur, prev, 0.125), t_cur, t_prev)
+            lambda prev: ce.ell_cheb_step(d, gl.sk, t_cur, prev, 0.125), t_cur, t_prev)
         whole_next, _ = cg.ell_gather_cheb_step(d, gl, t_cur, t_prev, 0.125)
         ok_window, rel_window = window_agrees(
             lambda rows: cg.ell_gather_cheb_step_window(d, gl, t_cur, t_prev, 0.125, rows),
@@ -651,16 +653,16 @@ def main(argv) -> int:
                                                               rows),
             whole_next, N)
         # The bf16 instantiations on the bf16 form of the relabelled operator.
-        d16 = ck.bf16_operator(d)
+        d16 = ce.bf16_operator(d)
         y16 = cg.ell_gather_spmm(d16, gl16, t_cur)
         y16_again = cg.ell_gather_spmm_bf16(d16, gl16, t_cur)
         torch.cuda.synchronize()
         y16_want = cg.ell_gather_spmm_plain(d16, gl16, t_cur)
-        y16_general = ck.ell_spmm(d16, gl16.sk, t_cur)
+        y16_general = ce.ell_spmm(d16, gl16.sk, t_cur)
         ok16_step, err16_step, rel16 = step_agrees(
             lambda prev, out: cg.ell_gather_cheb_step(d16, gl16, t_cur, prev, 0.125, out=out),
             lambda cur, prev, dt: cg.ell_gather_cheb_step_plain(d16, gl16, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
-            lambda prev: ck.ell_cheb_step(d16, gl16.sk, t_cur, prev, 0.125), t_cur, t_prev)
+            lambda prev: ce.ell_cheb_step(d16, gl16.sk, t_cur, prev, 0.125), t_cur, t_prev)
         ok16 = close(y16, y16_want) and close(y16, y16_general) and torch.equal(y16, y16_again) and ok16_step
         ok = (close(y, y_want) and close(y, y_general) and close(y, y_natural) and torch.equal(y, y_again) and ok_step
               and ok_window)
@@ -676,14 +678,14 @@ def main(argv) -> int:
         N = sk.n_sites
         t_cur, t_prev = random_vector(N, K, seed), random_vector(N, K, seed + 1)
         if bf16:
-            data = ck.bf16_operator(data)
+            data = ce.bf16_operator(data)
             as_dt = lambda dt: data
         else:
             as_dt = lambda dt: data.to(dt)
         ok, err, rel = step_agrees(
-            lambda prev, out: ck.stencil_cheb_step_tiled(data, sk, t_cur, prev, 0.125, out=out, tile=tile),
-            lambda cur, prev, dt: ck.stencil_cheb_step_tiled_plain(as_dt(dt), sk, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
-            lambda prev: ck.ell_cheb_step(data, sk, t_cur, prev, 0.125), t_cur, t_prev)
+            lambda prev, out: ce.stencil_cheb_step_tiled(data, sk, t_cur, prev, 0.125, out=out, tile=tile),
+            lambda cur, prev, dt: ce.stencil_cheb_step_tiled_plain(as_dt(dt), sk, cur.to(dt), None if prev is None else prev.to(dt), 0.125),
+            lambda prev: ce.ell_cheb_step(data, sk, t_cur, prev, 0.125), t_cur, t_prev)
         suffix = "_bf16" if bf16 else ""
         return ok, {"stencil_cheb_step_tiled" + suffix: err, "tiled" + suffix + "_partials_rel": rel}
 
@@ -765,7 +767,7 @@ def main(argv) -> int:
                  "stencil_cheb_step_tiled_bf16": 0.0, "tiled_bf16_partials_rel": 0.0}
     sk = bs.skeleton((5, 6, 4))  # a ring of six rows of 24 + 8 sites: 52 KB, past the 48 KB default
     for K in (8, 33):
-        check(48 * 1024 < ck.tile_plan(sk, K, tile=(24, 5, 6))["smem_bytes"] + 2 * ck.TILED_THREADS * 4 <= 56 * 1024,
+        check(48 * 1024 < ce.tile_plan(sk, K, tile=(24, 5, 6))["smem_bytes"] + 2 * ce.TILED_THREADS * 4 <= 56 * 1024,
               "tile (24, 5, 6) is not 48-56 KB")
         for bf16 in (False, True):
             ok, err = compare_tiled(random_blocks(sk, 650), sk, K, seed=750 + K, tile=(24, 5, 6), bf16=bf16)
@@ -796,9 +798,9 @@ def main(argv) -> int:
         tiled_err = {k: max(tiled_err[k], worst[k]) for k in worst}
         emit({"phase": "kernels", "shape": str(shape), "S": sk.n_slots, "K": tiled_counts,
               "boundaries": ["periodic", "open"], "tiles": ["planned", *forced],
-              "planned_K8": ck.tile_plan(sk, 8), "max_abs_err": worst})
+              "planned_K8": ce.tile_plan(sk, 8), "max_abs_err": worst})
     try:
-        ck.stencil_cheb_step_tiled(data_pairs, sk_pairs, random_vector(23, 4, 1), None, 0.1)
+        ce.stencil_cheb_step_tiled(data_pairs, sk_pairs, random_vector(23, 4, 1), None, 0.1)
         fail("the tiled step accepted a generic skeleton")
     except ValueError:
         pass
@@ -824,7 +826,7 @@ def main(argv) -> int:
         P, N = Ly * Lz, sk.n_sites
         planes = min(Lxl, Lx)
         x0 = min(1, Lx - planes)
-        slab = ck.halo_slab(sk, x0, planes)
+        slab = ce.halo_slab(sk, x0, planes)
         r, n = slab.rows, slab.n_local
         before, after = ((x0 - 1) % Lx) * P, ((x0 + planes) % Lx) * P
         v, t_prev, g = (random_vector(N, K, seed + i) for i in range(3))
@@ -833,21 +835,21 @@ def main(argv) -> int:
         d_l, v_l, tp_l, g_l, dn_l = own(data), own(v), own(t_prev), own(g), own(data_nh)
         hm, hp = cut(v, before), cut(v, after)
         close = lambda a, b: torch.allclose(a, b, atol=2e-4, rtol=2e-4)
-        y = ck.ell_spmm_halo(d_l, slab, v_l, hm, hp)
-        y_again = ck.ell_spmm_halo(d_l, slab, v_l, hm, hp)
-        y_plain = ck.ell_spmm_halo_plain(d_l, slab, v_l, hm, hp)
-        y_whole = ck.ell_spmm(data, sk, v)[r]
-        t, pp = ck.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, tp_l, 0.125)
-        t_again, pp_again = ck.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, tp_l.clone(), 0.125)
+        y = ce.ell_spmm_halo(d_l, slab, v_l, hm, hp)
+        y_again = ce.ell_spmm_halo(d_l, slab, v_l, hm, hp)
+        y_plain = ce.ell_spmm_halo_plain(d_l, slab, v_l, hm, hp)
+        y_whole = ce.ell_spmm(data, sk, v)[r]
+        t, pp = ce.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, tp_l, 0.125)
+        t_again, pp_again = ce.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, tp_l.clone(), 0.125)
         buf = tp_l.clone()
-        t_alias, pp_alias = ck.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, buf, 0.125, out=buf)
-        t0_, _ = ck.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, None, 0.125)
+        t_alias, pp_alias = ce.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, buf, 0.125, out=buf)
+        t0_, _ = ce.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, None, 0.125)
         torch.cuda.synchronize()
-        t_plain, _ = ck.ell_cheb_step_halo_plain(d_l, slab, v_l, hm, hp, tp_l, 0.125)
-        t0_plain, _ = ck.ell_cheb_step_halo_plain(d_l, slab, v_l, hm, hp, None, 0.125)
-        _, pp128 = ck.ell_cheb_step_halo_plain(d_l.to(c128), slab, v_l.to(c128), hm.to(c128), hp.to(c128),
+        t_plain, _ = ce.ell_cheb_step_halo_plain(d_l, slab, v_l, hm, hp, tp_l, 0.125)
+        t0_plain, _ = ce.ell_cheb_step_halo_plain(d_l, slab, v_l, hm, hp, None, 0.125)
+        _, pp128 = ce.ell_cheb_step_halo_plain(d_l.to(c128), slab, v_l.to(c128), hm.to(c128), hp.to(c128),
                                                tp_l.to(c128), 0.125)
-        t_whole, _ = ck.ell_cheb_step(data, sk, v, t_prev, 0.125)
+        t_whole, _ = ce.ell_cheb_step(data, sk, v, t_prev, 0.125)
         sums, sums_want = pp.double().sum(dim=0), pp128[0]
         rel = float((sums - sums_want).abs().max() / sums_want.abs().max())
         ok = (close(y, y_plain) and close(y, y_whole) and torch.equal(y, y_again)
@@ -857,38 +859,38 @@ def main(argv) -> int:
         bit_equal = torch.equal(y, y_whole) and torch.equal(t, t_whole[r])
         if planes >= 3:  # the split: interior rows without halo planes, then the two boundary planes
             ys, ts = torch.empty_like(v_l), tp_l.clone()
-            ck.ell_spmm_halo(d_l, slab, v_l, None, None, rows=(P, n - P), out=ys)
-            _, p_int = ck.ell_cheb_step_halo(d_l, slab, v_l, None, None, ts, 0.125, rows=(P, n - P), out=ts)
-            ck.ell_spmm_halo(d_l, slab, v_l, hm, hp, rows=(0, P), out=ys)
-            ck.ell_spmm_halo(d_l, slab, v_l, hm, hp, rows=(n - P, n), out=ys)
-            _, p_lo = ck.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, ts, 0.125, rows=(0, P), out=ts)
-            _, p_hi = ck.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, ts, 0.125, rows=(n - P, n), out=ts)
+            ce.ell_spmm_halo(d_l, slab, v_l, None, None, rows=(P, n - P), out=ys)
+            _, p_int = ce.ell_cheb_step_halo(d_l, slab, v_l, None, None, ts, 0.125, rows=(P, n - P), out=ts)
+            ce.ell_spmm_halo(d_l, slab, v_l, hm, hp, rows=(0, P), out=ys)
+            ce.ell_spmm_halo(d_l, slab, v_l, hm, hp, rows=(n - P, n), out=ys)
+            _, p_lo = ce.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, ts, 0.125, rows=(0, P), out=ts)
+            _, p_hi = ce.ell_cheb_step_halo(d_l, slab, v_l, hm, hp, ts, 0.125, rows=(n - P, n), out=ts)
             split_sums = torch.cat([p_lo, p_int, p_hi]).double().sum(dim=0)
             ok = (ok and torch.equal(ys, y) and torch.equal(ts, t)
                   and bool((split_sums - sums_want).abs().max() <= 1e-4 * sums_want.abs().max()))
         # Backward on non-Hermitian blocks: the neighbour planes' operator rows and cotangent planes.
         dm, dp, gm, gp = cut(data_nh, before), cut(data_nh, after), cut(g, before), cut(g, after)
-        adj = ck.ell_spmm_adjoint_halo(dn_l, slab, g_l, gm, gp, dm, dp)
-        adj_again = ck.ell_spmm_adjoint_halo(dn_l, slab, g_l, gm, gp, dm, dp)
-        adj_plain = ck.ell_spmm_adjoint_halo_plain(dn_l, slab, g_l, gm, gp, dm, dp)
-        adj_whole = ck.ell_spmm_adjoint(data_nh, sk, g)[r]
-        h = ck.ell_block_outer_halo(g_l, slab, v_l, hm, hp, 0.75)
-        h_again = ck.ell_block_outer_halo(g_l, slab, v_l, hm, hp, 0.75, out=torch.full_like(h, 7.0))
-        h_plain = ck.ell_block_outer_halo_plain(g_l, slab, v_l, hm, hp, 0.75)
-        h_whole = ck.ell_block_outer(g, sk, v, 0.75)[r]
+        adj = ce.ell_spmm_adjoint_halo(dn_l, slab, g_l, gm, gp, dm, dp)
+        adj_again = ce.ell_spmm_adjoint_halo(dn_l, slab, g_l, gm, gp, dm, dp)
+        adj_plain = ce.ell_spmm_adjoint_halo_plain(dn_l, slab, g_l, gm, gp, dm, dp)
+        adj_whole = ce.ell_spmm_adjoint(data_nh, sk, g)[r]
+        h = ce.ell_block_outer_halo(g_l, slab, v_l, hm, hp, 0.75)
+        h_again = ce.ell_block_outer_halo(g_l, slab, v_l, hm, hp, 0.75, out=torch.full_like(h, 7.0))
+        h_plain = ce.ell_block_outer_halo_plain(g_l, slab, v_l, hm, hp, 0.75)
+        h_whole = ce.ell_block_outer(g, sk, v, 0.75)[r]
         shift = torch.linspace(-0.5, 1.5, K, device=dev)
         c2 = torch.linspace(1.0, -2.0, K, device=dev)
         start = random_blocks(sk, seed + 5)[r].contiguous()
         neg = torch.empty_like(v_l)
-        h_fused = ck.ell_block_outer_halo(g_l, slab, v_l, hm, hp, 0.75, out=start.clone(), accumulate=True,
+        h_fused = ce.ell_block_outer_halo(g_l, slab, v_l, hm, hp, 0.75, out=start.clone(), accumulate=True,
                                           shift=shift, neg_out=neg)
         x1, x2, add = own(t_prev), random_vector(n, K, seed + 6), random_vector(n, K, seed + 7)
         abuf = add.clone()
-        adj_fused = ck.ell_spmm_adjoint_halo(dn_l, slab, g_l, gm, gp, dm, dp, alpha=-0.3, add=abuf,
+        adj_fused = ce.ell_spmm_adjoint_halo(dn_l, slab, g_l, gm, gp, dm, dp, alpha=-0.3, add=abuf,
                                              axpy=((shift, x1), (c2, x2)), out=abuf)
         torch.cuda.synchronize()
         G = g_l + shift * v_l
-        h_fused_want = start + ck.ell_block_outer_halo_plain(G, slab, v_l, hm, hp, 0.75)
+        h_fused_want = start + ce.ell_block_outer_halo_plain(G, slab, v_l, hm, hp, 0.75)
         adj_fused_want = -0.3 * adj_plain + add + shift * x1 + c2 * x2
         ok_bwd = (close(adj, adj_plain) and close(adj, adj_whole) and torch.equal(adj, adj_again)
                   and close(h, h_plain) and close(h, h_whole) and torch.equal(h, h_again)
@@ -897,19 +899,19 @@ def main(argv) -> int:
                   and close(adj_fused, adj_fused_want) and adj_fused.data_ptr() == abuf.data_ptr())
         bit_equal = bit_equal and torch.equal(adj, adj_whole) and torch.equal(h, h_whole)
         # The forward forms' bf16 instantiations on the bf16 form of the slab's rows.
-        f_l, f_whole = ck.bf16_operator(d_l), ck.bf16_operator(data)
-        y16 = ck.ell_spmm_halo(f_l, slab, v_l, hm, hp)
-        y16_again = ck.ell_spmm_halo_bf16(f_l, slab, v_l, hm, hp)
-        t16, pp16 = ck.ell_cheb_step_halo(f_l, slab, v_l, hm, hp, tp_l, 0.125)
+        f_l, f_whole = ce.bf16_operator(d_l), ce.bf16_operator(data)
+        y16 = ce.ell_spmm_halo(f_l, slab, v_l, hm, hp)
+        y16_again = ce.ell_spmm_halo_bf16(f_l, slab, v_l, hm, hp)
+        t16, pp16 = ce.ell_cheb_step_halo(f_l, slab, v_l, hm, hp, tp_l, 0.125)
         buf16 = tp_l.clone()
-        t16_alias, pp16_alias = ck.ell_cheb_step_halo_bf16(f_l, slab, v_l, hm, hp, buf16, 0.125, out=buf16)
+        t16_alias, pp16_alias = ce.ell_cheb_step_halo_bf16(f_l, slab, v_l, hm, hp, buf16, 0.125, out=buf16)
         torch.cuda.synchronize()
-        y16_plain = ck.ell_spmm_halo_plain(f_l, slab, v_l, hm, hp)
-        t16_plain, _ = ck.ell_cheb_step_halo_plain(f_l, slab, v_l, hm, hp, tp_l, 0.125)
-        _, pp16_128 = ck.ell_cheb_step_halo_plain(f_l, slab, v_l.to(c128), hm.to(c128), hp.to(c128), tp_l.to(c128),
+        y16_plain = ce.ell_spmm_halo_plain(f_l, slab, v_l, hm, hp)
+        t16_plain, _ = ce.ell_cheb_step_halo_plain(f_l, slab, v_l, hm, hp, tp_l, 0.125)
+        _, pp16_128 = ce.ell_cheb_step_halo_plain(f_l, slab, v_l.to(c128), hm.to(c128), hp.to(c128), tp_l.to(c128),
                                                   0.125)
-        y16_whole = ck.ell_spmm(f_whole, sk, v)[r]
-        t16_whole = ck.ell_cheb_step(f_whole, sk, v, t_prev, 0.125)[0][r]
+        y16_whole = ce.ell_spmm(f_whole, sk, v)[r]
+        t16_whole = ce.ell_cheb_step(f_whole, sk, v, t_prev, 0.125)[0][r]
         sums16, want16 = pp16.double().sum(dim=0), pp16_128[0]
         rel16 = float((sums16 - want16).abs().max() / want16.abs().max())
         ok16 = (close(y16, y16_plain) and close(y16, y16_whole) and torch.equal(y16, y16_again)
@@ -972,17 +974,17 @@ def main(argv) -> int:
         not fit (register mode at 100×100 widths) is skipped."""
         N, S = sk.cols.shape
         M = len(coeffs)
-        bf16 = ck.is_bf16_operator(data)
+        bf16 = ce.is_bf16_operator(data)
         name = "ell_cheb_filter_bf16" if bf16 else "ell_cheb_filter"
         v = random_vector(N, K, seed)
 
         def step(t_cur, t_prev, scale, out):
-            return ck.ell_cheb_step(data, sk, t_cur, t_prev, scale, out=out)[0]
+            return ce.ell_cheb_step(data, sk, t_cur, t_prev, scale, out=out)[0]
 
         last = np.zeros(M)
         last[-1] = 1.0
         plain = cf.ell_cheb_filter_plain(data, sk, v, coeffs, inv)
-        per_step, per_step_last = ck.filter_recursion(step, v, coeffs, inv), ck.filter_recursion(step, v, last, inv)
+        per_step, per_step_last = ce.filter_recursion(step, v, coeffs, inv), ce.filter_recursion(step, v, last, inv)
         scale = float(v.abs().max()) * float(np.abs(coeffs).sum())
         ok, errs, ran = True, {"vs_plain_rel": 0.0, "vs_per_step_rel": 0.0}, []
         for mode in modes:
@@ -1011,7 +1013,7 @@ def main(argv) -> int:
     rng = np.random.default_rng(13)
     for name, data, sk in cases:
         inv = 1.0 / (4 * sk.n_slots * float(data.abs().max()))  # row sums of |H| below 1: inv·H within [-1, 1]
-        for form in (data, ck.bf16_operator(data)):
+        for form in (data, ce.bf16_operator(data)):
             for K in (1, 3, 18, 33):
                 for M in (1, 2, 3, 64):
                     coeffs = rng.normal(size=M)
@@ -1040,24 +1042,24 @@ def main(argv) -> int:
     # fits, forced, against: its plain version (the per-step recursion in torch,
     # complex64, the same inputs) within (1e-5 + order²·2⁻²⁴/4)·max|μ| — two float32
     # recursions whose rounding errors grow at most with the square of the order;
-    # and the per-step kernel path (ck.moment_recursion over ell_cheb_step: a launch
+    # and the per-step kernel path (ce.moment_recursion over ell_cheb_step: a launch
     # and a torch sum a fused step) within 1e-5·max|μ| — the t_m are the same FMAs, the column sums
     # differ only in the order of their float32 additions, and each ⟨t_m,t_m⟩ ≤ μ0
     # while inv·H lies within [-1, 1].  A second launch repeats bit for bit; each
     # launch is counted once with its 1 + ceil((order − 2)/2) steps.
     def per_step_kernel(data, sk):
         """The per-step path's step: one ell_cheb_step launch (out = the t_prev buffer)."""
-        return lambda t_cur, t_prev, scale, out: ck.ell_cheb_step(data, sk, t_cur, t_prev, scale, out=out)
+        return lambda t_cur, t_prev, scale, out: ce.ell_cheb_step(data, sk, t_cur, t_prev, scale, out=out)
 
     def compare_moments(data, sk, K, order, inv, seed, plans, modes=cf.MODES):
         """``(ok, errors, modes run)`` of the checks above; ``plans`` collects
         each plan run, for the occupancy check."""
         N, S = sk.cols.shape
-        bf16 = ck.is_bf16_operator(data)
+        bf16 = ce.is_bf16_operator(data)
         name = "ell_cheb_moments_bf16" if bf16 else "ell_cheb_moments"
         v = random_vector(N, K, seed)
         plain = cf.ell_cheb_moments_plain(data, sk, v, inv, order)
-        per_step = ck.moment_recursion(per_step_kernel(data, sk), v, inv, order)
+        per_step = ce.moment_recursion(per_step_kernel(data, sk), v, inv, order)
         scale = float(plain.abs().max())
         ok, errs, ran = True, {"vs_plain_rel": 0.0, "vs_per_step_rel": 0.0}, []
         for mode in modes:
@@ -1077,7 +1079,7 @@ def main(argv) -> int:
                     "vs_per_step_rel": max(errs["vs_per_step_rel"], e_step)}
             ok = (ok and tuple(mu.shape) == (order, K) and mu.dtype == torch.float32
                   and e_plain <= 1e-5 + order ** 2 * EPS32 / 4 and e_step <= 1e-5 and torch.equal(mu_again, mu)
-                  and launched == counts(**{name: 2, f"{name}.steps": 2 * ck.sweep_launches(order)}))
+                  and launched == counts(**{name: 2, f"{name}.steps": 2 * ce.sweep_launches(order)}))
             ran.append(mode)
         return ok, errs, ran
 
@@ -1094,7 +1096,7 @@ def main(argv) -> int:
     for name, data, sk in moment_cases:
         moment_S.add(sk.n_slots)
         inv = 1.0 / (4 * sk.n_slots * float(data.abs().max()))  # row sums of |H| below 1: inv·H within [-1, 1]
-        for form in (data, ck.bf16_operator(data)):
+        for form in (data, ce.bf16_operator(data)):
             for K in (1, 3, 4, 33):
                 for order in moment_orders:
                     ok, err, ran = compare_moments(form, sk, K, order, inv, seed=500 + K, plans=moment_plans)
@@ -1132,7 +1134,7 @@ def main(argv) -> int:
     # ------------------------------------------------------------------ 3a'''''. the power kernel, small shapes
     # ell_power_iteration in each mode, forced, against: its plain version (the
     # per-step loop in torch, complex64, the same v) and the per-step kernel path
-    # (ck.power_recursion over ell_spmm: a launch, a norm and a division a step),
+    # (ce.power_recursion over ell_spmm: a launch, a norm and a division a step),
     # each within 1e-5 of the norm — float32 products and norms, the kernel's sums
     # in another order and its division after the product.  A second launch
     # repeats bit for bit; each launch is counted once with its steps.  At the
@@ -1147,7 +1149,7 @@ def main(argv) -> int:
         N, S = sk.cols.shape
         v = random_vector(N, 1, seed)
         plain = float(cf.ell_power_iteration_plain(data, sk, v, iters))
-        per_step = float(ck.power_recursion(lambda w: ck.ell_spmm(data, sk, w), v, iters))
+        per_step = float(ce.power_recursion(lambda w: ce.ell_spmm(data, sk, w), v, iters))
         ok, errs, ran = True, {"vs_plain_rel": 0.0, "vs_per_step_rel": 0.0}, []
         for mode in cf.MODES:
             plan = cf.power_plan(N, S, iters, mode=mode)  # every shape here fits both
@@ -1282,7 +1284,7 @@ def main(argv) -> int:
         """One sweep of ``order`` moments at width K on ``system``'s operator (its
         bf16 form with ``bf16``) through the moment kernel in the planned mode:
         against its plain version (complex64, the same inputs), and timed in turns
-        with the per-step path it replaced (ck.moment_recursion over ell_cheb_step:
+        with the per-step path it replaced (ce.moment_recursion over ell_cheb_step:
         a launch and a torch sum a fused step, CUDA events around the host's loop) — per-step
         path, kernel, kernel, per-step path — beside ell_cheb_step from 200
         launches replayed in a CUDA graph.  ms is the wrapper's call (the launch,
@@ -1293,14 +1295,14 @@ def main(argv) -> int:
         apart (chebyshev_step_bytes a step)."""
         sk = system.skeleton
         N, S = sk.cols.shape
-        form = ck.bf16_operator(system.data) if bf16 else system.data
+        form = ce.bf16_operator(system.data) if bf16 else system.data
         inv = 1.0 / kpm.spectral_bound(system.data, sk)
-        steps = ck.sweep_launches(order)
+        steps = ce.sweep_launches(order)
         v, t_prev = random_vector(N, K, 995), random_vector(N, K, 996)
         out = torch.empty_like(v)
         mu = cf.ell_cheb_moments(form, sk, v, inv, order)
         step = per_step_kernel(form, sk)
-        per_step = lambda: ck.moment_recursion(step, v, inv, order)
+        per_step = lambda: ce.moment_recursion(step, v, inv, order)
         # Held as the small shapes are: the plain version within
         # (1e-5 + order²·2⁻²⁴/4)·max|μ|, the per-step kernels within 1e-5·max|μ|.
         plain = cf.ell_cheb_moments_plain(form, sk, v, inv, order)
@@ -1316,7 +1318,7 @@ def main(argv) -> int:
         runs = [timed_ms(kernel, 5), timed_ms(kernel, 5)]
         per_step_b = timed_ms(per_step, 3)
         plain_ms = timed_ms(lambda: cf.ell_cheb_moments_plain(form, sk, v, inv, order), 1)
-        graph = graph_ms(lambda: ck.ell_cheb_step(form, sk, v, t_prev, 0.125, out=out))
+        graph = graph_ms(lambda: ce.ell_cheb_step(form, sk, v, t_prev, 0.125, out=out))
         op_item = 2 if bf16 else None
         entries = N * BLOCK * K
         nbytes = spmm_bytes(sk, K, 8, operator_itemsize=op_item) - entries * 8 + N * S * 4 + order * K * 4
@@ -1354,7 +1356,7 @@ def main(argv) -> int:
         """One spectral bound's power iteration (ITERS steps, K = 1) on
         ``system``'s operator through the power kernel in the planned mode:
         against its plain version and the per-step path it replaced
-        (ck.power_recursion over ell_spmm: a launch, a norm and a division a
+        (ce.power_recursion over ell_spmm: a launch, a norm and a division a
         step) within POWER_TOL of the norm, a second call bit-equal; then timed
         in turns with that per-step path (CUDA events around the host's loop) —
         per-step path, kernel, kernel, per-step path — beside one iteration of
@@ -1373,7 +1375,7 @@ def main(argv) -> int:
         v = random_vector(N, 1, 997)
         u = v / torch.linalg.norm(v)
         kernel = lambda: cf.ell_power_iteration(data, sk, v, ITERS)
-        per_step = lambda: ck.power_recursion(lambda w: ck.ell_spmm(data, sk, w), v, ITERS)
+        per_step = lambda: ce.power_recursion(lambda w: ce.ell_spmm(data, sk, w), v, ITERS)
         n, n_again = kernel(), kernel()
         plain, n_step = float(cf.ell_power_iteration_plain(data, sk, v, ITERS)), float(per_step())
         err, err_step = abs(float(n) - plain), abs(float(n) - n_step)
@@ -1387,16 +1389,16 @@ def main(argv) -> int:
         plain_ms = timed_ms(lambda: cf.ell_power_iteration_plain(data, sk, v, ITERS), 1)
 
         def one_iteration():
-            w = ck.ell_spmm(data, sk, u)
+            w = ce.ell_spmm(data, sk, u)
             return w / torch.linalg.norm(w)
 
         iteration_graph = graph_ms(one_iteration)
-        spmm_graph = graph_ms(lambda: ck.ell_spmm(data, sk, u))
-        spmm_host = timed_ms(lambda: ck.ell_spmm(data, sk, u), 200)
+        spmm_graph = graph_ms(lambda: ce.ell_spmm(data, sk, u))
+        spmm_host = timed_ms(lambda: ce.ell_spmm(data, sk, u), 200)
         lib_layout, lib_fn, lib_y, lib_errors = library_spmm(data, sk, u)
         lib_ms = None
         if lib_fn is not None:
-            check(torch.allclose(lib_y, ck.ell_spmm(data, sk, u), atol=2e-4, rtol=2e-4),
+            check(torch.allclose(lib_y, ce.ell_spmm(data, sk, u), atol=2e-4, rtol=2e-4),
                   "library product disagrees with the kernel at K = 1")
             lib_ms = timed_ms(lib_fn, 50)
         entries = N * BLOCK
@@ -1443,7 +1445,7 @@ def main(argv) -> int:
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            steps = ck.sweep_launches(order) if order else 0
+            steps = ce.sweep_launches(order) if order else 0
             mode = cf.moments_plan(sk.n_sites, K, sk.n_slots, order)["mode"] if order else None
             if mode == "per_step":  # 10⁶ sites: one ell_cheb_step launch a fused step
                 expected["ell_cheb_step"] += steps - window
@@ -1528,7 +1530,7 @@ def main(argv) -> int:
         outside = np.abs(energies) >= 0.5  # beyond the s-wave gap Δ = 0.3
         check(main_launches == expected, f"launch counters {main_launches} != expected {expected}")
         check(main_launches["ell_spmm"] > 0 and main_launches["ell_cheb_step"] > 0
-              and main_launches["ell_cheb_step_window"] == 2 * ck.sweep_launches(512)
+              and main_launches["ell_cheb_step_window"] == 2 * ce.sweep_launches(512)
               and main_launches["ell_cheb_moments"] == 3 and main_launches["ell_power_iteration"] == 3
               and cf.power_plan(sk_big.n_sites, sk_big.n_slots, ITERS)["mode"] == "per_step",
               "a kernel of the main path was never launched, or the 10⁶ bounds were not per step")
@@ -1560,17 +1562,17 @@ def main(argv) -> int:
             reps = 20 if N > 100_000 else 200
             lib_layout, lib_fn, lib_y, lib_errors = library_spmm(data, sk, t_cur)
             if lib_fn is not None:
-                check(torch.allclose(lib_y, ck.ell_spmm(data, sk, t_cur), atol=2e-4, rtol=2e-4),
+                check(torch.allclose(lib_y, ce.ell_spmm(data, sk, t_cur), atol=2e-4, rtol=2e-4),
                       "library product disagrees with the kernel")
             # plain, kernel, kernel, plain: both versions in turns on the one card
-            spmm_plain_a = timed_ms(lambda: ck.ell_spmm_plain(data, sk, t_cur), 5)
-            spmm_a = timed_ms(lambda: ck.ell_spmm(data, sk, t_cur), reps)
-            cheb_a = timed_ms(lambda: ck.ell_cheb_step(data, sk, t_cur, t_prev, 0.125, out=out), reps)
-            cheb_plain_a = timed_ms(lambda: ck.ell_cheb_step_plain(data, sk, t_cur, t_prev, 0.125), 5)
+            spmm_plain_a = timed_ms(lambda: ce.ell_spmm_plain(data, sk, t_cur), 5)
+            spmm_a = timed_ms(lambda: ce.ell_spmm(data, sk, t_cur), reps)
+            cheb_a = timed_ms(lambda: ce.ell_cheb_step(data, sk, t_cur, t_prev, 0.125, out=out), reps)
+            cheb_plain_a = timed_ms(lambda: ce.ell_cheb_step_plain(data, sk, t_cur, t_prev, 0.125), 5)
             lib_ms = timed_ms(lib_fn, 5) if lib_fn is not None else None
-            cheb_b = timed_ms(lambda: ck.ell_cheb_step(data, sk, t_cur, t_prev, 0.125, out=out), reps)
-            spmm_b = timed_ms(lambda: ck.ell_spmm(data, sk, t_cur), reps)
-            spmm_plain_b = timed_ms(lambda: ck.ell_spmm_plain(data, sk, t_cur), 5)
+            cheb_b = timed_ms(lambda: ce.ell_cheb_step(data, sk, t_cur, t_prev, 0.125, out=out), reps)
+            spmm_b = timed_ms(lambda: ce.ell_spmm(data, sk, t_cur), reps)
+            spmm_plain_b = timed_ms(lambda: ce.ell_spmm_plain(data, sk, t_cur), 5)
             del lib_fn, lib_y
             for name, runs, plain_ms, nbytes, library in (
                 ("ell_spmm", [spmm_a, spmm_b], min(spmm_plain_a, spmm_plain_b), spmm_bytes(sk, K, 8), lib_ms),
@@ -1616,8 +1618,8 @@ def main(argv) -> int:
                 F[impl] = system.free_energy(0.01, method="kpm", order=128, samples=8, scale=scale, impl=impl)
                 ld[impl] = system.ldos(site, energies, method="kpm", order=128, scale=scale, impl=impl)
                 launched = launched_since(before)
-                want = counts(ell_cheb_moments=3, **{"ell_cheb_moments.steps": ck.sweep_launches(64)
-                                                     + 2 * ck.sweep_launches(128)}) if impl == "cuda" else counts()
+                want = counts(ell_cheb_moments=3, **{"ell_cheb_moments.steps": ce.sweep_launches(64)
+                                                     + 2 * ce.sweep_launches(128)}) if impl == "cuda" else counts()
                 check(launched == want, f"{label}: impl={impl} launched {launched}, expected {want}")
             errs = {
                 "moments_rel_to_max": float(np.abs(mu["cuda"] - mu["plain"]).max() / np.abs(mu["plain"]).max()),
@@ -1642,9 +1644,9 @@ def main(argv) -> int:
             t_cur, t_prev = random_vector(N, K, 41), random_vector(N, K, 42)
             out = torch.empty_like(t_cur)
             if name == "ell_spmm":
-                fn, nbytes = (lambda: ck.ell_spmm(big.data, sk, t_cur)), spmm_bytes(sk, K, 8)
+                fn, nbytes = (lambda: ce.ell_spmm(big.data, sk, t_cur)), spmm_bytes(sk, K, 8)
             else:
-                fn = lambda: ck.ell_cheb_step(big.data, sk, t_cur, t_prev, 0.125, out=out)
+                fn = lambda: ce.ell_cheb_step(big.data, sk, t_cur, t_prev, 0.125, out=out)
                 nbytes = chebyshev_step_bytes(sk, K, 8)
             runs = [timed_ms(fn, 20), timed_ms(fn, 20)]
             by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, K * flops1 / FP32_FLOPS_PER_S * 1e3
@@ -1671,7 +1673,7 @@ def main(argv) -> int:
             if impl == "cuda":
                 t_next, sums = ck.ChebStep.apply(d, a, b, sk, 0.11, "cuda")
             else:
-                t_next, pp = ck.ell_cheb_step_plain(d, sk, a, b, 0.11)
+                t_next, pp = ce.ell_cheb_step_plain(d, sk, a, b, 0.11)
                 sums = pp[0]
             loss = (t_next * w_next.to(dtype).conj()).real.sum() + (sums * w_sums.to(sums.dtype)).sum()
             got_want.append(torch.autograd.grad(loss, (d, a, b)))
@@ -1715,7 +1717,7 @@ def main(argv) -> int:
                 grads[impl] = torch.autograd.grad(loss, (data, v))
             torch.cuda.synchronize()
             after = ck.launch_counts()
-            steps = ck.sweep_launches(order)
+            steps = ce.sweep_launches(order)
             launched = {k: after[k] - before[k] for k in after}
             check(launched == counts(ell_cheb_step=steps, ell_spmm_adjoint=steps, ell_block_outer=steps),
                   f"{label}: one gradient launched {launched}, expected {steps} of each step kernel")
@@ -1744,7 +1746,7 @@ def main(argv) -> int:
         emit({"phase": "gap", "call": f"normal_metal({shape})", "wall_s": time.perf_counter() - t0,
               "N": N, "S": sk.n_slots, "data_MB": metal.data.numel() * 8 / 1e6})
         kw = dict(V=V, temperature=0.0, method="kpm", order=order, samples=samples)
-        per_sweep = ck.sweep_launches(order)
+        per_sweep = ce.sweep_launches(order)
 
         # One gradient alone first: its device time, its peak memory, and
         # whether the whole solve fits the time this script may take.
@@ -1852,13 +1854,13 @@ def main(argv) -> int:
         # nowhere in the port.  Adjoint: the torch.sparse product with the
         # conjugate transpose, built once in the same ELL layout.  Outer
         # product: torch.sparse.sampled_addmm on the block pattern as CSR.
-        y_adj = ck.ell_spmm_adjoint(data, sk, g)
+        y_adj = ce.ell_spmm_adjoint(data, sk, g)
         dagger = data[sk.device_safe_cols(dev), sk.device_mirror_index(dev)].transpose(-1, -2).conj().contiguous()
         lib_layout, lib_fn, lib_y, lib_errors = library_spmm(dagger, sk, g)
         if lib_fn is not None:
             check(torch.allclose(lib_y, y_adj, atol=2e-4, rtol=2e-4), "library adjoint product disagrees with the kernel")
         del y_adj, lib_y, dagger
-        h = ck.ell_block_outer(g, sk, t_cur, 0.25)
+        h = ce.ell_block_outer(g, sk, t_cur, 0.25)
         sddmm_form, sddmm_fn, h_lib, sddmm_errors = library_sddmm(sk, g, t_cur, 0.25, h)
         if sddmm_fn is not None:
             err["ell_block_outer_vs_library"] = float((h_lib - h).abs().max())
@@ -1871,20 +1873,20 @@ def main(argv) -> int:
         shift = torch.linspace(0.5, 1.5, K, device=dev) * 1e-3
         neg, add = torch.empty_like(t_cur), random_vector(N, K, 64)
         fns = {
-            "ell_spmm": lambda: ck.ell_spmm(data, sk, t_cur),
-            "ell_cheb_step": lambda: ck.ell_cheb_step(data, sk, t_cur, t_prev, 0.125, out=out),
-            "ell_spmm_adjoint": lambda: ck.ell_spmm_adjoint(  # written over `add`, as the sweep does
+            "ell_spmm": lambda: ce.ell_spmm(data, sk, t_cur),
+            "ell_cheb_step": lambda: ce.ell_cheb_step(data, sk, t_cur, t_prev, 0.125, out=out),
+            "ell_spmm_adjoint": lambda: ce.ell_spmm_adjoint(  # written over `add`, as the sweep does
                 data, sk, g, alpha=-0.25, add=add, axpy=((shift, t_cur), (shift, t_prev)), out=add),
-            "ell_block_outer": lambda: ck.ell_block_outer(
+            "ell_block_outer": lambda: ce.ell_block_outer(
                 g, sk, t_cur, 0.25, out=h_out, accumulate=True, shift=shift, neg_out=neg),
-            "ell_spmm_adjoint bare": lambda: ck.ell_spmm_adjoint(data, sk, g),
-            "ell_block_outer bare": lambda: ck.ell_block_outer(g, sk, t_cur, 0.25, out=h_out),
+            "ell_spmm_adjoint bare": lambda: ce.ell_spmm_adjoint(data, sk, g),
+            "ell_block_outer bare": lambda: ce.ell_block_outer(g, sk, t_cur, 0.25, out=h_out),
         }
         plain = {
-            "ell_spmm": lambda: ck.ell_spmm_plain(data, sk, t_cur),
-            "ell_cheb_step": lambda: ck.ell_cheb_step_plain(data, sk, t_cur, t_prev, 0.125),
-            "ell_spmm_adjoint": lambda: ck.ell_spmm_adjoint_plain(data, sk, g),
-            "ell_block_outer": lambda: ck.ell_block_outer_plain(g, sk, t_cur, 0.25),
+            "ell_spmm": lambda: ce.ell_spmm_plain(data, sk, t_cur),
+            "ell_cheb_step": lambda: ce.ell_cheb_step_plain(data, sk, t_cur, t_prev, 0.125),
+            "ell_spmm_adjoint": lambda: ce.ell_spmm_adjoint_plain(data, sk, g),
+            "ell_block_outer": lambda: ce.ell_block_outer_plain(g, sk, t_cur, 0.25),
         }
         first = {name: timed_ms(fn, 50) for name, fn in fns.items()}  # kernel, plain, library, kernel
         plain_ms = {name: timed_ms(fn, 5) for name, fn in plain.items()}
@@ -1951,7 +1953,7 @@ def main(argv) -> int:
             out[impl] = (float(F.detach()), g, time.perf_counter() - t0)
         after = ck.launch_counts()
         (F_p, g_p, s_p), (F_c, g_c, s_c) = out["plain"], out["cuda"]
-        steps = ck.sweep_launches(order)
+        steps = ce.sweep_launches(order)
         check(after["ell_spmm_adjoint"] - before["ell_spmm_adjoint"] == steps
               and after["ell_block_outer"] - before["ell_block_outer"] == steps,
               "the d-wave gradient did not go through the backward kernels")
@@ -2112,7 +2114,7 @@ def main(argv) -> int:
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            steps = ck.sweep_launches(order) if order else 0
+            steps = ce.sweep_launches(order) if order else 0
             window = 0 if sites is None else cone_steps(frozen.data, sk, sites, K, order)
             expected["ell_gather_cheb_step"] += steps - window
             expected["ell_gather_cheb_step_window"] += window
@@ -2155,7 +2157,7 @@ def main(argv) -> int:
               and rho[mid] < 0.1 * rho[outside].mean(), "LDOS on the sheet shows no s-wave gap")
         check(rho_map.shape == (4, 41) and np.isfinite(rho_map).all(), "LDOS map wrong")
         check(dos.shape == (41,) and np.isfinite(dos).all() and dos[mid] < 0.1 * dos[outside].mean(), "DOS shows no gap")
-        check(torch.allclose(y, ck.ell_spmm(frozen.data, sk, v), atol=2e-4, rtol=2e-4),
+        check(torch.allclose(y, ce.ell_spmm(frozen.data, sk, v), atol=2e-4, rtol=2e-4),
               "apply through the gather kernel disagrees with the general kernel")
         emit({"phase": "generic", "launches": generic_launches, "expected": expected, "scale": scale,
               "F(T=0.01)": F_cold, "F(T=0.5)": F_warm, "F_per_site": F_cold / N, "rho(0)": float(rho[mid]),
@@ -2164,7 +2166,7 @@ def main(argv) -> int:
         # One gradient of F_total at full size: gather step forward, the adjoint
         # and block-outer kernels backward on the relabelled skeleton.
         order, samples = 256, 8
-        per_sweep = ck.sweep_launches(order)
+        per_sweep = ce.sweep_launches(order)
         F_total = sc.make_total_free_energy(frozen, V=2.5, temperature=0.0, method="kpm", order=order,
                                             samples=samples, scale=scale * 1.3)
         x = torch.full((1,), 0.3, device=dev, requires_grad=True)
@@ -2199,7 +2201,7 @@ def main(argv) -> int:
             Fs = F_small(xs.to(c128))
             got[impl] = (float(Fs.detach()), torch.autograd.grad(Fs, xs)[0])
         small_launched = launched_since(before)
-        steps = ck.sweep_launches(64)
+        steps = ce.sweep_launches(64)
         check(small_launched == counts(ell_gather_cheb_step=steps, ell_spmm_adjoint=steps, ell_block_outer=steps),
               f"the small gradient launched {small_launched}")
         errs = {"F_rel": abs(got["cuda_gather"][0] - got["plain"][0]) / abs(got["plain"][0]),
@@ -2226,8 +2228,8 @@ def main(argv) -> int:
             o_k = torch.empty_like(v_k)
             ms_k = {"ell_gather_spmm": timed_ms(lambda: cg.ell_gather_spmm(d_k, gl_k, v_k), 50),
                     "ell_gather_cheb_step": timed_ms(lambda: cg.ell_gather_cheb_step(d_k, gl_k, v_k, p_k, 0.125, out=o_k), 50),
-                    "ell_spmm": timed_ms(lambda: ck.ell_spmm(d_k, gl_k.sk, v_k), 50),
-                    "ell_cheb_step": timed_ms(lambda: ck.ell_cheb_step(d_k, gl_k.sk, v_k, p_k, 0.125, out=o_k), 50)}
+                    "ell_spmm": timed_ms(lambda: ce.ell_spmm(d_k, gl_k.sk, v_k), 50),
+                    "ell_cheb_step": timed_ms(lambda: ce.ell_cheb_step(d_k, gl_k.sk, v_k, p_k, 0.125, out=o_k), 50)}
             emit({"phase": "generic", "held": label, "K": K_path, "max_abs_err": err_k,
                   "tolerance": "atol=rtol=2e-4 vs complex64 plain; sums 1e-4 vs complex128 plain",
                   "plan_T_TK_depth_run_ctas": [gl_k.T, gl_k.TK, gl_k.depth, gl_k.run, gl_k.ctas], "ms": ms_k})
@@ -2241,10 +2243,10 @@ def main(argv) -> int:
         fns = {
             "ell_gather_spmm": lambda: cg.ell_gather_spmm(data_rel, gl, t_cur),
             "ell_gather_cheb_step": lambda: cg.ell_gather_cheb_step(data_rel, gl, t_cur, t_prev, 0.125, out=out),
-            "ell_spmm natural": lambda: ck.ell_spmm(data_nat, sk, t_cur),
-            "ell_cheb_step natural": lambda: ck.ell_cheb_step(data_nat, sk, t_cur, t_prev, 0.125, out=out),
-            "ell_spmm relabelled": lambda: ck.ell_spmm(data_rel, gl.sk, t_cur),
-            "ell_cheb_step relabelled": lambda: ck.ell_cheb_step(data_rel, gl.sk, t_cur, t_prev, 0.125, out=out),
+            "ell_spmm natural": lambda: ce.ell_spmm(data_nat, sk, t_cur),
+            "ell_cheb_step natural": lambda: ce.ell_cheb_step(data_nat, sk, t_cur, t_prev, 0.125, out=out),
+            "ell_spmm relabelled": lambda: ce.ell_spmm(data_rel, gl.sk, t_cur),
+            "ell_cheb_step relabelled": lambda: ce.ell_cheb_step(data_rel, gl.sk, t_cur, t_prev, 0.125, out=out),
         }
         first = {name: timed_ms(fn, 50) for name, fn in fns.items()}  # kernel, plain, library, kernel
         plain_ms = {"ell_gather_spmm": timed_ms(lambda: cg.ell_gather_spmm_plain(data_rel, gl, t_cur), 5),
@@ -2301,7 +2303,7 @@ def main(argv) -> int:
         check(ok, f"gather kernel disagrees on the sheet numbered along y: {err_x}")
         tx, px = random_vector(sk_x.n_sites, K, 87), random_vector(sk_x.n_sites, K, 88)
         ox = torch.empty_like(tx)
-        variants = {"ell_cheb_step": lambda: ck.ell_cheb_step(data_x, sk_x, tx, px, 0.125, out=ox),
+        variants = {"ell_cheb_step": lambda: ce.ell_cheb_step(data_x, sk_x, tx, px, 0.125, out=ox),
                     "ell_gather_cheb_step planned": lambda: cg.ell_gather_cheb_step(data_x, gl_x, tx, px, 0.125, out=ox)}
         for tile in (32, 64, 128, 256):
             gl_t = cg.plan_gather(sk_x, K, tile)
@@ -2330,7 +2332,7 @@ def main(argv) -> int:
         emit({"phase": "generic", "case": "HoleSheet(512, 512, 40)", "N": sk_w.n_sites, "bwb": gl_w.bwb,
               "T": gl_w.T, "TK": gl_w.TK, "threads": gl_w.threads, "smem_bytes": gl_w.smem_bytes, "max_abs_err": err_w,
               "ell_gather_cheb_step_ms": timed_ms(lambda: cg.ell_gather_cheb_step(d_w, gl_w, tw, pw, 0.125, out=ow), 50),
-              "ell_cheb_step_relabelled_ms": timed_ms(lambda: ck.ell_cheb_step(d_w, gl_w.sk, tw, pw, 0.125, out=ow), 50)})
+              "ell_cheb_step_relabelled_ms": timed_ms(lambda: ce.ell_cheb_step(d_w, gl_w.sk, tw, pw, 0.125, out=ow), 50)})
         return generic_launches, rows
 
     # ------------------------------------------------------------------ 11. the tiled step
@@ -2362,7 +2364,7 @@ def main(argv) -> int:
             emit({"phase": "tiled", "call": f"{label}: free_energy(order=256, samples=8, impl='cuda_tiled')",
                   "wall_s": wall, "F_tiled": F_tiled, "F_untiled": F_untiled, "F_rel": rel,
                   "ldos_abs_diff": float(np.abs(rho_t - rho_u).max()), "launches": launched,
-                  "tile_plan": ck.tile_plan(sk, 8)})
+                  "tile_plan": ce.tile_plan(sk, 8)})
             check(rel <= 1e-5, f"{label}: F through the tiled step differs from the untiled call by {rel}")
             check(np.abs(rho_t - rho_u).max() <= 1e-3 * np.abs(rho_u).max(), f"{label}: tiled LDOS differs")
             tiled_launches = {k: tiled_launches[k] + launched[k] for k in launched}
@@ -2372,17 +2374,17 @@ def main(argv) -> int:
                 t_cur, t_prev = random_vector(N, K, 96), random_vector(N, K, 97)
                 out = torch.empty_like(t_cur)
                 reps = 20 if N > 100_000 else 200
-                tiled = lambda: ck.stencil_cheb_step_tiled(system.data, sk, t_cur, t_prev, 0.125, out=out)
-                untiled = lambda: ck.ell_cheb_step(system.data, sk, t_cur, t_prev, 0.125, out=out)
+                tiled = lambda: ce.stencil_cheb_step_tiled(system.data, sk, t_cur, t_prev, 0.125, out=out)
+                untiled = lambda: ce.ell_cheb_step(system.data, sk, t_cur, t_prev, 0.125, out=out)
                 runs = [timed_ms(tiled, reps)]
                 untiled_runs = [timed_ms(untiled, reps)]
-                plain = timed_ms(lambda: ck.stencil_cheb_step_tiled_plain(system.data, sk, t_cur, t_prev, 0.125), 3)
+                plain = timed_ms(lambda: ce.stencil_cheb_step_tiled_plain(system.data, sk, t_cur, t_prev, 0.125), 3)
                 untiled_runs.append(timed_ms(untiled, reps))
                 runs.append(timed_ms(tiled, reps))
                 row = bound_row("stencil_cheb_step_tiled", label, sk, K, min(runs), plain,
                                 chebyshev_step_bytes(sk, K, 8), spmm_flops(sk, K),
                                 err["stencil_cheb_step_tiled"], None, "none", runs)
-                plan = ck.tile_plan(sk, K)
+                plan = ce.tile_plan(sk, K)
                 emit({"phase": "tiled", "shape": label, "K": K, "stencil_cheb_step_tiled_ms": min(runs),
                       "ell_cheb_step_ms": min(untiled_runs), "ratio": min(runs) / min(untiled_runs),
                       "bound_ms": row["bound_ms"], "runs_ms": runs, "ell_cheb_step_runs_ms": untiled_runs,
@@ -2397,9 +2399,9 @@ def main(argv) -> int:
                               "XR/4 (four waves)": (plan["PB"], -(-plan["XR"] // 4), 5)}
                     variants = {"planned": tiled, "ell_cheb_step": untiled}
                     for name, tile in forced.items():
-                        check(ck.tile_plan(sk, K, tile)["smem_bytes"] > 0, name)
+                        check(ce.tile_plan(sk, K, tile)["smem_bytes"] > 0, name)
                         variants[f"{name} {tile}"] = (
-                            lambda tile=tile: ck.stencil_cheb_step_tiled(system.data, sk, t_cur, t_prev, 0.125,
+                            lambda tile=tile: ce.stencil_cheb_step_tiled(system.data, sk, t_cur, t_prev, 0.125,
                                                                          out=out, tile=tile))
                     var_runs = {name: [timed_ms(fn, reps)] for name, fn in variants.items()}
                     for name, fn in reversed(list(variants.items())):
@@ -2446,7 +2448,7 @@ def main(argv) -> int:
         256, CUDA events around the host's loop); the step's byte bound."""
         sk = system.skeleton
         N_l, S = sk.cols.shape
-        form = ck.bf16_operator(system.data) if bf16 else system.data
+        form = ce.bf16_operator(system.data) if bf16 else system.data
         inv = 1.0 / kpm.spectral_bound(system.data, sk)
         worst, modes = {}, {}
         for K in sorted({1, *widths}):
@@ -2468,20 +2470,20 @@ def main(argv) -> int:
             out = torch.empty_like(v)
 
             def one_step():
-                ck.ell_cheb_step(form, sk, v, t_prev, 0.125, out=out)
+                ce.ell_cheb_step(form, sk, v, t_prev, 0.125, out=out)
 
             def step(t_cur, t_prev_, scale, out_):
-                return ck.ell_cheb_step(form, sk, t_cur, t_prev_, scale, out=out_)[0]
+                return ce.ell_cheb_step(form, sk, t_cur, t_prev_, scale, out=out_)[0]
 
             bound = chebyshev_step_bytes(sk, K, 8, operator_itemsize=2 if bf16 else None) / HBM_BYTES_PER_S * 1e3
             row = {"plan": cf.filter_plan(N_l, K, S, bf16=bf16), "step_bound_ms": bound,
                    "ell_cheb_step_graph_ms": graph_ms(one_step),
                    "ell_cheb_step_host_issue_ms": timed_ms(one_step, 200),
-                   "per_step_path_ms_per_step": timed_ms(lambda: ck.filter_recursion(step, v, lowpass[256], inv), 3)
+                   "per_step_path_ms_per_step": timed_ms(lambda: ce.filter_recursion(step, v, lowpass[256], inv), 3)
                    / 255}
             if tiled:
                 def tiled_step():
-                    ck.stencil_cheb_step_tiled(form, sk, v, t_prev, 0.125, out=out)
+                    ce.stencil_cheb_step_tiled(form, sk, v, t_prev, 0.125, out=out)
 
                 row.update(stencil_cheb_step_tiled_graph_ms=graph_ms(tiled_step),
                            stencil_cheb_step_tiled_host_issue_ms=timed_ms(tiled_step, 200))
@@ -2509,7 +2511,7 @@ def main(argv) -> int:
         and beside it the per-step byte bound the steps would take apart."""
         sk = system.skeleton
         N_l, S = sk.cols.shape
-        form = ck.bf16_operator(system.data) if bf16 else system.data
+        form = ce.bf16_operator(system.data) if bf16 else system.data
         inv = 1.0 / kpm.spectral_bound(system.data, sk)
         coeffs, steps = lowpass[4096], len(lowpass[4096]) - 1
         v = random_vector(N_l, K, 990)
@@ -2770,7 +2772,7 @@ def main(argv) -> int:
 
         def replayed(order):
             """Steps the gradient's backward pass replays under remat="auto" (the objective's schedule)."""
-            chunk, steps = ck.remat_chunk_for(order, "auto"), ck.sweep_launches(order) - 1
+            chunk, steps = cs.remat_chunk_for(order, "auto"), ce.sweep_launches(order) - 1
             return (steps // chunk) * chunk if 0 < chunk < steps else 0
 
         phase_t0 = time.perf_counter()
@@ -2786,16 +2788,16 @@ def main(argv) -> int:
 
         # -------- four slabs of 250 planes against the whole lattice, K = 8
         v, t_prev = random_vector(N, K, 1001), random_vector(N, K, 1002)
-        t_whole, pp_whole = ck.ell_cheb_step(big.data, sk, v, t_prev, 0.125)
-        y_whole = ck.ell_spmm(big.data, sk, v)
+        t_whole, pp_whole = ce.ell_cheb_step(big.data, sk, v, t_prev, 0.125)
+        y_whole = ce.ell_spmm(big.data, sk, v)
         sums, same, worst = torch.zeros(2 * K, dtype=torch.float64, device=dev), True, 0.0
-        slabs = [ck.halo_slab(sk, 250 * r, 250) for r in range(4)]
+        slabs = [ce.halo_slab(sk, 250 * r, 250) for r in range(4)]
         for slab in slabs:
             before, after = ((slab.x0 - 1) % Lx) * P, ((slab.x0 + slab.planes) % Lx) * P
             hm, hp = v[before:before + P].clone(), v[after:after + P].clone()
             r = slab.rows
-            t_r, pp_r = ck.ell_cheb_step_halo(big.data[r], slab, v[r], hm, hp, t_prev[r], 0.125)
-            y_r = ck.ell_spmm_halo(big.data[r], slab, v[r], hm, hp)
+            t_r, pp_r = ce.ell_cheb_step_halo(big.data[r], slab, v[r], hm, hp, t_prev[r], 0.125)
+            y_r = ce.ell_spmm_halo(big.data[r], slab, v[r], hm, hp)
             same = same and torch.equal(t_r, t_whole[r]) and torch.equal(y_r, y_whole[r])
             worst = max(worst, float((t_r - t_whole[r]).abs().max()), float((y_r - y_whole[r]).abs().max()))
             sums += pp_r.double().sum(dim=0)
@@ -2808,32 +2810,32 @@ def main(argv) -> int:
         del t_whole, y_whole, pp_whole
 
         # -------- the forward halo kernels timed: one slab, the whole lattice as one slab, ell_cheb_step
-        whole = ck.halo_slab(sk, 0, Lx)
+        whole = ce.halo_slab(sk, 0, Lx)
         hm, hp = v[(Lx - 1) * P:].clone(), v[:P].clone()  # the ring of one: own last and first plane
         out = torch.empty_like(v)
         one, r1 = slabs[1], slabs[1].rows
         d1, v1, tp1, out1 = big.data[r1], v[r1].contiguous(), t_prev[r1].contiguous(), torch.empty_like(v[r1])
         h1m, h1p = v[249 * P:250 * P].clone(), v[500 * P:501 * P].clone()
         fns = {
-            "ell_cheb_step_halo": lambda: ck.ell_cheb_step_halo(big.data, whole, v, hm, hp, t_prev, 0.125, out=out),
-            "ell_spmm_halo": lambda: ck.ell_spmm_halo(big.data, whole, v, hm, hp, out=out),
-            "ell_cheb_step_halo one slab": lambda: ck.ell_cheb_step_halo(d1, one, v1, h1m, h1p, tp1, 0.125, out=out1),
-            "ell_spmm_halo one slab": lambda: ck.ell_spmm_halo(d1, one, v1, h1m, h1p, out=out1),
-            "ell_cheb_step": lambda: ck.ell_cheb_step(big.data, sk, v, t_prev, 0.125, out=out),
-            "ell_spmm": lambda: ck.ell_spmm(big.data, sk, v),
+            "ell_cheb_step_halo": lambda: ce.ell_cheb_step_halo(big.data, whole, v, hm, hp, t_prev, 0.125, out=out),
+            "ell_spmm_halo": lambda: ce.ell_spmm_halo(big.data, whole, v, hm, hp, out=out),
+            "ell_cheb_step_halo one slab": lambda: ce.ell_cheb_step_halo(d1, one, v1, h1m, h1p, tp1, 0.125, out=out1),
+            "ell_spmm_halo one slab": lambda: ce.ell_spmm_halo(d1, one, v1, h1m, h1p, out=out1),
+            "ell_cheb_step": lambda: ce.ell_cheb_step(big.data, sk, v, t_prev, 0.125, out=out),
+            "ell_spmm": lambda: ce.ell_spmm(big.data, sk, v),
         }
-        t_h, _ = ck.ell_cheb_step_halo(big.data, whole, v, hm, hp, t_prev, 0.125)
-        t_p, _ = ck.ell_cheb_step_halo_plain(big.data, whole, v, hm, hp, t_prev, 0.125)
-        y_h = ck.ell_spmm_halo(big.data, whole, v, hm, hp)
-        y_p = ck.ell_spmm_halo_plain(big.data, whole, v, hm, hp)
+        t_h, _ = ce.ell_cheb_step_halo(big.data, whole, v, hm, hp, t_prev, 0.125)
+        t_p, _ = ce.ell_cheb_step_halo_plain(big.data, whole, v, hm, hp, t_prev, 0.125)
+        y_h = ce.ell_spmm_halo(big.data, whole, v, hm, hp)
+        y_p = ce.ell_spmm_halo_plain(big.data, whole, v, hm, hp)
         err_w = {"ell_cheb_step_halo": float((t_h - t_p).abs().max()), "ell_spmm_halo": float((y_h - y_p).abs().max())}
         check(all(e <= 2e-4 * max(1.0, float(t_p.abs().max())) for e in err_w.values()),
               f"halo kernels at 1000x1000 disagree with their plain versions: {err_w}")
         del t_h, t_p, y_h, y_p
         first = {name: timed_ms(fn, 20) for name, fn in fns.items()}
-        plain_ms = {"ell_cheb_step_halo": timed_ms(lambda: ck.ell_cheb_step_halo_plain(
+        plain_ms = {"ell_cheb_step_halo": timed_ms(lambda: ce.ell_cheb_step_halo_plain(
                         big.data, whole, v, hm, hp, t_prev, 0.125), 3),
-                    "ell_spmm_halo": timed_ms(lambda: ck.ell_spmm_halo_plain(big.data, whole, v, hm, hp), 3)}
+                    "ell_spmm_halo": timed_ms(lambda: ce.ell_spmm_halo_plain(big.data, whole, v, hm, hp), 3)}
         second = {name: timed_ms(fn, 20) for name, fn in fns.items()}
         ms = {name: min(first[name], second[name]) for name in fns}
         for name, vectors in (("ell_cheb_step_halo", 3), ("ell_spmm_halo", 2)):
@@ -2854,7 +2856,7 @@ def main(argv) -> int:
         N_m, Lx_m = sk_m.n_sites, sk_m.shape[0]
         P_m = sk_m.shape[1] * sk_m.shape[2]
         data_m = sc.data_with_onsite_swave(metal.data, torch.full((N_m,), 0.6, device=dev, dtype=c64))
-        whole_m = ck.halo_slab(sk_m, 0, Lx_m)
+        whole_m = ce.halo_slab(sk_m, 0, Lx_m)
         t_cur, g, add = random_vector(N_m, K, 1201), random_vector(N_m, K, 1202), random_vector(N_m, K, 1203)
         t_next = random_vector(N_m, K, 1204)
         tm, tp = t_cur[(Lx_m - 1) * P_m:].clone(), t_cur[:P_m].clone()
@@ -2862,12 +2864,12 @@ def main(argv) -> int:
         dm, dp = data_m[(Lx_m - 1) * P_m:].clone(), data_m[:P_m].clone()
         shift = torch.linspace(0.5, 1.5, K, device=dev) * 1e-3
         h_out, neg = torch.zeros_like(data_m), torch.empty_like(t_cur)
-        adj_h = ck.ell_spmm_adjoint_halo(data_m, whole_m, g, gm, gp, dm, dp, alpha=-0.25)
-        adj_w = ck.ell_spmm_adjoint(data_m, sk_m, g, alpha=-0.25)
-        adj_p = ck.ell_spmm_adjoint_halo_plain(data_m, whole_m, g, gm, gp, dm, dp, alpha=-0.25)
-        out_h = ck.ell_block_outer_halo(g, whole_m, t_cur, tm, tp, 0.25)
-        out_w = ck.ell_block_outer(g, sk_m, t_cur, 0.25)
-        out_p = ck.ell_block_outer_halo_plain(g, whole_m, t_cur, tm, tp, 0.25)
+        adj_h = ce.ell_spmm_adjoint_halo(data_m, whole_m, g, gm, gp, dm, dp, alpha=-0.25)
+        adj_w = ce.ell_spmm_adjoint(data_m, sk_m, g, alpha=-0.25)
+        adj_p = ce.ell_spmm_adjoint_halo_plain(data_m, whole_m, g, gm, gp, dm, dp, alpha=-0.25)
+        out_h = ce.ell_block_outer_halo(g, whole_m, t_cur, tm, tp, 0.25)
+        out_w = ce.ell_block_outer(g, sk_m, t_cur, 0.25)
+        out_p = ce.ell_block_outer_halo_plain(g, whole_m, t_cur, tm, tp, 0.25)
         torch.cuda.synchronize()
         err_b = {"ell_spmm_adjoint_halo": float(max((adj_h - adj_p).abs().max(), (adj_h - adj_w).abs().max())),
                  "ell_block_outer_halo": float(max((out_h - out_p).abs().max(), (out_h - out_w).abs().max()))}
@@ -2876,19 +2878,19 @@ def main(argv) -> int:
               f"halo backward kernels at 512x512 disagree: {err_b}")
         del adj_h, adj_w, adj_p, out_h, out_w, out_p
         bwd = {
-            "ell_spmm_adjoint_halo": lambda: ck.ell_spmm_adjoint_halo(
+            "ell_spmm_adjoint_halo": lambda: ce.ell_spmm_adjoint_halo(
                 data_m, whole_m, g, gm, gp, dm, dp, alpha=-0.25, add=add, axpy=((shift, t_cur), (shift, t_next)), out=add),
-            "ell_block_outer_halo": lambda: ck.ell_block_outer_halo(
+            "ell_block_outer_halo": lambda: ce.ell_block_outer_halo(
                 g, whole_m, t_cur, tm, tp, 0.25, out=h_out, accumulate=True, shift=shift, neg_out=neg),
-            "ell_spmm_adjoint": lambda: ck.ell_spmm_adjoint(
+            "ell_spmm_adjoint": lambda: ce.ell_spmm_adjoint(
                 data_m, sk_m, g, alpha=-0.25, add=add, axpy=((shift, t_cur), (shift, t_next)), out=add),
-            "ell_block_outer": lambda: ck.ell_block_outer(
+            "ell_block_outer": lambda: ce.ell_block_outer(
                 g, sk_m, t_cur, 0.25, out=h_out, accumulate=True, shift=shift, neg_out=neg),
         }
         first = {name: timed_ms(fn, 50) for name, fn in bwd.items()}
-        plain_b = {"ell_spmm_adjoint_halo": timed_ms(lambda: ck.ell_spmm_adjoint_halo_plain(
+        plain_b = {"ell_spmm_adjoint_halo": timed_ms(lambda: ce.ell_spmm_adjoint_halo_plain(
                        data_m, whole_m, g, gm, gp, dm, dp), 5),
-                   "ell_block_outer_halo": timed_ms(lambda: ck.ell_block_outer_halo_plain(
+                   "ell_block_outer_halo": timed_ms(lambda: ce.ell_block_outer_halo_plain(
                        g, whole_m, t_cur, tm, tp, 0.25), 5)}
         second = {name: timed_ms(fn, 50) for name, fn in bwd.items()}
         ms_b = {name: min(first[name], second[name]) for name in bwd}
@@ -2955,10 +2957,10 @@ def main(argv) -> int:
                     got[(label, overlap)] = fn()
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
-                    expected["ell_cheb_step_halo"] += per * ck.sweep_launches(order)
+                    expected["ell_cheb_step_halo"] += per * ce.sweep_launches(order)
                     emit({"phase": "sharded", "call": f"world of one (nccl): {label}_kpm_sharded_cuda", "overlap": overlap,
-                          "order": order, "wall_s": wall, "step_launches": per * ck.sweep_launches(order),
-                          "ms_per_step_wall": wall / ck.sweep_launches(order) * 1e3, **rs.stats})
+                          "order": order, "wall_s": wall, "step_launches": per * ce.sweep_launches(order),
+                          "ms_per_step_wall": wall / ce.sweep_launches(order) * 1e3, **rs.stats})
             for overlap in (False, True):
                 F_s, ldos_s, dos_s = (got[(k, overlap)] for k in ("free_energy", "ldos", "dos"))
                 errs = {"F_rel": abs(F_s - ref["F"]) / abs(ref["F"]),
@@ -2980,7 +2982,7 @@ def main(argv) -> int:
             torch.cuda.synchronize()
             grad_wall = time.perf_counter() - t0
             per_gradient = launched_since(before)
-            sweep = ck.sweep_launches(512)
+            sweep = ce.sweep_launches(512)
             check(per_gradient == counts(ell_cheb_step_halo=sweep + replayed(512), ell_spmm_adjoint_halo=sweep,
                                          ell_block_outer_halo=sweep),
                   f"one sharded gradient launched {per_gradient}")
@@ -3018,9 +3020,9 @@ def main(argv) -> int:
                 value = F_total(x.to(c64))
                 (grad,) = torch.autograd.grad(value, x)
                 order = kw["order"]
-                expected["ell_cheb_step_halo"] += ck.sweep_launches(order) + replayed(order)
-                expected["ell_spmm_adjoint_halo"] += ck.sweep_launches(order)
-                expected["ell_block_outer_halo"] += ck.sweep_launches(order)
+                expected["ell_cheb_step_halo"] += ce.sweep_launches(order) + replayed(order)
+                expected["ell_spmm_adjoint_halo"] += ce.sweep_launches(order)
+                expected["ell_block_outer_halo"] += ce.sweep_launches(order)
                 world_one[name] = (float(value.detach()), grad.cpu().numpy())
                 del F_total
             sharded_launches = ck.launch_counts()  # read right after the path
@@ -3054,7 +3056,7 @@ def main(argv) -> int:
                 remat_runs[remat].append({"s_per_gradient": wall, "peak_device_GB": peak})
                 grads[remat] = g
             emit({"phase": "sharded", "gradient": "512x512, order 512, K = 8, world of one: remat off and 'auto'",
-                  "chunk_auto": ck.remat_chunk_for(512, "auto"), "replayed_steps": replayed(512),
+                  "chunk_auto": cs.remat_chunk_for(512, "auto"), "replayed_steps": replayed(512),
                   "off": remat_runs[False], "auto": remat_runs["auto"],
                   "gradients_bit_equal": bool(torch.equal(grads[False], grads["auto"])),
                   "solve_gap_peak_device_GB": peak_gap})
@@ -3078,7 +3080,7 @@ def main(argv) -> int:
         for name, (F1, g1) in world_one.items():
             errs[f"{name}: F_rel"] = abs(four[name]["F"] - F1) / abs(F1)
             errs[f"{name}: grad_rel_to_max"] = float(np.abs(four[name]["grad"] - g1).max() / np.abs(g1).max())
-        steps_fe = ck.sweep_launches(256)
+        steps_fe = ce.sweep_launches(256)
         emit({"phase": "sharded", "call": "4 gloo ranks on the one card, 250 planes each",
               "wall_s_all_ranks_incl_start": four_wall, "free_energy_wall_s": fe["wall_s"],
               "ms_per_step_wall": fe["wall_s"] / steps_fe * 1e3, "exchanges": fe["exchanges"],
@@ -3126,7 +3128,7 @@ def main(argv) -> int:
         scale_r = kpm.spectral_bound(rashba.data, rashba.skeleton)
         rs = RowSharding(sk, make_row_mesh())  # a world of one without a process group: the ring is a local copy
         v8, v8_s = random_vector(N, 8, 71), random_vector(sk_s.n_sites, 8, 72)
-        steps, kw, k = ck.sweep_launches, dict(method="kpm", order=256, samples=8), 4
+        steps, kw, k = ce.sweep_launches, dict(method="kpm", order=256, samples=8), 4
         # label: (the call at an operator_dtype, the launches its bf16 call makes, their probe width K)
         calls = {
             "free_energy(T=0.01, order=256, samples=8)": (
@@ -3228,7 +3230,7 @@ def main(argv) -> int:
         sharded_product_bit_equal = bool(torch.equal(y16_sh, y16))
         check(max(d.get("rel", d.get("rel_to_max", 0.0)) for d in drift.values()) <= 5e-2,
               f"bf16 drift beyond 5e-2 of the float32 result: {drift}")
-        rounded = ck.operator_values(ck.bf16_operator(small.data), c128)
+        rounded = ce.operator_values(ce.bf16_operator(small.data), c128)
         E_r = torch.linalg.eigvalsh(bs.ell_to_dense_torch(rounded, small.skeleton))
         E_f = torch.linalg.eigvalsh(small.matrix("dense_torch").to(c128))
         want_r, want_f = (E[E > 0][:k].cpu().numpy() for E in (E_r, E_f))
@@ -3250,7 +3252,7 @@ def main(argv) -> int:
         rows["ell_cheb_moments_bf16"] = moments_row("ell_cheb_moments_bf16", "rashba 64x64x4 bf16 form, "
                                                     "free_energy's sweep", rashba, 8, 256, bf16=True)
         kernel_ms[("ell_cheb_moments_bf16", 8)] = rows["ell_cheb_moments_bf16"]["ms"]
-        form = ck.bf16_operator(big.data)
+        form = ce.bf16_operator(big.data)
         lib = "none (no torch call takes a bf16 (re, im) operator; the float32 kernel beside it is the yardstick)"
 
         def measure(name, name32, label, sk_m, K, fn16, fn32, plain16, nbytes, err, reps=20):
@@ -3271,49 +3273,49 @@ def main(argv) -> int:
         for K in (8, 1, 4, 64):
             t_cur, t_prev = random_vector(N, K, 73), random_vector(N, K, 74)
             out = torch.empty_like(t_cur)
-            t16, _ = ck.ell_cheb_step(form, sk, t_cur, t_prev, 0.125)
-            t16_plain, _ = ck.ell_cheb_step_plain(form, sk, t_cur, t_prev, 0.125)
+            t16, _ = ce.ell_cheb_step(form, sk, t_cur, t_prev, 0.125)
+            t16_plain, _ = ce.ell_cheb_step_plain(form, sk, t_cur, t_prev, 0.125)
             err = float((t16 - t16_plain).abs().max())
             check(torch.allclose(t16, t16_plain, atol=2e-4, rtol=2e-4), f"ell_cheb_step_bf16 at 10^6, K={K}: {err}")
             del t16, t16_plain
             row = measure("ell_cheb_step_bf16", "ell_cheb_step", label, sk, K,
-                          lambda: ck.ell_cheb_step(form, sk, t_cur, t_prev, 0.125, out=out),
-                          lambda: ck.ell_cheb_step(big.data, sk, t_cur, t_prev, 0.125, out=out),
-                          (lambda: ck.ell_cheb_step_plain(form, sk, t_cur, t_prev, 0.125)) if K <= 8 else None,
+                          lambda: ce.ell_cheb_step(form, sk, t_cur, t_prev, 0.125, out=out),
+                          lambda: ce.ell_cheb_step(big.data, sk, t_cur, t_prev, 0.125, out=out),
+                          (lambda: ce.ell_cheb_step_plain(form, sk, t_cur, t_prev, 0.125)) if K <= 8 else None,
                           chebyshev_step_bytes(sk, K, 8, operator_itemsize=2), err, reps=20 if K < 64 else 5)
             if K == 8:
                 rows["ell_cheb_step_bf16"] = row
             if K in (8, 1):
-                y16, y16_plain = ck.ell_spmm(form, sk, t_cur), ck.ell_spmm_plain(form, sk, t_cur)
+                y16, y16_plain = ce.ell_spmm(form, sk, t_cur), ce.ell_spmm_plain(form, sk, t_cur)
                 err = float((y16 - y16_plain).abs().max())
                 check(torch.allclose(y16, y16_plain, atol=2e-4, rtol=2e-4), f"ell_spmm_bf16 at 10^6, K={K}: {err}")
                 del y16, y16_plain
-                row = measure("ell_spmm_bf16", "ell_spmm", label, sk, K, lambda: ck.ell_spmm(form, sk, t_cur),
-                              lambda: ck.ell_spmm(big.data, sk, t_cur), lambda: ck.ell_spmm_plain(form, sk, t_cur),
+                row = measure("ell_spmm_bf16", "ell_spmm", label, sk, K, lambda: ce.ell_spmm(form, sk, t_cur),
+                              lambda: ce.ell_spmm(big.data, sk, t_cur), lambda: ce.ell_spmm_plain(form, sk, t_cur),
                               spmm_bytes(sk, K, 8, operator_itemsize=2), err)
                 if K == 8:
                     rows["ell_spmm_bf16"] = row
             if K == 8:
                 # The tiled step and the halo forms (the whole lattice as one slab, the world of one's form).
-                t16, _ = ck.stencil_cheb_step_tiled(form, sk, t_cur, t_prev, 0.125)
-                t16_plain, _ = ck.stencil_cheb_step_tiled_plain(form, sk, t_cur, t_prev, 0.125)
+                t16, _ = ce.stencil_cheb_step_tiled(form, sk, t_cur, t_prev, 0.125)
+                t16_plain, _ = ce.stencil_cheb_step_tiled_plain(form, sk, t_cur, t_prev, 0.125)
                 err = float((t16 - t16_plain).abs().max())
                 check(torch.allclose(t16, t16_plain, atol=2e-4, rtol=2e-4), f"tiled bf16 step at 10^6: {err}")
                 del t16, t16_plain
                 rows["stencil_cheb_step_tiled_bf16"] = measure(
                     "stencil_cheb_step_tiled_bf16", "stencil_cheb_step_tiled", label, sk, K,
-                    lambda: ck.stencil_cheb_step_tiled(form, sk, t_cur, t_prev, 0.125, out=out),
-                    lambda: ck.stencil_cheb_step_tiled(big.data, sk, t_cur, t_prev, 0.125, out=out),
-                    lambda: ck.stencil_cheb_step_tiled_plain(form, sk, t_cur, t_prev, 0.125),
+                    lambda: ce.stencil_cheb_step_tiled(form, sk, t_cur, t_prev, 0.125, out=out),
+                    lambda: ce.stencil_cheb_step_tiled(big.data, sk, t_cur, t_prev, 0.125, out=out),
+                    lambda: ce.stencil_cheb_step_tiled_plain(form, sk, t_cur, t_prev, 0.125),
                     chebyshev_step_bytes(sk, K, 8, operator_itemsize=2), err)
-                whole = ck.halo_slab(sk, 0, sk.shape[0])
+                whole = ce.halo_slab(sk, 0, sk.shape[0])
                 P = whole.plane
                 hm, hp = t_cur[(sk.shape[0] - 1) * P:].clone(), t_cur[:P].clone()
                 halo_16 = N * S * 64 + 2 * P * 4 * K * 8  # the slab's bf16 operator rows and the two halo planes
-                t16, _ = ck.ell_cheb_step_halo(form, whole, t_cur, hm, hp, t_prev, 0.125)
-                t16_plain, _ = ck.ell_cheb_step_halo_plain(form, whole, t_cur, hm, hp, t_prev, 0.125)
-                y16 = ck.ell_spmm_halo(form, whole, t_cur, hm, hp)
-                y16_plain = ck.ell_spmm_halo_plain(form, whole, t_cur, hm, hp)
+                t16, _ = ce.ell_cheb_step_halo(form, whole, t_cur, hm, hp, t_prev, 0.125)
+                t16_plain, _ = ce.ell_cheb_step_halo_plain(form, whole, t_cur, hm, hp, t_prev, 0.125)
+                y16 = ce.ell_spmm_halo(form, whole, t_cur, hm, hp)
+                y16_plain = ce.ell_spmm_halo_plain(form, whole, t_cur, hm, hp)
                 errs = {"step": float((t16 - t16_plain).abs().max()), "product": float((y16 - y16_plain).abs().max())}
                 check(torch.allclose(t16, t16_plain, atol=2e-4, rtol=2e-4)
                       and torch.allclose(y16, y16_plain, atol=2e-4, rtol=2e-4), f"bf16 halo forms at 10^6: {errs}")
@@ -3321,15 +3323,15 @@ def main(argv) -> int:
                 label_h = "swave 1000x1000x1, whole lattice as one slab"
                 rows["ell_cheb_step_halo_bf16"] = measure(
                     "ell_cheb_step_halo_bf16", "ell_cheb_step_halo", label_h, sk, K,
-                    lambda: ck.ell_cheb_step_halo(form, whole, t_cur, hm, hp, t_prev, 0.125, out=out),
-                    lambda: ck.ell_cheb_step_halo(big.data, whole, t_cur, hm, hp, t_prev, 0.125, out=out),
-                    lambda: ck.ell_cheb_step_halo_plain(form, whole, t_cur, hm, hp, t_prev, 0.125),
+                    lambda: ce.ell_cheb_step_halo(form, whole, t_cur, hm, hp, t_prev, 0.125, out=out),
+                    lambda: ce.ell_cheb_step_halo(big.data, whole, t_cur, hm, hp, t_prev, 0.125, out=out),
+                    lambda: ce.ell_cheb_step_halo_plain(form, whole, t_cur, hm, hp, t_prev, 0.125),
                     halo_16 + 3 * N * 4 * K * 8, errs["step"])
                 rows["ell_spmm_halo_bf16"] = measure(
                     "ell_spmm_halo_bf16", "ell_spmm_halo", label_h, sk, K,
-                    lambda: ck.ell_spmm_halo(form, whole, t_cur, hm, hp, out=out),
-                    lambda: ck.ell_spmm_halo(big.data, whole, t_cur, hm, hp, out=out),
-                    lambda: ck.ell_spmm_halo_plain(form, whole, t_cur, hm, hp),
+                    lambda: ce.ell_spmm_halo(form, whole, t_cur, hm, hp, out=out),
+                    lambda: ce.ell_spmm_halo(big.data, whole, t_cur, hm, hp, out=out),
+                    lambda: ce.ell_spmm_halo_plain(form, whole, t_cur, hm, hp),
                     halo_16 + 2 * N * 4 * K * 8, errs["product"])
                 del hm, hp
             del t_cur, t_prev, out
@@ -3340,7 +3342,7 @@ def main(argv) -> int:
         K, N_s, S_s = 8, sk_s.n_sites, sk_s.n_slots
         gl, gl16 = cg.plan_gather(sk_s, K), cg.plan_gather(sk_s, K, operator_dtype="bf16")
         d_rel = gl.relabel(sheet.data).contiguous()
-        f_rel = ck.bf16_operator(d_rel)
+        f_rel = ce.bf16_operator(d_rel)
         t_cur, t_prev = random_vector(N_s, K, 75), random_vector(N_s, K, 76)
         out = torch.empty_like(t_cur)
         t16, pp16 = cg.ell_gather_cheb_step(f_rel, gl16, t_cur, t_prev, 0.125)
@@ -3354,8 +3356,8 @@ def main(argv) -> int:
               "the bf16 gather step's t_next or partials differ between two runs on the sheet")
         del t16, t16_again, pp16, pp16_again, t16_plain, y16, y16_plain
         rel_bytes, label_s = N_s * S_s * 4, "HoleSheet(1024, 256, 60), relabelled"
-        yardstick = {"ell_gather_cheb_step_bf16": lambda: ck.ell_cheb_step(f_rel, gl.sk, t_cur, t_prev, 0.125, out=out),
-                     "ell_gather_spmm_bf16": lambda: ck.ell_spmm(f_rel, gl.sk, t_cur)}
+        yardstick = {"ell_gather_cheb_step_bf16": lambda: ce.ell_cheb_step(f_rel, gl.sk, t_cur, t_prev, 0.125, out=out),
+                     "ell_gather_spmm_bf16": lambda: ce.ell_spmm(f_rel, gl.sk, t_cur)}
         yard_runs = {name: [timed_ms(fn, 50)] for name, fn in yardstick.items()}
         rows["ell_gather_cheb_step_bf16"] = measure(
             "ell_gather_cheb_step_bf16", "ell_gather_cheb_step", label_s, sk_s, K,
@@ -3544,7 +3546,6 @@ def main(argv) -> int:
         import torch.distributed as dist
         from unittest import mock
 
-        from bodge_tpu_torch.hamiltonian import use_planar_device_path
         from bodge_tpu_torch.ops import planar as pl
         from bodge_tpu_torch.parallel import (RowSharding, free_energy_kpm_sharded_cuda, initialize_multihost,
                                               make_row_mesh)
@@ -3581,11 +3582,11 @@ def main(argv) -> int:
                 launched[label] = launched_since(before)
             return out, launched, walls
 
-        check(not use_planar_device_path() and kpm.default_impl() == "auto", "BODGE_PLANAR is set before the phase")
+        check(not pl.use_planar_device_path() and kpm.default_impl() == "auto", "BODGE_PLANAR is set before the phase")
         complex_out, complex_launches, complex_walls = run_calls()  # complex, planar, planar, complex
         os.environ["BODGE_PLANAR"] = "1"
         try:
-            check(use_planar_device_path() and kpm.default_impl() == "planar", "BODGE_PLANAR=1 not read")
+            check(pl.use_planar_device_path() and kpm.default_impl() == "planar", "BODGE_PLANAR=1 not read")
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -3743,8 +3744,8 @@ def main(argv) -> int:
         data_r = gl.relabel(ribbon.data).contiguous()
         del ribbon
         forms = (("ell_cheb_step_window", "swave 1000x1000", big.data, big.skeleton, big.skeleton,
-                  ck.nonzero_bandwidth(big.data, big.skeleton), ck.ell_cheb_step, ck.ell_cheb_step_window,
-                  ck.ell_cheb_step_window_plain, 0),
+                  ck.nonzero_bandwidth(big.data, big.skeleton), ce.ell_cheb_step, ce.ell_cheb_step_window,
+                  ce.ell_cheb_step_window_plain, 0),
                  ("ell_gather_cheb_step_window", "graphene 4096x256, relabelled", data_r, gl.sk, gl, gl.bwb,
                   cg.ell_gather_cheb_step, cg.ell_gather_cheb_step_window, cg.ell_gather_cheb_step_window_plain,
                   gl.sk.n_sites * gl.sk.n_slots * 4))

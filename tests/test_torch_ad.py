@@ -23,6 +23,7 @@ import bodge_tpu as J
 from bodge_tpu.ops import chebyshev as jkpm
 from bodge_tpu.ops import pallas_spmm as pk
 from bodge_tpu_torch.ops import blocksparse as tbs
+from bodge_tpu_torch.ops import cuda_ell as ce
 from bodge_tpu_torch.ops import cuda_spmm as ck
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
@@ -66,13 +67,13 @@ def test_adjoint_plain_is_product_with_conjugate_transpose(case):
     mirror = torch.as_tensor(np.broadcast_to(sk.trans_slot, sk.cols.shape).astype(np.int64))
     data_dagger = (data * valid)[safe, mirror].transpose(-1, -2).conj() * valid
 
-    got = ck.ell_spmm_adjoint(data, sk, v)  # CPU tensor: the plain version
-    want = ck.ell_spmm_plain(data_dagger, sk, v)
+    got = ce.ell_spmm_adjoint(data, sk, v)  # CPU tensor: the plain version
+    want = ce.ell_spmm_plain(data_dagger, sk, v)
     assert torch.allclose(got, want, atol=1e-12, rtol=0)
     dense = tbs.ell_to_dense_torch(data * valid, sk)
     want_dense = (dense.conj().T @ v.reshape(4 * N, 3)).reshape(N, 4, 3)
     assert torch.allclose(got, want_dense, atol=1e-12, rtol=0)
-    assert not torch.allclose(got, ck.ell_spmm_plain(data, sk, v), atol=1e-3)  # H ≠ H†
+    assert not torch.allclose(got, ce.ell_spmm_plain(data, sk, v), atol=1e-3)  # H ≠ H†
 
 
 @pytest.mark.parametrize("case", CASES, ids=str)
@@ -81,32 +82,32 @@ def test_block_outer_plain_is_operator_cotangent(case):
     N, S = sk.cols.shape
     data = _random((N, S, 4, 4), 3).requires_grad_(True)
     t, g = _random((N, 4, 5), 4), _random((N, 4, 5), 5)
-    y = ck.ell_spmm_plain(data, sk, t)
+    y = ce.ell_spmm_plain(data, sk, t)
     (want,) = torch.autograd.grad(y, data, grad_outputs=g)
-    got = ck.ell_block_outer(g, sk, t)
+    got = ce.ell_block_outer(g, sk, t)
     assert got.shape == (N, S, 4, 4)
     assert torch.allclose(got, want, atol=1e-12, rtol=0)
     assert bool((got[torch.as_tensor(~sk.valid)] == 0).all())  # padding slots get zero
 
     buf = torch.ones_like(got)
-    assert ck.ell_block_outer(g, sk, t, 0.5, out=buf) is buf  # overwrite
+    assert ce.ell_block_outer(g, sk, t, 0.5, out=buf) is buf  # overwrite
     assert torch.allclose(buf, 0.5 * want, atol=1e-12, rtol=0)
-    ck.ell_block_outer(g, sk, t, 0.25, out=buf, accumulate=True)  # add
+    ce.ell_block_outer(g, sk, t, 0.25, out=buf, accumulate=True)  # add
     assert torch.allclose(buf, 0.75 * want, atol=1e-12, rtol=0)
     with pytest.raises(ValueError, match="accumulate"):
-        ck.ell_block_outer(g, sk, t, accumulate=True)
+        ce.ell_block_outer(g, sk, t, accumulate=True)
 
     # The fused forms: G = g + shift ⊙ t (g optional), −G handed out.
     shift = torch.as_tensor(np.linspace(-0.5, 1.5, 5))
     neg = torch.empty_like(t)
-    fused = ck.ell_block_outer(g, sk, t, 0.5, shift=shift, neg_out=neg)
+    fused = ce.ell_block_outer(g, sk, t, 0.5, shift=shift, neg_out=neg)
     G = g + shift * t
     assert torch.allclose(neg, -G, atol=1e-14, rtol=0)
-    assert torch.allclose(fused, ck.ell_block_outer(G, sk, t, 0.5), atol=1e-12, rtol=0)
-    only_shift = ck.ell_block_outer(None, sk, t, shift=shift)
-    assert torch.allclose(only_shift, ck.ell_block_outer(shift * t, sk, t), atol=1e-12, rtol=0)
+    assert torch.allclose(fused, ce.ell_block_outer(G, sk, t, 0.5), atol=1e-12, rtol=0)
+    only_shift = ce.ell_block_outer(None, sk, t, shift=shift)
+    assert torch.allclose(only_shift, ce.ell_block_outer(shift * t, sk, t), atol=1e-12, rtol=0)
     with pytest.raises(ValueError, match="both be absent"):
-        ck.ell_block_outer(None, sk, t)
+        ce.ell_block_outer(None, sk, t)
 
 
 @pytest.mark.parametrize("case", [(2, 6, 1), "pairs"], ids=str)
@@ -116,12 +117,12 @@ def test_adjoint_epilogue_terms(case):
     data, v = _random((N, S, 4, 4), 40), _random((N, 4, 3), 41)
     add, x1, x2 = _random((N, 4, 3), 42), _random((N, 4, 3), 43), _random((N, 4, 3), 44)
     c1, c2 = torch.as_tensor([0.5, -1.0, 2.0]), torch.as_tensor([1.5, 0.25, -0.75])
-    base = ck.ell_spmm_adjoint(data, sk, v)
-    got = ck.ell_spmm_adjoint(data, sk, v, alpha=-0.3, add=add, axpy=((c1, x1), (c2, x2)))
+    base = ce.ell_spmm_adjoint(data, sk, v)
+    got = ce.ell_spmm_adjoint(data, sk, v, alpha=-0.3, add=add, axpy=((c1, x1), (c2, x2)))
     assert torch.allclose(got, -0.3 * base + add + c1 * x1 + c2 * x2, atol=1e-12, rtol=0)
-    assert torch.allclose(ck.ell_spmm_adjoint(data, sk, v, axpy=((c1, x1),)), base + c1 * x1, atol=1e-12, rtol=0)
+    assert torch.allclose(ce.ell_spmm_adjoint(data, sk, v, axpy=((c1, x1),)), base + c1 * x1, atol=1e-12, rtol=0)
     with pytest.raises(ValueError, match="two axpy"):
-        ck.ell_spmm_adjoint(data, sk, v, axpy=((c1, x1),) * 3)
+        ce.ell_spmm_adjoint(data, sk, v, axpy=((c1, x1),) * 3)
 
 
 @pytest.mark.parametrize("with_prev", [True, False], ids=["t_prev", "t_prev=None"])
@@ -160,7 +161,7 @@ def test_chebstep_backward_equals_autograd_of_plain_step(case):
     def loss(t_next, sums):
         return (t_next * w_next.conj()).real.sum() + (sums * w_sums).sum()
 
-    t_plain, pp = ck.ell_cheb_step_plain(data, sk, t_cur, t_prev, 0.21)
+    t_plain, pp = ce.ell_cheb_step_plain(data, sk, t_cur, t_prev, 0.21)
     want = torch.autograd.grad(loss(t_plain, pp[0]), (data, t_cur, t_prev))
     t_next, sums = ck.ChebStep.apply(data, t_cur, t_prev, sk, 0.21, None)
     assert torch.equal(t_next, t_plain) and torch.equal(sums, pp[0])
@@ -172,7 +173,7 @@ def test_chebstep_backward_equals_autograd_of_plain_step(case):
     # operator that asks for no gradient.
     t_next, sums = ck.ChebStep.apply(data.detach(), t_cur, t_prev, sk, 0.21, None)
     (g_cur,) = torch.autograd.grad(sums[K:].sum(), t_cur)
-    t_plain, pp = ck.ell_cheb_step_plain(data.detach(), sk, t_cur, t_prev, 0.21)
+    t_plain, pp = ce.ell_cheb_step_plain(data.detach(), sk, t_cur, t_prev, 0.21)
     (w_cur,) = torch.autograd.grad(pp[0, K:].sum(), t_cur)
     assert torch.allclose(g_cur, w_cur, atol=1e-12, rtol=0)
 
@@ -286,10 +287,10 @@ def test_sweep_function_equals_loop_over_chebstep(case):
             t_next, s = ck.ChebStep.apply(data, t_cur, t_prev, sk, inv, None)
             sums.append(s)
             t_prev, t_cur = t_cur, t_next
-        return ck._assemble_moments(first[:K], first[K:], torch.stack(sums), K)[:order]
+        return ce.moments_from_sums(torch.stack([first, *sums]), K, order)
 
     def by_products(data, v0):
-        H = lambda v: inv * ck.ell_spmm_plain(data, sk, v)
+        H = lambda v: inv * ce.ell_spmm_plain(data, sk, v)
         dot = lambda a, b: (a.conj() * b).sum(dim=(0, 1)).real
         ts = [v0, H(v0)]
         for _ in range((order - 1) // 2):
@@ -336,15 +337,15 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
     before = ck.launch_counts()
     assert set(before) == set(ck.KERNELS) | {f"{n}.steps" for n in ck.SWEEP_KERNELS} and len(ck.KERNELS) == 25
     for call in (
-        lambda: ck.ell_spmm_adjoint(data, sk, v, impl="cuda"),
-        lambda: ck.ell_block_outer(v, sk, v, impl="cuda"),
+        lambda: ce.ell_spmm_adjoint(data, sk, v, impl="cuda"),
+        lambda: ce.ell_block_outer(v, sk, v, impl="cuda"),
         lambda: ck.ChebStep.apply(data, v, None, sk, 0.1, "cuda"),
         lambda: ck.moments_fused_ad(data, sk, v, 0.1, 4, impl="cuda"),
     ):
         with pytest.raises(RuntimeError, match="CUDA device"):
             call()
     with pytest.raises(ValueError, match="Unknown kernel implementation"):
-        ck.ell_spmm_adjoint(data, sk, v, impl="pallas")
-    ck.ell_spmm_adjoint(data, sk, v)
-    ck.ell_block_outer(v, sk, v)
+        ce.ell_spmm_adjoint(data, sk, v, impl="pallas")
+    ce.ell_spmm_adjoint(data, sk, v)
+    ce.ell_block_outer(v, sk, v)
     assert ck.launch_counts() == before  # plain versions count no launch

@@ -23,8 +23,10 @@ from bodge_tpu.ops import pallas_gather as jpg
 from bodge_tpu.ops import pallas_spmm as jpk
 from bodge_tpu_torch.ops import blocksparse as tbs
 from bodge_tpu_torch.ops import chebyshev as tkpm
+from bodge_tpu_torch.ops import cuda_ell as ce
 from bodge_tpu_torch.ops import cuda_gather as cg
 from bodge_tpu_torch.ops import cuda_spmm as ck
+from bodge_tpu_torch.parallel import cuda_sharded as cs
 from bodge_tpu_torch.ops import lanczos as tlz
 from bodge_tpu_torch.ops.spmm import chebyshev_step_bytes, spmm_bytes
 from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy
@@ -51,7 +53,7 @@ def _unpack(planes, N):
 
 def _rounded(d):
     """The operator the bf16 form stores, as complex128."""
-    return ck.operator_values(ck.bf16_operator(d), torch.complex128)
+    return ce.operator_values(ce.bf16_operator(d), torch.complex128)
 
 
 @pytest.fixture(scope="module")
@@ -72,10 +74,10 @@ def test_bf16_form_is_the_reference_packing_bit_for_bit(system):
     assert jpk.plan(sk_j, 4).mode == "flat"
     packed = jpk.pack_operator(d.numpy(), sk_j, 4, operator_dtype=jnp.bfloat16)
     assert packed.dtype == jnp.bfloat16
-    form = ck.bf16_operator(d)
+    form = ce.bf16_operator(d)
     assert form.dtype == torch.bfloat16 and tuple(form.shape) == (N, S, 4, 4, 2) and form.is_contiguous()
     np.testing.assert_array_equal(_bits(form), _bits(_unpack(np.asarray(packed).reshape(2, S, 4, 4, -1), N)))
-    assert ck.bf16_operator(form) is form
+    assert ce.bf16_operator(form) is form
 
     st, sj = build_ring(T, 40, device="cpu"), build_ring(J, 40)
     sk_r, N_r = st.skeleton, st.skeleton.n_sites
@@ -85,7 +87,7 @@ def test_bf16_form_is_the_reference_packing_bit_for_bit(system):
     ref = _unpack(np.moveaxis(np.asarray(ref), 0, 1).reshape(2, sk_r.n_slots, 4, 4, -1), N_r)
     plan = ck.StepPlan(sk_r, 4, "plain_gather", st.data, torch.bfloat16)
     np.testing.assert_array_equal(_bits(plan.operator(st.data)), _bits(ref))
-    np.testing.assert_array_equal(_bits(ck.bf16_operator(st.data)[torch.as_tensor(gl.inv_rank)]), _bits(ref))
+    np.testing.assert_array_equal(_bits(ce.bf16_operator(st.data)[torch.as_tensor(gl.inv_rank)]), _bits(ref))
 
 
 def test_kpm_observables_on_bf16_match_reference_on_rounded_operator(system):
@@ -144,16 +146,16 @@ def test_facade_free_energy_and_env_knob(system, monkeypatch):
     assert st.free_energy(0.1, **kw) == by_argument
     assert st.free_energy(0.1, operator_dtype="f32", **kw) == float32  # the argument overrides the knob
     for name in ("", "f32", "float32", torch.float32):
-        assert ck.resolve_operator_storage(name) is None
+        assert ce.resolve_operator_storage(name) is None
     for name in (None, "bf16", "bfloat16", torch.bfloat16):
-        assert ck.resolve_operator_storage(name) is torch.bfloat16
+        assert ce.resolve_operator_storage(name) is torch.bfloat16
     with pytest.raises(ValueError, match="operator storage"):
         st.free_energy(0.1, operator_dtype="fp8", **kw)
     monkeypatch.setenv("BODGE_OPERATOR_STORAGE", "half")
     with pytest.raises(ValueError, match="operator storage"):
         st.free_energy(0.1, **kw)
     monkeypatch.delenv("BODGE_OPERATOR_STORAGE")
-    assert ck.resolve_operator_storage(None) is None
+    assert ce.resolve_operator_storage(None) is None
 
 
 def test_bf16_drift_within_the_reference_bounds(system):
@@ -165,8 +167,8 @@ def test_bf16_drift_within_the_reference_bounds(system):
     rng = np.random.default_rng(7)
     v = torch.as_tensor((rng.normal(size=(sk.n_sites, 4, 4)) + 1j * rng.normal(size=(sk.n_sites, 4, 4))),
                         dtype=torch.complex64)
-    form = ck.bf16_operator(d)
-    y32, y16 = ck.ell_spmm(d, sk, v), ck.ell_spmm(form, sk, v)
+    form = ce.bf16_operator(d)
+    y32, y16 = ce.ell_spmm(d, sk, v), ce.ell_spmm(form, sk, v)
     assert y16.dtype == torch.complex64
     drift = float((y16 - y32).abs().max())
     assert 0 < drift < 2e-2 * float(y32.abs().max())
@@ -206,7 +208,7 @@ def test_differentiable_paths_refuse_the_bf16_form(system):
     complex operator; a plan takes only a resolved storage; plain versions
     count no launch."""
     d, sk, _ = system
-    form = ck.bf16_operator(d)
+    form = ce.bf16_operator(d)
     v = torch.zeros((sk.n_sites, 4, 2), dtype=torch.complex128)
     before = ck.launch_counts()
     with pytest.raises(TypeError, match="bf16 form"):
@@ -216,30 +218,30 @@ def test_differentiable_paths_refuse_the_bf16_form(system):
     plan = ck.StepPlan(sk, 2, "plain", d, torch.bfloat16)
     with pytest.raises(TypeError, match="bf16 form"):
         ck.moments_fused_ad(d.clone().requires_grad_(True), sk, v, 0.1, 4, impl=plan)
-    slab = ck.halo_slab(sk, 0, SHAPE[0])
+    slab = ce.halo_slab(sk, 0, SHAPE[0])
     with pytest.raises(TypeError, match="bf16 form"):
-        ck.ShardedMomentSweep.apply(form, v, slab, None, 0.1, 4, "plain", False, form[:5], form[:5], 0)
+        cs.ShardedMomentSweep.apply(form, v, slab, None, 0.1, 4, "plain", False, form[:5], form[:5], 0)
     with pytest.raises(TypeError, match="bf16 form"):
-        ck.ell_spmm_adjoint(form, sk, v)
+        ce.ell_spmm_adjoint(form, sk, v)
     with pytest.raises(TypeError, match="bf16 form"):
-        ck.ell_spmm_adjoint_halo(d, slab, v, v[:5], v[:5], form[:5], form[:5])
+        ce.ell_spmm_adjoint_halo(d, slab, v, v[:5], v[:5], form[:5], form[:5])
     with pytest.raises(TypeError, match="bf16 form"):
-        ck._check_call(form.to("meta"), sk, v.detach().to(torch.complex64).to("meta"))
-    for wrapper, args in ((ck.ell_spmm_bf16, (d, sk, v)), (ck.ell_cheb_step_bf16, (d, sk, v, None, 0.1))):
+        ce._check_call(form.to("meta"), sk, v.detach().to(torch.complex64).to("meta"))
+    for wrapper, args in ((ce.ell_spmm_bf16, (d, sk, v)), (ce.ell_cheb_step_bf16, (d, sk, v, None, 0.1))):
         with pytest.raises(TypeError, match="bf16 form"):
             wrapper(*args)
     with pytest.raises(ValueError, match="resolve_operator_storage"):
         ck.StepPlan(sk, 2, "plain", d, "bf16")
-    y = ck.ell_spmm_bf16(form, sk, v.detach())
-    assert torch.equal(y, ck.ell_spmm(_rounded(d), sk, v.detach()))
+    y = ce.ell_spmm_bf16(form, sk, v.detach())
+    assert torch.equal(y, ce.ell_spmm(_rounded(d), sk, v.detach()))
     assert ck.launch_counts() == before
     # The kernels' argument check takes the form at its own dtype and shape.
     N, S = sk.cols.shape
     meta = torch.device("meta")
     vm = torch.empty((N, 4, 2), dtype=torch.complex64, device=meta)
-    assert ck._check_forward(torch.empty((N, S, 4, 4, 2), dtype=torch.bfloat16, device=meta), sk, vm)[3] is True
+    assert ce._check_forward(torch.empty((N, S, 4, 4, 2), dtype=torch.bfloat16, device=meta), sk, vm)[3] is True
     with pytest.raises(ValueError, match="shape"):
-        ck._check_forward(torch.empty((N, S, 4, 4), dtype=torch.bfloat16, device=meta), sk, vm)
+        ce._check_forward(torch.empty((N, S, 4, 4), dtype=torch.bfloat16, device=meta), sk, vm)
 
 
 def test_byte_accounting_of_the_bf16_form():

@@ -121,7 +121,8 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import bodge_tpu_torch, chip_smoke\n"
         "import bodge_tpu_torch.models.systems, bodge_tpu_torch.utils.convert\n"
-        "import bodge_tpu_torch.ops.cuda_spmm, bodge_tpu_torch.ops.chebyshev, bodge_tpu_torch.ops.cuda_filter\n"
+        "import bodge_tpu_torch.ops.cuda_ell, bodge_tpu_torch.ops.cuda_spmm, bodge_tpu_torch.ops.chebyshev\n"
+        "import bodge_tpu_torch.ops.cuda_filter\n"
         "import bodge_tpu_torch.ops.dense, bodge_tpu_torch.models.selfconsistency\n"
         "import bodge_tpu_torch.ops.banded, bodge_tpu_torch.ops.cuda_gather\n"
         "import bodge_tpu_torch.ops.lanczos, bodge_tpu_torch.utils.serialization\n"

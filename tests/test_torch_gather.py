@@ -26,6 +26,7 @@ from bodge_tpu.ops.spmm import spmm as jspmm
 from bodge_tpu_torch.models import selfconsistency as tsc
 from bodge_tpu_torch.ops import blocksparse as tbs
 from bodge_tpu_torch.ops import chebyshev as tkpm
+from bodge_tpu_torch.ops import cuda_ell as ce
 from bodge_tpu_torch.ops import cuda_gather as cg
 from bodge_tpu_torch.ops import cuda_spmm as ck
 from bodge_tpu_torch.ops.spmm import spmm as tspmm
@@ -108,7 +109,7 @@ def test_layout_matches_reference_plan(name, K):
     # blocks' runs cover every row once.
     site = (4 * gl.TK + (2 if gl.TK % 2 == 0 and K % 2 == 0 else 1)) * 8
     assert gl.ring == 2 * gl.bwb + (gl.depth + 1) * gl.T and gl.ring * site == gl.smem_bytes <= cg.SMEM_LIMIT
-    assert gl.TK == ck.probe_tile(K) and min(gl.T * gl.TK, cg.THREADS) <= gl.threads <= cg.THREADS
+    assert gl.TK == ce.probe_tile(K) and min(gl.T * gl.TK, cg.THREADS) <= gl.threads <= cg.THREADS
     assert gl.run >= gl.T and gl.ctas == -(-N // gl.run)
 
 
@@ -133,7 +134,7 @@ def test_gather_plain_matches_reference_products(name, K, seed):
     # The step in relabelled order equals the general step on the relabelled skeleton.
     t_prev = gl.relabel(torch.as_tensor(_vector(sk_t.n_sites, K, seed + 1)))
     a, pa = cg.ell_gather_cheb_step(gl.relabel(d_t), gl, gl.relabel(v_t), t_prev, 0.2)
-    b, pb = ck.ell_cheb_step(gl.relabel(d_t), gl.sk, gl.relabel(v_t), t_prev, 0.2)
+    b, pb = ce.ell_cheb_step(gl.relabel(d_t), gl.sk, gl.relabel(v_t), t_prev, 0.2)
     np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-12, rtol=0)
     np.testing.assert_allclose(pa.numpy(), pb.numpy(), rtol=1e-12)
 
@@ -155,7 +156,7 @@ def test_moments_gather_match_reference_scan():
         jpg.pack_gather_vector(v0.astype(np.complex64), sk_j, gl_j), sk_j, gl_j,
         jnp.float32(1.0 / scale), order, K,
     ))
-    mu = cg.moments_gather(st.data, sk_t, torch.as_tensor(v0), 1.0 / scale, order).numpy()
+    mu = ck.moments_gather(st.data, sk_t, torch.as_tensor(v0), 1.0 / scale, order).numpy()
     assert mu.shape == (order, K)
     np.testing.assert_allclose(mu, mu_j, atol=2e-4, rtol=0)
     general = ck.moments_fused(st.data, sk_t, torch.as_tensor(v0), 1.0 / scale, order, impl="plain").numpy()
@@ -210,7 +211,7 @@ def test_gradient_on_ring_matches_jax():
     want = jax.grad(loss_j, argnums=(0, 1))(jnp.asarray(data), jnp.asarray(v0))
     d = torch.as_tensor(data).requires_grad_(True)
     v = torch.as_tensor(v0).requires_grad_(True)
-    mu = cg.moments_gather_ad(d, sk_t, v, 1.0 / scale, order)
+    mu = ck.moments_gather_ad(d, sk_t, v, 1.0 / scale, order)
     got = torch.autograd.grad((torch.as_tensor(w)[:, None] * mu).sum(), (d, v))
     valid = torch.as_tensor(sk_t.valid)[..., None, None]
     for g, wj, mask in zip(got, want, (valid, True)):
@@ -276,7 +277,7 @@ def test_gather_requests_that_cannot_run_raise(monkeypatch):
         with pytest.raises(ValueError, match="no feasible gather plan"):
             tkpm.moments(data, sk, v, 8, 3.0, impl="plain_gather")
         with pytest.raises(ValueError, match="no feasible gather plan"):
-            cg.moments_gather(data, sk, v, 1 / 3.0, 8)
+            ck.moments_gather(data, sk, v, 1 / 3.0, 8)
         assert np.isfinite(tkpm.moments(data, sk, v, 8, 3.0).numpy()).all()
     finally:
         cg.plan_gather.cache_clear()
@@ -289,7 +290,7 @@ def _window_rule_tk(bwb, K, tile):
     with T = 32 or the forced T; ``None`` where none fits."""
     for TK in (8, 4, 2, 1):
         room = (cg.SMEM_LIMIT - cg.TREE_BYTES) // ((4 * TK + 2) * 8) - 2 * bwb
-        if TK <= min(ck.probe_tile(K), 8) and (32 if tile is None else tile) <= room:
+        if TK <= min(ce.probe_tile(K), 8) and (32 if tile is None else tile) <= room:
             return TK
     return None
 
@@ -310,7 +311,7 @@ def test_launch_plan_feasibility_unchanged(Ks):
         assert TK == _window_rule_tk(bwb, K, tile) and (tile is None or T == tile)
         site = (4 * TK + (2 if TK % 2 == 0 and K % 2 == 0 else 1)) * 8
         assert smem == (2 * bwb + (depth + 1) * T) * site <= cg.SMEM_LIMIT and 0 <= depth <= cg.MAX_DEPTH
-        assert ctas == -(-250855 // run) and ctas * -(-K // TK) <= ck.DEFAULT_SMS
+        assert ctas == -(-250855 // run) and ctas * -(-K // TK) <= ce.DEFAULT_SMS
     # The sheet's shape (bwb 293 after RCM): tiles of 128 rows, one in flight, 1901 rows a block.
     assert cg._launch_plan(250855, 293, 8) == (128, 8, 1, 1901, 132, 1024, 229024)
     assert cg._launch_plan(23, 10, 3, (32, 8))[3:5] == (8, 3)  # forced T and run: three blocks
@@ -336,11 +337,11 @@ def test_bf16_plan_feasibility_unchanged_and_cluster_fits(Ks):
             assert plan == plan32 and plan.stage_bytes == 0
             continue
         T, TK, depth, run, ctas, threads, smem = plan
-        assert K >= 2 and TK == min(ck.probe_tile(K), 8) // 2 and (tile is None or T == tile)
+        assert K >= 2 and TK == min(ce.probe_tile(K), 8) // 2 and (tile is None or T == tile)
         assert smem == cg._cluster_smem(bwb, TK, K, T, depth + 1, S) <= cg.SMEM_LIMIT and 1 <= depth + 1 <= 4
         assert threads <= cg.CLUSTER_CONSUMERS and threads % 32 == 0 and T % 4 == 0 and run % 4 == 0
         assert plan.stage_bytes == T * S * (64 + 4) and (tile is not None or T >= cg.CLUSTER_MIN_TILE)
-        assert ctas == -(-250855 // run) and 2 * ctas * -(-K // (2 * TK)) <= ck.DEFAULT_SMS
+        assert ctas == -(-250855 // run) and 2 * ctas * -(-K // (2 * TK)) <= ce.DEFAULT_SMS
 
 
 def test_bf16_plan_at_the_sheet_and_where_it_keeps_one_block():
@@ -368,5 +369,5 @@ def test_bf16_plan_at_the_sheet_and_where_it_keeps_one_block():
     rel = gl16.device_rel(torch.device("cpu"))
     assert rel.shape[0] % 4 == 0 and (rel[: sk.n_sites].numpy() == gl16.rel).all() and (rel[sk.n_sites:] == cg.PAD_REL).all()
     v = torch.as_tensor(_vector(40, 8, 1))
-    d16 = ck.bf16_operator(gl16.relabel(st.data.to(torch.complex64)))
+    d16 = ce.bf16_operator(gl16.relabel(st.data.to(torch.complex64)))
     np.testing.assert_array_equal(cg.ell_gather_spmm(d16, gl16, v).numpy(), cg.ell_gather_spmm(d16, gl, v).numpy())

@@ -26,7 +26,9 @@ import jax.numpy as jnp
 from bodge_tpu.ops import blocksparse as jbs
 from bodge_tpu.ops import pallas_spmm as pk
 from bodge_tpu_torch.ops import blocksparse as tbs
+from bodge_tpu_torch.ops import cuda_ell as ce
 from bodge_tpu_torch.ops import cuda_spmm as ck
+from bodge_tpu_torch.parallel import cuda_sharded as cs
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
 
@@ -92,7 +94,7 @@ def test_plain_halo_product_and_step_match_reference(shape, pbc, Lxl, K):
     data, sk = random_blocks(shape, pbc, rng)
     Lx, Ly, Lz = shape
     M, x0 = Ly * Lz, Lx - Lxl
-    slab = ck.halo_slab(sk, x0, Lxl)
+    slab = ce.halo_slab(sk, x0, Lxl)
     n = slab.n_local
     v, tp = _random((n, 4, K), rng), _random((n, 4, K), rng)
     hm, hp = _random((M, 4, K), rng), _random((M, 4, K), rng)  # any planes: the kernels do not know their origin
@@ -109,12 +111,12 @@ def test_plain_halo_product_and_step_match_reference(shape, pbc, Lxl, K):
     t_want, sums_want = unpack_planes(t_want, M, K), np.asarray(pp_want).sum(axis=0)
 
     T = lambda x: torch.as_tensor(x)
-    y = ck.ell_spmm_halo(T(d_l), slab, T(v), T(hm), T(hp))
-    t_next, pp = ck.ell_cheb_step_halo(T(d_l), slab, T(v), T(hm), T(hp), T(tp), inv)
+    y = ce.ell_spmm_halo(T(d_l), slab, T(v), T(hm), T(hp))
+    t_next, pp = ce.ell_cheb_step_halo(T(d_l), slab, T(v), T(hm), T(hp), T(tp), inv)
     assert np.abs(y.numpy() - y_want).max() <= 1e-12
     assert np.abs(t_next.numpy() - t_want).max() <= 1e-12
     assert pp.shape == (1, 2 * K) and np.abs(pp[0].numpy() - sums_want).max() <= 1e-12
-    assert ck.ell_cheb_step_halo.launches == ck.ell_spmm_halo.launches == 0  # plain versions launch nothing
+    assert ce.ell_cheb_step_halo.launches == ce.ell_spmm_halo.launches == 0  # plain versions launch nothing
 
 
 def test_halo_step_matches_pallas_kernel_in_interpret_mode():
@@ -124,7 +126,7 @@ def test_halo_step_matches_pallas_kernel_in_interpret_mode():
     shape, K, Lxl, inv = (4, 3, 1), 2, 2, 0.21
     data, sk = random_blocks(shape, True, rng)
     M, x0 = 3, 1
-    slab = ck.halo_slab(sk, x0, Lxl)
+    slab = ce.halo_slab(sk, x0, Lxl)
     v, tp = _random((6, 4, K), rng), _random((6, 4, K), rng)
     hm, hp = _random((M, 4, K), rng), _random((M, 4, K), rng)
     skj = jbs.skeleton(shape)
@@ -134,7 +136,7 @@ def test_halo_step_matches_pallas_kernel_in_interpret_mode():
         f32(pack_operator64(data, sk)[x0:x0 + Lxl]), f32(pack_planes64(v, M, P)), f32(pack_planes64(hm, M, P)),
         f32(pack_planes64(hp, M, P)), f32(pack_planes64(tp, M, P)), jnp.float32(inv), skj, K, Lxl)
     c64 = lambda x: torch.as_tensor(x).to(torch.complex64)
-    t_next, pp = ck.ell_cheb_step_halo(c64(data[slab.rows]), slab, c64(v), c64(hm), c64(hp), c64(tp), inv)
+    t_next, pp = ce.ell_cheb_step_halo(c64(data[slab.rows]), slab, c64(v), c64(hm), c64(hp), c64(tp), inv)
     assert np.allclose(t_next.numpy(), unpack_planes(t_want, M, K), atol=2e-4, rtol=2e-4)
     assert np.allclose(pp[0].numpy(), np.asarray(pp_want).sum(axis=0), atol=2e-4, rtol=2e-4)
 
@@ -158,30 +160,30 @@ def test_slabs_of_the_plain_step_equal_the_whole_step():
         N, K = sk.n_sites, 3
         v, tp = torch.as_tensor(_random((N, 4, K), rng)), torch.as_tensor(_random((N, 4, K), rng))
         d = torch.as_tensor(data)
-        want, pp_want = ck.ell_cheb_step_plain(d, sk, v, tp, 0.3)
+        want, pp_want = ce.ell_cheb_step_plain(d, sk, v, tp, 0.3)
         parts, sums = [], 0
         for x0 in range(0, shape[0], Lxl):
-            slab = ck.halo_slab(sk, x0, Lxl)
+            slab = ce.halo_slab(sk, x0, Lxl)
             r = slab.rows
-            t, pp = ck.ell_cheb_step_halo(d[r], slab, v[r], *_neighbour_planes(v, slab), tp[r], 0.3)
+            t, pp = ce.ell_cheb_step_halo(d[r], slab, v[r], *_neighbour_planes(v, slab), tp[r], 0.3)
             parts.append(t)
             sums = sums + pp.sum(dim=0)
             n, M = slab.n_local, slab.plane
             if Lxl >= 3:
                 hm, hp = _neighbour_planes(v, slab)
                 out = tp[r].clone()
-                _, p_int = ck.ell_cheb_step_halo(d[r], slab, v[r], None, None, out, 0.3, rows=(M, n - M), out=out)
-                _, p_lo = ck.ell_cheb_step_halo(d[r], slab, v[r], hm, hp, out, 0.3, rows=(0, M), out=out)
-                _, p_hi = ck.ell_cheb_step_halo(d[r], slab, v[r], hm, hp, out, 0.3, rows=(n - M, n), out=out)
+                _, p_int = ce.ell_cheb_step_halo(d[r], slab, v[r], None, None, out, 0.3, rows=(M, n - M), out=out)
+                _, p_lo = ce.ell_cheb_step_halo(d[r], slab, v[r], hm, hp, out, 0.3, rows=(0, M), out=out)
+                _, p_hi = ce.ell_cheb_step_halo(d[r], slab, v[r], hm, hp, out, 0.3, rows=(n - M, n), out=out)
                 assert torch.allclose(out, t, atol=1e-12, rtol=0)
                 assert torch.allclose(p_int + p_lo + p_hi, pp, atol=1e-12, rtol=0)
-            t0, _ = ck.ell_cheb_step_halo(d[r], slab, v[r], *_neighbour_planes(v, slab), None, 0.3)
+            t0, _ = ce.ell_cheb_step_halo(d[r], slab, v[r], *_neighbour_planes(v, slab), None, 0.3)
             assert torch.allclose(t0, t + tp[r], atol=1e-12, rtol=0)
         assert torch.allclose(torch.cat(parts), want, atol=1e-12, rtol=0), shape
         assert torch.allclose(sums, pp_want[0], atol=1e-10, rtol=0)
-        y_slabs = [ck.ell_spmm_halo(d[s.rows], s, v[s.rows], *_neighbour_planes(v, s))
-                   for s in (ck.halo_slab(sk, x0, Lxl) for x0 in range(0, shape[0], Lxl))]
-        assert torch.allclose(torch.cat(y_slabs), ck.ell_spmm_plain(d, sk, v), atol=1e-12, rtol=0)
+        y_slabs = [ce.ell_spmm_halo(d[s.rows], s, v[s.rows], *_neighbour_planes(v, s))
+                   for s in (ce.halo_slab(sk, x0, Lxl) for x0 in range(0, shape[0], Lxl))]
+        assert torch.allclose(torch.cat(y_slabs), ce.ell_spmm_plain(d, sk, v), atol=1e-12, rtol=0)
 
 
 def _halo_backward(d, a, b, w, w_sums, inv, slabs):
@@ -195,9 +197,9 @@ def _halo_backward(d, a, b, w, w_sums, inv, slabs):
     parts = []
     for slab in slabs:
         r = slab.rows
-        t_s, _ = ck.ell_cheb_step_halo(d[r], slab, a[r], *_neighbour_planes(a, slab), b[r], inv)
+        t_s, _ = ce.ell_cheb_step_halo(d[r], slab, a[r], *_neighbour_planes(a, slab), b[r], inv)
         ring = SimpleNamespace(exchange=lambda t, slab=slab: _neighbour_planes(neg_G, slab))
-        parts.append(ck.halo_step_backward(
+        parts.append(cs.halo_step_backward(
             d[r], slab, ring, a[r], _neighbour_planes(a, slab), t_s, inv, w[r], w_sums[:K], w_sums[K:],
             *_neighbour_planes(d, slab), backend="plain"))
     return [torch.cat(p) for p in zip(*parts)]
@@ -218,11 +220,11 @@ def test_halo_backward_against_autograd_and_jax_vjp():
     N = sk.n_sites
     d, a, b, w = (torch.as_tensor(x) for x in (data, *(_random((N, 4, K), rng) for _ in range(3))))
     dd, aa, bb = (x.clone().requires_grad_(True) for x in (d, a, b))
-    t_next, pp = ck.ell_cheb_step_plain(dd, sk, aa, bb, inv)
+    t_next, pp = ce.ell_cheb_step_plain(dd, sk, aa, bb, inv)
     loss = (t_next * w.conj()).real.sum() + (pp[0] * w_sums).sum()
     want = torch.autograd.grad(loss, (dd, aa, bb))
     for Lxl in (2, 6):
-        got = _halo_backward(d, a, b, w, w_sums, inv, [ck.halo_slab(sk, x0, Lxl) for x0 in range(0, 6, Lxl)])
+        got = _halo_backward(d, a, b, w, w_sums, inv, [ce.halo_slab(sk, x0, Lxl) for x0 in range(0, 6, Lxl)])
         for g, wnt in zip(got, want):
             assert (g - wnt).abs().max() <= 1e-10 * wnt.abs().max()
 
@@ -244,7 +246,7 @@ def test_halo_backward_against_autograd_and_jax_vjp():
     ct_b, ct_v, ct_tp = vjp((pack(w.numpy()), jnp.asarray(w_sums.numpy())))
     cb = np.asarray(ct_b).reshape(shape[0], 2, sk.n_slots, 4, 4, P)[..., :M]
     cb = np.moveaxis(cb[:, 0] + 1j * cb[:, 1], -1, 1).reshape(N, sk.n_slots, 4, 4)
-    got = [g.numpy() for g in _halo_backward(d, a, b, w, w_sums, inv, [ck.halo_slab(sk, 0, 6)])]
+    got = [g.numpy() for g in _halo_backward(d, a, b, w, w_sums, inv, [ce.halo_slab(sk, 0, 6)])]
     # The restatement casts the packed operator to float32 before it computes
     # in x64, so its operator cotangent comes back rounded to float32.
     assert np.abs(got[0] - cb).max() <= 1e-6 * np.abs(cb).max()
@@ -254,27 +256,27 @@ def test_halo_backward_against_autograd_and_jax_vjp():
 
 def test_halo_wrappers_refuse_what_the_kernels_do_not_take():
     sk = tbs.skeleton((4, 3, 1))
-    slab = ck.halo_slab(sk, 1, 2)
+    slab = ce.halo_slab(sk, 1, 2)
     assert slab.n_local == 6 and slab.plane == 3 and slab.rows == slice(3, 9)
     cols = slab.cols
     assert cols.min() >= -3 and cols.max() < 9 and (cols[:3] < 0).any() and (cols[3:] >= 6).any()
-    assert (ck.halo_slab(tbs.skeleton((2, 6, 1)), 0, 1).cols == ck.PAD_COLUMN).any()  # Lx = 2: -x slot is padding
+    assert (ce.halo_slab(tbs.skeleton((2, 6, 1)), 0, 1).cols == ce.PAD_COLUMN).any()  # Lx = 2: -x slot is padding
     data = torch.zeros((6, sk.n_slots, 4, 4), dtype=torch.complex64)
     v = torch.zeros((6, 4, 2), dtype=torch.complex64)
     h = torch.zeros((3, 4, 2), dtype=torch.complex64)
     with pytest.raises(RuntimeError, match="CPU"):
-        ck.ell_cheb_step_halo(data, slab, v, h, h, None, 0.1, impl="cuda")
+        ce.ell_cheb_step_halo(data, slab, v, h, h, None, 0.1, impl="cuda")
     with pytest.raises(RuntimeError, match="CPU"):
-        ck.ell_spmm_adjoint_halo(data, slab, v, h, h, data[:3], data[:3], impl="cuda")
+        ce.ell_spmm_adjoint_halo(data, slab, v, h, h, data[:3], data[:3], impl="cuda")
     with pytest.raises(ValueError, match="out="):
-        ck.ell_spmm_halo(data, slab, v, h, h, rows=(0, 3))
+        ce.ell_spmm_halo(data, slab, v, h, h, rows=(0, 3))
     with pytest.raises(ValueError, match="hm and hp"):
-        ck.ell_cheb_step_halo(data, slab, v, None, None, None, 0.1, rows=(0, 3), out=v.clone())
+        ce.ell_cheb_step_halo(data, slab, v, None, None, None, 0.1, rows=(0, 3), out=v.clone())
     with pytest.raises(ValueError, match="do not lie"):
-        ck.ell_spmm_halo(data, slab, v, h, h, rows=(2, 9), out=v.clone())
+        ce.ell_spmm_halo(data, slab, v, h, h, rows=(2, 9), out=v.clone())
     with pytest.raises(ValueError, match="do not lie"):
-        ck.halo_slab(sk, 3, 2)
+        ce.halo_slab(sk, 3, 2)
     with pytest.raises(ValueError, match="stencil"):
-        ck.halo_slab(tbs.skeleton_from_pairs(3, np.arange(3), np.arange(3)), 0, 1)
+        ce.halo_slab(tbs.skeleton_from_pairs(3, np.arange(3), np.arange(3)), 0, 1)
     assert all(ck.launch_counts()[k] == 0 for k in ("ell_spmm_halo", "ell_cheb_step_halo",
                                                      "ell_spmm_adjoint_halo", "ell_block_outer_halo"))

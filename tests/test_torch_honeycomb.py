@@ -20,6 +20,7 @@ from bodge_tpu_torch import CubicLattice, HoneycombLattice
 from bodge_tpu_torch.models import systems
 from bodge_tpu_torch.ops import blocksparse as bs
 from bodge_tpu_torch.ops import chebyshev as kpm
+from bodge_tpu_torch.ops import cuda_ell as ce
 from bodge_tpu_torch.ops import cuda_gather as cg
 from bodge_tpu_torch.ops import cuda_spmm as ck
 from portbench.reference import bdg
@@ -203,7 +204,7 @@ def test_ldos_map_on_the_card_takes_the_gather_step():
     got = card.ldos_map(sites, ENERGIES, method="kpm", order=order)
     launched = {k: v - before[k] for k, v in ck.launch_counts().items()}
     # the LDOS probes' light cone stays inside the ribbon: every step is the light-cone form
-    assert launched["ell_gather_cheb_step_window"] == ck.sweep_launches(order) and launched["ell_gather_cheb_step"] == 0
+    assert launched["ell_gather_cheb_step_window"] == ce.sweep_launches(order) and launched["ell_gather_cheb_step"] == 0
     assert launched["ell_gather_spmm"] == 60
     assert launched["ell_cheb_step"] == 0 and launched["ell_spmm"] == 0 and launched["ell_cheb_moments"] == 0
     assert cg.gather_counts()["operator_relabels"] == 2

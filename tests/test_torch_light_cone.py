@@ -18,6 +18,7 @@ from bodge_tpu.models import systems as jsys
 from bodge_tpu.ops import chebyshev as jkpm
 from bodge_tpu_torch.models import systems
 from bodge_tpu_torch.ops import chebyshev as kpm
+from bodge_tpu_torch.ops import cuda_ell as ce
 from bodge_tpu_torch.ops import cuda_spmm as ck
 from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy
 from portbench.reference import bdg
@@ -47,10 +48,10 @@ def test_stencil_window_cut_at_one_edge():
     system = systems.swave_superconductor(shape, dtype=np.complex64, device="cpu")
     data, sk = system.data, system.skeleton
     assert ck.nonzero_bandwidth(data, sk) == 16 < np.abs(sk.cols - np.arange(sk.n_sites)[:, None]).max()
-    ck.reset_window_counts()
+    ce.reset_window_counts()
     got = kpm.ldos_kpm_sites(data, sk, sites, ENERGIES, order=order, scale=SCALE)
-    steps = ck.sweep_launches(order)
-    assert ck.window_counts() == {"steps": steps, "window_steps": 22,
+    steps = ce.sweep_launches(order)
+    assert ce.window_counts() == {"steps": steps, "window_steps": 22,
                                   "rows": cone_rows(19, 22, 16, sk.n_sites, steps), "lattice_rows": steps * sk.n_sites}
     want = whole_ldos(data, sk, sites, order, SCALE)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
@@ -75,9 +76,9 @@ def test_honeycomb_window_through_the_gather_plan():
     cone = plan.light_cone(data, sites)
     rows = plan.layout.rank[sites]
     assert plan.kind == "gather" and cone == ck.LightCone(rows.min(), rows.max(), plan.layout.bwb, sk.n_sites)
-    ck.reset_window_counts()
+    ce.reset_window_counts()
     got = kpm.ldos_kpm_sites(data, sk, sites, ENERGIES, order=order, scale=4.0)
-    counts = ck.window_counts()
+    counts = ce.window_counts()
     assert 0 < counts["window_steps"] < counts["steps"] and counts["rows"] < counts["lattice_rows"]
     want = whole_ldos(data, sk, sites, order, 4.0)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
@@ -102,20 +103,20 @@ def test_nonzero_wrap_blocks_give_the_whole_lattice():
     data[zero] = 0.1 * torch.eye(4, dtype=data.dtype)  # in place: the band is measured again
     assert ck.nonzero_bandwidth(data, sk) == np.abs(sk.cols - np.arange(sk.n_sites)[:, None]).max()
     assert ck.StepPlan(sk, 4, None, data).light_cone(data, sites) is None
-    ck.reset_window_counts()
+    ce.reset_window_counts()
     got = kpm.ldos_kpm_sites(data, sk, sites, ENERGIES, order=32, scale=SCALE)
-    assert ck.window_counts() == {"steps": 0, "window_steps": 0, "rows": 0, "lattice_rows": 0}
+    assert ce.window_counts() == {"steps": 0, "window_steps": 0, "rows": 0, "lattice_rows": 0}
     np.testing.assert_array_equal(got, whole_ldos(data, sk, sites, 32, SCALE))
 
 
 def test_rademacher_probes_take_no_window():
     """Probes with no support hint (trace_function's) run the whole lattice, uncounted."""
     system = systems.swave_superconductor((24, 16, 1), dtype=np.complex64, device="cpu")
-    ck.reset_window_counts()
+    ce.reset_window_counts()
     F = kpm.free_energy_kpm(system.data, system.skeleton, 0.05, order=32, samples=4, scale=SCALE)
     dos = kpm.dos_kpm(system.data, system.skeleton, ENERGIES, order=32, samples=4, scale=SCALE)
     assert np.isfinite(F) and np.isfinite(dos).all()
-    assert ck.window_counts() == {"steps": 0, "window_steps": 0, "rows": 0, "lattice_rows": 0}
+    assert ce.window_counts() == {"steps": 0, "window_steps": 0, "rows": 0, "lattice_rows": 0}
 
 
 def test_light_cone_rows_and_the_window_steps():
@@ -130,12 +131,12 @@ def test_light_cone_rows_and_the_window_steps():
     rng = np.random.default_rng(7)
     t_cur, t_prev = (torch.as_tensor(rng.normal(size=(384, 4, 3)) + 1j * rng.normal(size=(384, 4, 3)))
                      .to(torch.complex64) for _ in range(2))
-    whole, _ = ck.ell_cheb_step_plain(data, sk, t_cur, t_prev, 0.1)
-    part, sums = ck.ell_cheb_step_window(data, sk, t_cur, t_prev, 0.1, (24, 60))
+    whole, _ = ce.ell_cheb_step_plain(data, sk, t_cur, t_prev, 0.1)
+    part, sums = ce.ell_cheb_step_window(data, sk, t_cur, t_prev, 0.1, (24, 60))
     assert sums.shape == (1, 6)
     np.testing.assert_array_equal(part[24:60].numpy(), whole[24:60].numpy())
     assert not part[:24].any() and not part[60:].any()
     with pytest.raises(ValueError, match="rows"):
-        ck.ell_cheb_step_window(data, sk, t_cur, t_prev, 0.1, (24, 385))
+        ce.ell_cheb_step_window(data, sk, t_cur, t_prev, 0.1, (24, 385))
     with pytest.raises(RuntimeError, match="CUDA device"):
-        ck.ell_cheb_step_window(data, sk, t_cur, t_prev, 0.1, (24, 60), impl="cuda")
+        ce.ell_cheb_step_window(data, sk, t_cur, t_prev, 0.1, (24, 60), impl="cuda")

@@ -5,9 +5,12 @@ its plain version against the reference's doubled-moment scan
 ``moments_fused`` on CPU tensors staying on the plain per-step path; and the
 spectral bound's power iteration in one launch (``ell_power_iteration``): its
 launch plan and its wrapper on CPU tensors (its plain version against the
-reference's bound is in ``tests/test_torch_chebyshev.py``).  The kernels run
+reference's bound is in ``tests/test_torch_chebyshev.py``); and ``sweep_mode``,
+the one rule for how the moment, filter and power sweeps run.  The kernels run
 only on the card: ``chip_smoke.py``, the small kernel checks and phases
 ``main``, ``lowest`` and ``bf16``."""
+
+import types
 
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ import jax.numpy as jnp
 
 from bodge_tpu.models import systems as jsys
 from bodge_tpu.ops import chebyshev as jkpm
+from bodge_tpu_torch.ops import cuda_ell as tce
 from bodge_tpu_torch.ops import cuda_filter as tcf
 from bodge_tpu_torch.ops import cuda_spmm as tck
 from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy
@@ -72,7 +76,7 @@ def test_plain_matches_reference_scan(references, system):
 def test_moments_plan(N, K, S, order, mode, grid, sites):
     plan = tcf.moments_plan(N, K, S, order, sms=132)
     assert (plan["mode"], plan["grid"], plan["sites_per_block"]) == (mode, grid, sites)
-    assert plan["steps"] == tck.sweep_launches(order) == 1 + (order - 1) // 2
+    assert plan["steps"] == tce.sweep_launches(order) == 1 + (order - 1) // 2
     if mode == "per_step":
         assert tcf.moments_plan(N, K, S, order, bf16=True, sms=132)["mode"] == "per_step"
         return
@@ -102,7 +106,7 @@ def test_moments_wrapper_refusals(references):
     with pytest.raises(RuntimeError, match="CUDA device"):
         tcf.ell_cheb_moments(data, sk, v, 0.1, 8, impl="cuda")
     with pytest.raises(RuntimeError, match="CUDA device"):
-        tcf.ell_cheb_moments_bf16(tck.bf16_operator(data), sk, v, 0.1, 8, impl="cuda")
+        tcf.ell_cheb_moments_bf16(tce.bf16_operator(data), sk, v, 0.1, 8, impl="cuda")
     with pytest.raises(TypeError, match="bf16"):
         tcf.ell_cheb_moments_bf16(data, sk, v, 0.1, 8)
     for order in (0, -3):
@@ -129,15 +133,14 @@ def test_moments_fused_on_cpu_runs_the_plain_path(references):
     v = torch.as_tensor(v0)
     before = tck.launch_counts()
     plan = tck.StepPlan(sk, K, None, v)
-    assert tck.moments_mode(plan, st.data, K, 32) == "plain"
     got = tck.moments_fused(st.data, sk, v, 1.0 / SCALE, 32)
     step = lambda t_cur, t_prev, scale, out: plan.step(st.data, t_cur, t_prev, scale)
-    assert torch.equal(got, tck.moment_recursion(step, v, 1.0 / SCALE, 32))
+    assert torch.equal(got, tce.moment_recursion(step, v, 1.0 / SCALE, 32))
     assert torch.equal(got, tcf.ell_cheb_moments_plain(st.data, sk, v, 1.0 / SCALE, 32))
     assert np.abs(got.numpy() - want).max() <= 1e-12 * np.abs(want).max()
     v64 = v.to(torch.complex64)
     got16 = tck.moments_fused(st.data, sk, v64, 1.0 / SCALE, 7, operator_dtype=torch.bfloat16)
-    plain16 = tcf.ell_cheb_moments_plain(tck.bf16_operator(st.data), sk, v64, 1.0 / SCALE, 7)
+    plain16 = tcf.ell_cheb_moments_plain(tce.bf16_operator(st.data), sk, v64, 1.0 / SCALE, 7)
     assert got16.dtype == torch.float32 and np.abs((got16 - plain16).numpy()).max() <= 1e-6 * plain16.abs().max()
     assert tck.launch_counts() == before
 
@@ -185,7 +188,6 @@ def test_power_iteration_on_cpu(references):
     got = tcf.ell_power_iteration(data, sk, v, 60)
     assert got.dim() == 0 and got.dtype == torch.float64
     assert torch.equal(got, tcf.ell_power_iteration_plain(data, sk, v, 60))
-    assert tck.power_mode(tck.StepPlan(sk, 1, None, data), data, 60) == "plain"
     from bodge_tpu_torch.ops import chebyshev as tkpm
 
     assert tkpm.spectral_bound(data, sk) == float(got) * 1.05
@@ -197,3 +199,35 @@ def test_power_iteration_on_cpu(references):
         with pytest.raises(ValueError, match="iters"):
             tcf.power_plan(sk.n_sites, sk.n_slots, iters)
     assert tck.launch_counts() == before  # plain versions count no launch
+
+
+# sweep_mode, the one rule for how the three sweeps run: the plain versions on
+# a CPU tensor; on the card one launch a step on the gather and tiled steps and
+# for the power iteration of the bf16 form; else the mode of the sweep's
+# cuda_filter plan, "per_step" where none fits (plans for 132 SMs, as without a
+# card).  A plan on the card is stood in for by its backend, kind and skeleton.
+MODE_CASES = {  # case: (kind, N, bf16, {sweep: mode})
+    "gather": ("gather", 64, False, {"moments": "per_step", "filter": "per_step", "power": "per_step"}),
+    "tiled": ("tiled", 64, False, {"moments": "per_step", "filter": "per_step", "power": "per_step"}),
+    "ell": ("ell", 64, False, {"moments": "registers", "filter": "registers", "power": "registers"}),
+    "ell bf16": ("ell", 64, True, {"moments": "registers", "filter": "registers", "power": "per_step"}),
+    "ell 10^6": ("ell", 10**6, False, {"moments": "per_step", "filter": "per_step", "power": "per_step"}),
+}
+
+
+@pytest.mark.parametrize("sweep", tck.SWEEPS)
+@pytest.mark.parametrize("case", ["cpu", *MODE_CASES])
+def test_sweep_mode(references, sweep, case):
+    st, v0, _ = references["swave"]
+    order = 60 if sweep == "power" else 32
+    if case == "cpu":
+        plan = tck.StepPlan(st.skeleton, K, None, st.data)
+        assert tck.sweep_mode(plan, st.data, sweep, K, order) == "plain"
+        return
+    kind, N, bf16, modes = MODE_CASES[case]
+    plan = types.SimpleNamespace(backend="cuda", kind=kind,
+                                 sk=types.SimpleNamespace(cols=np.broadcast_to(np.int32(0), (N, 5))))
+    data = torch.zeros(1, dtype=torch.bfloat16 if bf16 else torch.complex64)
+    assert tck.sweep_mode(plan, data, sweep, K, order) == modes[sweep]
+    with pytest.raises(ValueError, match="sweep"):
+        tck.sweep_mode(plan, data, "spmm")

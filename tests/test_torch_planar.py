@@ -26,12 +26,11 @@ from bodge_tpu.models import systems as jsys
 from bodge_tpu.ops import pallas_spmm as jpk
 from bodge_tpu.ops import planar as jpl
 from bodge_tpu_torch import common as tcommon
-from bodge_tpu_torch.hamiltonian import use_planar_device_path
 from bodge_tpu_torch.models import selfconsistency as tsc
 from bodge_tpu_torch.models import systems as tsys
 from bodge_tpu_torch.ops import blocksparse as tbs
 from bodge_tpu_torch.ops import chebyshev as tkpm
-from bodge_tpu_torch.ops import cuda_spmm as ck
+from bodge_tpu_torch.ops import cuda_ell as ce
 from bodge_tpu_torch.ops import planar as tpl
 from bodge_tpu_torch.parallel import RowSharding, free_energy_kpm_sharded, make_row_mesh
 from tests.test_torch_gather import build_ring
@@ -73,7 +72,7 @@ def test_converters_and_products_match_reference(swave, monkeypatch):
     monkeypatch.undo()
     assert np.array_equal(dp.numpy(), np.asarray(dp_j))  # the same float32 rounding
     assert np.array_equal(tpl.from_planar(dp).numpy(), np.asarray(jpl.from_planar(dp_j)))
-    assert tpl.is_planar(dp) and not tpl.is_planar(torch.as_tensor(d)) and not tpl.is_planar(ck.bf16_operator(
+    assert tpl.is_planar(dp) and not tpl.is_planar(torch.as_tensor(d)) and not tpl.is_planar(ce.bf16_operator(
         torch.as_tensor(d[:2])))  # a two-row bf16 form is not planar
     vp = np.random.default_rng(1).standard_normal((2, sk_t.n_sites, 4, 3)).astype(np.float32)
     y = tpl.spmm_planar_stencil(dp, sk_t, torch.as_tensor(vp))
@@ -209,7 +208,7 @@ def test_default_impl_and_planar_flag(monkeypatch):
         else:
             monkeypatch.setenv("BODGE_PLANAR", flag)
         planar = flag == "1"
-        assert use_planar_device_path() is planar
+        assert tpl.use_planar_device_path() is planar
         assert tkpm.default_impl() == ("planar" if planar else "auto")
         assert tkpm._resolve_impl(None) == tkpm._resolve_impl("auto") == tkpm.default_impl()
         assert tkpm._resolve_impl("plain") == "plain"
@@ -249,17 +248,17 @@ def test_packed_inserts_match_reference(channel):
     base = torch.as_tensor(host.astype(np.complex64))
     if channel == "swave":
         theirs = jpk.plane_packed_insert_swave(b, jnp.asarray(field), sk_j)
-        insert = lambda form: ck.plane_packed_insert_swave(form, torch.as_tensor(field), sk_t)
+        insert = lambda form: ce.plane_packed_insert_swave(form, torch.as_tensor(field), sk_t)
     else:
         m = np.asarray(jsc.bond_field(jnp.asarray(field), sk_j, struct)).astype(np.float32)
         theirs = jpk.plane_packed_insert_bond(b, jnp.asarray(m), sk_j, struct)
-        insert = lambda form: ck.plane_packed_insert_bond(form, torch.as_tensor(m), sk_t, struct)
+        insert = lambda form: ce.plane_packed_insert_bond(form, torch.as_tensor(m), sk_t, struct)
     ours = insert(base)
     got, want = ours.numpy(), _unpack_planes(theirs, sk_j, np.complex64)
     assert ours.dtype == base.dtype and np.array_equal(got, want)
-    in_bf16 = insert(ck.bf16_operator(base))
+    in_bf16 = insert(ce.bf16_operator(base))
     assert in_bf16.dtype == torch.bfloat16 and torch.equal(in_bf16.view(torch.int16),
-                                                           ck.bf16_operator(ours).view(torch.int16))
+                                                           ce.bf16_operator(ours).view(torch.int16))
     probes = tkpm.rademacher_probes(sk_t.n_sites, 4, 3, np.complex128)
     mu = [tkpm.moments(torch.as_tensor(x.astype(np.complex128)), sk_t, probes, 16, 6.0).numpy()
           for x in (got, want)]
@@ -290,9 +289,9 @@ def test_inserts_keep_the_sharded_objective_bit_equal():
             return data.detach(), g
 
         for new, old in (
-            (lambda d: ck.plane_packed_insert_swave(base, d[torch.as_tensor(rows)], sk),
+            (lambda d: ce.plane_packed_insert_swave(base, d[torch.as_tensor(rows)], sk),
              lambda d: _swave_write(base, d[torch.as_tensor(rows)])),
-            (lambda d: ck.plane_packed_insert_bond(base, tsc.bond_field(d, sk, struct, rows), sk, struct),
+            (lambda d: ce.plane_packed_insert_bond(base, tsc.bond_field(d, sk, struct, rows), sk, struct),
              lambda d: _bond_write(base, tsc.bond_field(d, sk, struct, rows).to(cdt), struct, structH)),
         ):
             state = rng.bit_generator.state

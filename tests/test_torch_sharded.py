@@ -31,7 +31,8 @@ from bodge_tpu_torch.models import selfconsistency as tsc
 from bodge_tpu_torch.ops import blocksparse as tbs
 from bodge_tpu_torch.ops import chebyshev as tkpm
 from bodge_tpu_torch.parallel import multihost
-from bodge_tpu_torch.ops import cuda_spmm as ck
+from bodge_tpu_torch.ops import cuda_ell as ce
+from bodge_tpu_torch.parallel import cuda_sharded as cs
 from bodge_tpu_torch.parallel.cuda_sharded import chebyshev_scan_sharded
 from bodge_tpu_torch.parallel.sharded import RowMesh
 from bodge_tpu_torch.parallel import (
@@ -222,7 +223,7 @@ def test_product_and_moments_match_reference_xla_path(four_ranks):
     d, sk = torch.as_tensor(task["data"]), tbs.skeleton(SHAPE)
     t_prev = t_cur = torch.as_tensor(task["v"])
     for _ in range(5):
-        t_prev, t_cur = t_cur, ck.ell_cheb_step_plain(d, sk, t_cur, t_prev, 1.0 / SCALE)[0]
+        t_prev, t_cur = t_cur, ce.ell_cheb_step_plain(d, sk, t_cur, t_prev, 1.0 / SCALE)[0]
     assert np.abs(out["scan"] - t_cur.numpy()).max() <= 1e-10 * np.abs(t_cur.numpy()).max()
 
 
@@ -295,10 +296,10 @@ def test_remat_gradients_bit_equal_and_saved_vectors_bounded():
     before, after = rs.halo_rows()
     z = torch.as_tensor(np.random.default_rng(8).normal(size=(64, 4, 2)) + 0j)
     w = torch.linspace(1.0, -0.5, order, dtype=torch.float64)
-    steps = ck.sweep_launches(order) - 1
-    assert ck.remat_chunk_for(order, "auto") == 5 and ck.remat_chunk_for(order, None) == 5
-    assert ck.remat_chunk_for(order, False) == 0 and ck.remat_chunk_for(order, 3) == 3
-    assert ck.remat_chunk_for(60, "auto") == 0  # fewer than 32 steps
+    steps = ce.sweep_launches(order) - 1
+    assert cs.remat_chunk_for(order, "auto") == 5 and cs.remat_chunk_for(order, None) == 5
+    assert cs.remat_chunk_for(order, False) == 0 and cs.remat_chunk_for(order, 3) == 3
+    assert cs.remat_chunk_for(60, "auto") == 0  # fewer than 32 steps
     grads, saved = {}, {}
     for remat in (False, "auto", 3):
         data, v0 = system.data.clone().requires_grad_(True), z.clone().requires_grad_(True)

@@ -16,6 +16,7 @@ from bodge_tpu.ops import blocksparse as jbs
 from bodge_tpu.ops import pallas_spmm as pk
 from bodge_tpu.ops import spmm as jspmm
 from bodge_tpu_torch.ops import blocksparse as tbs
+from bodge_tpu_torch.ops import cuda_ell as te
 from bodge_tpu_torch.ops import cuda_spmm as tk
 from bodge_tpu_torch.ops import spmm as tspmm
 from bodge_tpu_torch.utils.convert import hamiltonian_from_numpy
@@ -67,12 +68,12 @@ def test_plain_spmm_matches_jax_stencil(shape, pbc):
     want = np.asarray(jax_stencil(jnp.asarray(data), skj, jnp.asarray(v)))
     vt = torch.as_tensor(v)
     sk = st.skeleton
-    for fn in (tspmm.spmm_stencil, tspmm.spmm_gather, tk.ell_spmm_plain, tk.ell_spmm):
+    for fn in (tspmm.spmm_stencil, tspmm.spmm_gather, te.ell_spmm_plain, te.ell_spmm):
         got = fn(st.data, sk, vt).numpy()
         assert np.allclose(got, want, atol=1e-12, rtol=0), fn.__name__
     for impl in (None, "plain", "stencil", "gather"):
         assert np.allclose(st.apply(v, impl=impl).numpy(), want, atol=1e-12, rtol=0)
-    assert tk.ell_spmm.launches == 0  # the plain version launches nothing
+    assert te.ell_spmm.launches == 0  # the plain version launches nothing
 
 
 def test_extent_two_padding_slot_and_generic_skeleton():
@@ -82,7 +83,7 @@ def test_extent_two_padding_slot_and_generic_skeleton():
     assert (st.skeleton.cols < 0).any()
     v = random_vector(12, 2, seed=2)
     want = np.asarray(jax_stencil(jnp.asarray(data), skj, jnp.asarray(v)))
-    assert np.allclose(tk.ell_spmm_plain(st.data, st.skeleton, torch.as_tensor(v)).numpy(), want,
+    assert np.allclose(te.ell_spmm_plain(st.data, st.skeleton, torch.as_tensor(v)).numpy(), want,
                        atol=1e-12, rtol=0)
     dense = st.matrix("dense") @ v.reshape(48, 2)
     assert np.allclose(want.reshape(48, 2), dense, atol=1e-12)
@@ -99,7 +100,7 @@ def test_extent_two_padding_slot_and_generic_skeleton():
     want = np.asarray(jspmm.spmm(jnp.asarray(data), skj, jnp.asarray(v), impl="stencil"))
     got = tspmm.spmm(torch.as_tensor(data), skt, torch.as_tensor(v), impl="stencil").numpy()
     assert np.allclose(got, want, atol=1e-12, rtol=0)
-    got = tk.ell_spmm_plain(torch.as_tensor(data), skt, torch.as_tensor(v)).numpy()
+    got = te.ell_spmm_plain(torch.as_tensor(data), skt, torch.as_tensor(v)).numpy()
     assert np.allclose(got, want, atol=1e-12, rtol=0)
 
 
@@ -122,7 +123,7 @@ def _check_cheb_step_against_pallas(shape, pbc):
     want_next, want_sums = _pallas_cheb_step(data64, sk, t_cur, t_prev, inv, K)
 
     st = hamiltonian_from_numpy(shape, data64, sk.cols, dtype=np.complex64, device="cpu")
-    got_next, pp = tk.ell_cheb_step_plain(
+    got_next, pp = te.ell_cheb_step_plain(
         st.data, st.skeleton, torch.as_tensor(t_cur), torch.as_tensor(t_prev), inv
     )
     assert pp.shape == (1, 2 * K) and pp.dtype == torch.float32
@@ -135,14 +136,14 @@ def test_cheb_step_plain_matches_pallas_flat_layout():
     assert pk.plan(jbs.skeleton((6, 5, 1)), 4).mode == "flat"
     st, t_cur, t_prev, inv, got_next, pp = _check_cheb_step_against_pallas((6, 5, 1), True)
     # The wrapper on CPU tensors is the plain version; t_prev=None means zero.
-    again, pp2 = tk.ell_cheb_step(st.data, st.skeleton, torch.as_tensor(t_cur),
+    again, pp2 = te.ell_cheb_step(st.data, st.skeleton, torch.as_tensor(t_cur),
                                   torch.as_tensor(t_prev), inv)
     assert torch.equal(again, got_next) and torch.equal(pp2, pp)
     zero = torch.zeros_like(again)
-    a, pa = tk.ell_cheb_step(st.data, st.skeleton, torch.as_tensor(t_cur), None, inv)
-    b, pb = tk.ell_cheb_step(st.data, st.skeleton, torch.as_tensor(t_cur), zero, inv)
+    a, pa = te.ell_cheb_step(st.data, st.skeleton, torch.as_tensor(t_cur), None, inv)
+    b, pb = te.ell_cheb_step(st.data, st.skeleton, torch.as_tensor(t_cur), zero, inv)
     assert torch.equal(a, b) and torch.equal(pa, pb)
-    assert tk.ell_cheb_step.launches == 0
+    assert te.ell_cheb_step.launches == 0
 
 
 def test_cheb_step_plain_matches_pallas_plane_layout(monkeypatch):
@@ -155,7 +156,7 @@ def test_cheb_step_plain_complex128_definition():
     st = hamiltonian_from_numpy((4, 3, 1), random_blocks((4, 3, 1), True, seed=2)[0], device="cpu")
     N, K, inv = 12, 3, 0.2
     t_cur, t_prev = (torch.as_tensor(random_vector(N, K, s)) for s in (1, 2))
-    t_next, pp = tk.ell_cheb_step_plain(st.data, st.skeleton, t_cur, t_prev, inv)
+    t_next, pp = te.ell_cheb_step_plain(st.data, st.skeleton, t_cur, t_prev, inv)
     H = torch.as_tensor(st.matrix("dense"))
     want = 2 * inv * (H @ t_cur.reshape(4 * N, K)).reshape(N, 4, K) - t_prev
     assert torch.allclose(t_next, want, atol=1e-12, rtol=0)
@@ -172,8 +173,8 @@ def test_accountants_equal():
         assert tspmm.chebyshev_step_bytes(skt, K, 8, 2) == jspmm.chebyshev_step_bytes(skj, K, 8, 2)
         assert tspmm.spmm_flops(skt, K) == jspmm.spmm_flops(skj, K)
         assert tspmm.spmm_flops(skt, K, False) == jspmm.spmm_flops(skj, K, False)
-    assert [tk.probe_tile(K) for K in (1, 2, 3, 4, 8, 33, 2304)] == [1, 2, 4, 4, 8, 32, 32]
-    assert [tk.sweep_launches(o) for o in (1, 2, 3, 7, 32, 256)] == [1, 1, 2, 4, 16, 128]
+    assert [te.probe_tile(K) for K in (1, 2, 3, 4, 8, 33, 2304)] == [1, 2, 4, 4, 8, 32, 32]
+    assert [te.sweep_launches(o) for o in (1, 2, 3, 7, 32, 256)] == [1, 1, 2, 4, 16, 128]
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take():
@@ -182,35 +183,35 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     v = torch.zeros((12, 4, 2), dtype=torch.complex64)
     # impl="cuda" on CPU tensors raises instead of carrying on on the CPU.
     with pytest.raises(RuntimeError, match="CPU"):
-        tk.ell_spmm(data, sk, v, impl="cuda")
+        te.ell_spmm(data, sk, v, impl="cuda")
     with pytest.raises(RuntimeError, match="CPU"):
-        tk.ell_cheb_step(data, sk, v, None, 0.1, impl="cuda")
+        te.ell_cheb_step(data, sk, v, None, 0.1, impl="cuda")
     with pytest.raises(RuntimeError, match="CPU"):
         tk.moments_fused(data, sk, v, 0.1, 4, impl="cuda")
     with pytest.raises(RuntimeError, match="CPU"):
         tspmm.spmm(data, sk, v, impl="cuda")
     with pytest.raises(ValueError):
-        tk.ell_spmm(data, sk, v, impl="pallas")
+        te.ell_spmm(data, sk, v, impl="pallas")
     with pytest.raises(ValueError):
         tspmm.spmm(data, sk, v, impl="pallas")
     # The argument checks the kernel path applies before it launches.
     dev = v.device
-    tk._check_operand("v", v, (12, 4, 2), dev)
+    te._check_operand("v", v, (12, 4, 2), dev)
     with pytest.raises(ValueError, match="contiguous"):
-        tk._check_operand("v", v.transpose(0, 1), (4, 12, 2), dev)
+        te._check_operand("v", v.transpose(0, 1), (4, 12, 2), dev)
     with pytest.raises(TypeError, match="complex64"):
-        tk._check_operand("v", v.to(torch.complex128), (12, 4, 2), dev)
+        te._check_operand("v", v.to(torch.complex128), (12, 4, 2), dev)
     with pytest.raises(ValueError, match="shape"):
-        tk._check_operand("v", v, (12, 4, 3), dev)
+        te._check_operand("v", v, (12, 4, 3), dev)
     with pytest.raises(RuntimeError, match="expected"):
-        tk._check_operand("v", v, (12, 4, 2), torch.device("meta"))
+        te._check_operand("v", v, (12, 4, 2), torch.device("meta"))
     with pytest.raises(TypeError):
-        tk._check_operand("v", v.numpy(), (12, 4, 2), dev)
+        te._check_operand("v", v.numpy(), (12, 4, 2), dev)
     with pytest.raises(ValueError, match=r"\[N, 4, K\]"):
-        tk._check_call(data, sk, v[:, :2])
+        te._check_call(data, sk, v[:, :2])
     with pytest.raises(ValueError, match="shape"):
-        tk._check_call(data[:, :2], sk, v)
-    assert tk._check_call(data, sk, v) == (12, sk.n_slots, 2)
+        te._check_call(data[:, :2], sk, v)
+    assert te._check_call(data, sk, v) == (12, sk.n_slots, 2)
     assert tk.launch_counts() == {
         "ell_spmm": 0, "ell_cheb_step": 0, "ell_spmm_adjoint": 0, "ell_block_outer": 0,
         "ell_gather_spmm": 0, "ell_gather_cheb_step": 0, "stencil_cheb_step_tiled": 0,

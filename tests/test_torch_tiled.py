@@ -17,6 +17,7 @@ import bodge_tpu_torch as T
 from bodge_tpu.ops import pallas_spmm as pk
 from bodge_tpu_torch.ops import blocksparse as tbs
 from bodge_tpu_torch.ops import chebyshev as tkpm
+from bodge_tpu_torch.ops import cuda_ell as ce
 from bodge_tpu_torch.ops import cuda_spmm as ck
 from tests._reference_compiles import unoptimised_reference_compiles  # noqa: F401  (autouse fixture)
 
@@ -56,11 +57,11 @@ def check_tiled_plain_against_general(shape, pbc):
     data[~sk.device_valid("cpu")] = 7.0 + 1j  # padding slots hold garbage
     t_cur, t_prev = _vector(N, K, 1), _vector(N, K, 2)
     for prev in (t_prev, None):
-        want, pp_want = ck.ell_cheb_step_plain(data, sk, t_cur, prev, 0.23)
-        got, pp = ck.stencil_cheb_step_tiled(data, sk, t_cur, prev, 0.23)  # CPU tensor: the plain version
+        want, pp_want = ce.ell_cheb_step_plain(data, sk, t_cur, prev, 0.23)
+        got, pp = ce.stencil_cheb_step_tiled(data, sk, t_cur, prev, 0.23)  # CPU tensor: the plain version
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-12, rtol=0)
         np.testing.assert_allclose(pp.numpy(), pp_want.numpy(), rtol=1e-12, atol=1e-12)
-    plan = ck.tile_plan(sk, K)
+    plan = ce.tile_plan(sk, K)
     Lx, Ly, Lz = shape
     M = Ly * Lz
     assert plan["h"] == (Lz if Ly > 1 else Lz - 1) and plan["TK"] == 4
@@ -68,7 +69,7 @@ def check_tiled_plain_against_general(shape, pbc):
     assert plan["ctas"] == -(-(plan["n_strips"] * Lx) // plan["XR"])  # the blocks' items cover the lattice once
     site = (4 * plan["TK"] + 1) * 8  # K = 3: 8-byte copies, one float2 of padding
     assert plan["smem_bytes"] == plan["NR"] * (plan["PB"] + 2 * plan["h"]) * site
-    assert plan["smem_bytes"] <= ck.SMEM_LIMIT - 2 * ck.TILED_THREADS * 4 and 3 <= plan["NR"] <= 6
+    assert plan["smem_bytes"] <= ce.SMEM_LIMIT - 2 * ce.TILED_THREADS * 4 and 3 <= plan["NR"] <= 6
 
 
 @pytest.mark.parametrize("shape", [(6, 5, 1), (4, 4, 3), (3, 1, 5), (1, 6, 4)])
@@ -98,7 +99,7 @@ def test_tiled_plain_matches_reference_tiled_kernel(monkeypatch):
     t_j, pp_j = pk._plane_cheb_step_tiled(
         b, pk.pack_vector(v, sk_j, layout=lo), pk.pack_vector(prev, sk_j, layout=lo), jnp.float32(0.23), sk_j, K)
     t_j = np.asarray(pk.unpack_vector(t_j, sk_j, K, np.complex64, layout=lo))
-    got, pp = ck.stencil_cheb_step_tiled_plain(st.data, sk, torch.as_tensor(v).to(torch.complex128),
+    got, pp = ce.stencil_cheb_step_tiled_plain(st.data, sk, torch.as_tensor(v).to(torch.complex128),
                                                torch.as_tensor(prev).to(torch.complex128), 0.23)
     np.testing.assert_allclose(got.numpy(), t_j, atol=1e-4, rtol=0)
     np.testing.assert_allclose(pp[0].numpy(), np.asarray(pp_j).sum(axis=0), rtol=1e-5, atol=1e-3)
@@ -131,18 +132,18 @@ def test_tiled_dispatch_and_env_knob(monkeypatch):
     np.testing.assert_allclose(ys[1].numpy(), ys[0].numpy(), atol=1e-12)
     assert ck.filter_launches(len(coeffs)) == 4
     with pytest.raises(ValueError, match="stencil"):
-        ck.stencil_cheb_step_tiled(data, generic, v0, None, 0.1)
+        ce.stencil_cheb_step_tiled(data, generic, v0, None, 0.1)
     with pytest.raises(ValueError, match="stencil"):
         tkpm.moments(data, generic, v0, 8, 5.0, impl="plain_tiled")
     with pytest.raises(RuntimeError, match="CPU"):
         tkpm.moments(data, sk, v0, 8, 5.0, impl="cuda_tiled")
     with pytest.raises(RuntimeError, match="CPU"):
-        ck.stencil_cheb_step_tiled(data, sk, v0, None, 0.1, impl="cuda")
+        ce.stencil_cheb_step_tiled(data, sk, v0, None, 0.1, impl="cuda")
     with pytest.raises(ValueError, match="does not fit"):
-        ck.tile_plan(sk, 8, tile=(64, 512))  # a strip wider than the plane of 5 sites
+        ce.tile_plan(sk, 8, tile=(64, 512))  # a strip wider than the plane of 5 sites
     with pytest.raises(ValueError, match="does not fit"):
-        ck.tile_plan(tbs.skeleton((1, 40, 40)), 8, tile=(1600, 1))  # a ring of 4 × 1680 sites
-    assert ck.tile_plan(sk, 8, tile=(3, 4, 5))["NR"] == 5 and ck.tile_plan(sk, 8, tile=(3, 4))["NR"] == 4
+        ce.tile_plan(tbs.skeleton((1, 40, 40)), 8, tile=(1600, 1))  # a ring of 4 × 1680 sites
+    assert ce.tile_plan(sk, 8, tile=(3, 4, 5))["NR"] == 5 and ce.tile_plan(sk, 8, tile=(3, 4))["NR"] == 4
     assert ck.launch_counts()["stencil_cheb_step_tiled"] == 0  # plain versions count no launch
 
 
@@ -157,11 +158,11 @@ def test_tile_plan_fills_one_wave(shapes):
         sk = tbs.skeleton(shape)
         M = shape[1] * shape[2]
         for K in (1, 8, 64):
-            plan = ck.tile_plan(sk, K)
+            plan = ce.tile_plan(sk, K)
             per_sm = next(n for n in (3, 2, 1)
-                          if plan["smem_bytes"] + 2 * ck.TILED_THREADS * 4 <= ck.SM_SHARED // n - ck.BLOCK_RESERVED)
-            rows = ck.TILED_THREADS // plan["TK"]
+                          if plan["smem_bytes"] + 2 * ce.TILED_THREADS * 4 <= ce.SM_SHARED // n - ce.BLOCK_RESERVED)
+            rows = ce.TILED_THREADS // plan["TK"]
             assert plan["PB"] == min(M, rows * max(1, -(-2 * plan["h"] // rows)))
-            assert plan["ctas"] * -(-K // plan["TK"]) <= per_sm * ck.DEFAULT_SMS
+            assert plan["ctas"] * -(-K // plan["TK"]) <= per_sm * ce.DEFAULT_SMS
             assert plan["NR"] >= 4  # at least one row in flight
         assert (per_sm, plan["NR"]) == ((3, 5) if shape != (32, 32, 32) else (1, 4))

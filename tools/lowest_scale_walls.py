@@ -44,7 +44,7 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, args.root)
     from bodge_tpu_torch import CubicLattice, Hamiltonian, jσ2, σ0, σ3
-    from bodge_tpu_torch.ops import cuda_spmm as ck
+    from bodge_tpu_torch.ops import cuda_ell as ce
     from bodge_tpu_torch.ops import lanczos as lz
     from bodge_tpu_torch.ops.blocksparse import BLOCK
     from bodge_tpu_torch.ops.chebyshev import spectral_bound
@@ -72,7 +72,7 @@ def main(argv) -> int:
     shape = (sk.n_sites, BLOCK, 1)
     rng = np.random.default_rng(0)  # spectral_bound's start vector at seed 0
     v = torch.as_tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).to("cuda", torch.complex64)
-    per_step = float(ck.power_recursion(lambda w: ck.ell_spmm(data, sk, w), v, 60)) * 1.05
+    per_step = float(ce.power_recursion(lambda w: ce.ell_spmm(data, sk, w), v, 60)) * 1.05
     bound = spectral_bound(data, sk)
     scales = {"per-step bound": per_step, "spectral_bound": bound,
               "spectral_bound * (1 + 2^-20)": bound * (1 + 2.0 ** -20),
