@@ -23,7 +23,7 @@ backward.  On the CPU, or with ``impl="plain"``, it is the three-term
 recursion over the plain product, differentiated by ``torch.autograd``.
 
 Counterpart of ``bodge_tpu/models/selfconsistency.py``.  Differences on
-purpose: ``key=`` is ``seed=`` (an integer; probes are drawn with NumPy);
+purpose: ``key=`` is ``seed=`` (an integer; probes follow NumPy's draw);
 ``probes=`` and ``scale=`` let a caller hand over the very probes and
 Chebyshev scale another implementation used; the Chebyshev scale gets no
 gradient (it is fixed once per objective in the reference too); the
@@ -45,7 +45,7 @@ import torch
 from ..common import jσ2
 from ..ops import blocksparse as bs
 from ..ops.blocksparse import BLOCK, Skeleton
-from ..ops.chebyshev import _KERNELS, chebyshev_coefficients, rademacher_probes, spectral_bound
+from ..ops.chebyshev import _KERNELS, chebyshev_coefficients, rademacher_probes, spectral_bound, trace_probes
 from ..ops.cuda_ell import insert_onsite_pairing, plane_packed_insert_bond, plane_packed_insert_swave
 from ..ops.cuda_spmm import moments_fused_ad, resolve_path
 from ..ops.dense import free_energy_from_spectrum
@@ -53,8 +53,9 @@ from ..ops.spmm import spmm
 
 
 def _like(array, data):
-    """``array`` as a tensor of ``data``'s dtype on its device."""
-    return torch.as_tensor(np.asarray(array)).to(device=data.device, dtype=data.dtype)
+    """``array`` (a tensor, or anything NumPy takes) as a tensor of ``data``'s dtype on its device."""
+    t = array if isinstance(array, torch.Tensor) else torch.as_tensor(np.asarray(array))
+    return t.to(device=data.device, dtype=data.dtype)
 
 
 def _real_dtype(dtype):
@@ -342,7 +343,8 @@ def make_total_free_energy(
     ``"plain"`` runs the three-term recursion over the plain product in the
     system's own precision; ``"plain_gather"`` / ``"plain_tiled"`` the
     kernels' formulation through their plain versions.  ``seed`` draws the
-    Rademacher probes with NumPy (default 11); ``probes=`` (``[N, 4, samples]``, columns normalised to unit
+    Rademacher probes by NumPy's rule (default 11; on the card, drawn there:
+    :func:`~bodge_tpu_torch.ops.chebyshev.trace_probes`); ``probes=`` (``[N, 4, samples]``, columns normalised to unit
     length) and ``scale=`` replace the drawn probes and the estimated
     spectral bound.
     """
@@ -401,9 +403,11 @@ def make_total_free_energy(
         inv = 1.0 / scale
 
         if probes is None:
-            # Normalized Hutchinson probes: E[z z†] = I with ⟨z,z⟩ = 4N per column.
-            z = rademacher_probes(sk.n_sites, samples, seed, np.float64, default_seed=11)
-            probes = z / np.sqrt(sk.n_sites * BLOCK)
+            # Normalized Hutchinson probes: E[z z†] = I with ⟨z,z⟩ = 4N per column,
+            # scaled in float64 (on the card the ±1 are drawn there in float32, exactly).
+            like = torch.empty(0, dtype=torch.float32 if base.is_cuda else torch.float64, device=base.device)
+            z = trace_probes(sk.n_sites, samples, seed, like, default_seed=11)
+            probes = z.to(torch.float64) / np.sqrt(sk.n_sites * BLOCK)
         z = _like(probes, base).contiguous()
         if z.shape[:2] != (sk.n_sites, BLOCK) or z.dim() != 3:
             raise ValueError(

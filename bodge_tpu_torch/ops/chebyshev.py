@@ -38,10 +38,12 @@ Pallas paths do; :func:`spectral_bound` stays on the complex operator, its
 5 % margin covering the ≤ 2⁻⁹·‖H‖ by which the rounding can move the
 spectrum.  Any probe
 count K goes through one launch per step.  Random probes and the spectral
-bound's start vector are drawn with NumPy from an integer ``seed``; the start
+bound's start vector follow NumPy's draws from an integer ``seed``; the start
 vector is drawn once per lattice size, seed and dtype and kept on the host
-(:func:`kpm_input_counts`), and the LDOS probes are built on the operator's
-device (:func:`site_probes`).  The moments come off the device once; the
+(:func:`kpm_input_counts`), the Rademacher probes of a complex64 or float32
+operator on the card are drawn there, bit for bit NumPy's
+(:func:`trace_probes`, :func:`probe_draw_counts`), and the LDOS probes are
+built on the operator's device (:func:`site_probes`).  The moments come off the device once; the
 reconstruction (damping kernels, Chebyshev series, coefficient fits) is tiny
 host mathematics in float64 whatever the operator's dtype.
 """
@@ -56,6 +58,7 @@ import numpy as np
 import torch
 
 from ..common import numpy_dtype
+from . import cuda_probes
 from .blocksparse import BLOCK, Skeleton
 from .cuda_ell import bf16_operator, operator_values, power_recursion, resolve_operator_storage
 from .cuda_spmm import StepPlan, moments_fused, power_sweep
@@ -184,15 +187,49 @@ def _seeded_start_vector(n_sites: int, seed: int, like) -> torch.Tensor:
     return host.to(like.device, non_blocking=True) if pinned else host.clone()
 
 
+_probe_lock = threading.Lock()
+_probe_draws = {"probes.card": 0, "probes.host": 0}
+
+
 def rademacher_probes(N, samples, seed, dtype, default_seed=42) -> np.ndarray:
     """Deterministic host-side Rademacher probes ``[N, 4, samples]``.
 
     Built in NumPy from an integer ``seed`` (``None`` → ``default_seed``)
-    so identical seeds give identical estimates on every device.
+    so identical seeds give identical estimates on every device.  This is the
+    definition; :func:`trace_probes` draws the same block on the card.
     """
+    with _probe_lock:
+        _probe_draws["probes.host"] += 1
     rng = np.random.default_rng(default_seed if seed is None else int(seed))
     z = 2.0 * rng.integers(0, 2, size=(N, BLOCK, samples)) - 1.0
     return z.astype(dtype)
+
+
+def probe_draw_counts() -> dict:
+    """``{"probes.card": …, "probes.host": …}``: Rademacher blocks drawn on the
+    card (:func:`trace_probes`) and in NumPy (:func:`rademacher_probes`) since
+    the last :func:`reset_probe_draw_counts`."""
+    with _probe_lock:
+        return dict(_probe_draws)
+
+
+def reset_probe_draw_counts() -> None:
+    with _probe_lock:
+        for key in _probe_draws:
+            _probe_draws[key] = 0
+
+
+def trace_probes(N, samples, seed, like, default_seed=42) -> torch.Tensor:
+    """:func:`rademacher_probes` ``(N, samples, seed, like's dtype, default_seed)``
+    as a tensor on ``like``'s device, the same numbers bit for bit.  Where
+    ``like`` is a complex64 or float32 tensor on the card the block is drawn
+    there, by one launch of :func:`~bodge_tpu_torch.ops.cuda_probes.rademacher`;
+    elsewhere it is drawn in NumPy and moved to the device."""
+    if like.is_cuda and like.dtype in cuda_probes.DTYPES:
+        with _probe_lock:
+            _probe_draws["probes.card"] += 1
+        return cuda_probes.rademacher(N, samples, seed, like.dtype, like.device, default_seed)
+    return _as_tensor(rademacher_probes(N, samples, seed, numpy_dtype(like.dtype), default_seed), like)
 
 
 def _doubled_moment_scan(H, inner, v0, order: int):
@@ -479,12 +516,11 @@ def dos_kpm(
     data, impl = _operator_and_impl(data, impl)
     order, kernel, scale = _kpm_setup(data, sk, order, kernel, scale, eta, impl)
     N = sk.n_sites
-    dtype = numpy_dtype(data.dtype)
     if samples is None:
-        v0 = _identity_probes(N, dtype, "DOS")
+        v0 = _identity_probes(N, numpy_dtype(data.dtype), "DOS")
         norm = 1.0
     else:
-        v0 = rademacher_probes(N, samples, seed, dtype, default_seed=1)
+        v0 = trace_probes(N, samples, seed, data, default_seed=1)
         norm = 1.0 / samples
 
     mu = moments(data, sk, v0, order, scale, impl=impl, operator_dtype=operator_dtype)  # [order, K]
@@ -531,12 +567,11 @@ def trace_function(
     coeffs = coeffs * _KERNELS[kernel](order)
     N = sk.n_sites
 
-    dtype = numpy_dtype(data.dtype)
     if samples is None:
-        probes = _identity_probes(N, dtype, "trace")
+        probes = _identity_probes(N, numpy_dtype(data.dtype), "trace")
         norm = 1.0
     else:
-        probes = rademacher_probes(N, samples, seed, dtype)
+        probes = trace_probes(N, samples, seed, data)
         norm = 1.0 / samples
 
     mu = moments(data, sk, probes, order, scale, impl=impl, operator_dtype=operator_dtype)  # [order, K]

@@ -295,6 +295,7 @@ def main(argv) -> int:
     from bodge_tpu_torch.ops import cuda_ell as ce
     from bodge_tpu_torch.ops import cuda_filter as cf
     from bodge_tpu_torch.ops import cuda_gather as cg
+    from bodge_tpu_torch.ops import cuda_probes as cp
     from bodge_tpu_torch.ops import cuda_spmm as ck
     from bodge_tpu_torch.ops import lanczos as lz
     from bodge_tpu_torch.ops.blocksparse import BLOCK
@@ -1191,6 +1192,25 @@ def main(argv) -> int:
                                                "divisions); a second launch bit-equal"},
           "max_rel_err": power_err, "launches": ck.launch_counts()})
     del power_cases
+
+    # ------------------------------------------------------------------ 3a''''''. the probe kernel, small shapes
+    # Bit for bit against its plain version at this card's stride and against
+    # NumPy's draw; the last case has more outputs than threads (several strides).
+    probe_cases = [(1, 1, 0, c64), (7, 3, None, torch.float32), (1000, 8, 7919, c64),
+                   (1000, 8, 2**62 - 1, torch.float32), (70_000, 8, 3, c64)]
+    launched = cp.rademacher.launches
+    for N_p, K_p, seed, dtype in probe_cases:
+        np_dtype = np.complex64 if dtype == c64 else np.float32
+        got = cp.rademacher(N_p, K_p, seed, dtype, dev).cpu()
+        blocks = cp.draw_plan(N_p * 2 * K_p, ce.sm_count())
+        check(torch.equal(got, torch.from_numpy(cp.rademacher_plain(N_p, K_p, seed, np_dtype, blocks=blocks))),
+              f"the probe kernel disagrees with its plain version at N={N_p}, samples={K_p}, seed={seed}, {dtype}")
+        check(torch.equal(got, torch.from_numpy(kpm.rademacher_probes(N_p, K_p, seed, np_dtype))),
+              f"the probe kernel disagrees with NumPy's draw at N={N_p}, samples={K_p}, seed={seed}, {dtype}")
+    check(cp.rademacher.launches - launched == len(probe_cases), "the probe kernel's launches were not counted")
+    emit({"phase": "kernels", "held": ["rademacher"], "cases": [[n, k, s, str(d)] for n, k, s, d in probe_cases],
+          "tolerance": "bit-equal to its plain version and to rademacher_probes",
+          "launches": cp.rademacher.launches})
     if quick:
         return 0
 
@@ -1483,11 +1503,14 @@ def main(argv) -> int:
               "hermiticity_error": big._hermiticity_error()})
 
         scale_big = call("spectral_bound", lambda: kpm.spectral_bound(big.data, sk_big), 0, 1, sk_big, bound=True)
+        kpm.reset_probe_draw_counts()
         F_cold = call("free_energy(T=0.01, kpm, order=256, samples=8)",
                       lambda: big.free_energy(0.01, method="kpm", order=256, samples=8), 256, 8, sk_big, bound=True)
         F_warm = call("free_energy(T=0.5, kpm, order=256, samples=8)",
                       lambda: big.free_energy(0.5, method="kpm", order=256, samples=8, scale=scale_big),
                       256, 8, sk_big)
+        probe_draws = kpm.probe_draw_counts()  # both free-energy calls drew their probes on the card
+        check(probe_draws == {"probes.card": 2, "probes.host": 0}, f"the probes were drawn as {probe_draws}")
         centre = [big.lattice[(500, 500, 0)]]
         rho = call("ldos((500,500,0), order=512)",
                    lambda: big.ldos((500, 500, 0), energies, method="kpm", order=512, scale=scale_big),
@@ -1549,7 +1572,31 @@ def main(argv) -> int:
         emit({"phase": "main", "launches": main_launches, "expected": expected, "scale": scale_big,
               "F(T=0.01)": F_cold, "F(T=0.5)": F_warm, "F_per_site": F_cold / sk_big.n_sites,
               "rho(0)": float(rho[mid]), "rho(|e|>=0.5) mean": float(rho[outside].mean()),
-              "rashba_F": F_r, "200x200 rho(0)": float(rho_q[mid]), "peak_device_GB": peak_GB})
+              "rashba_F": F_r, "200x200 rho(0)": float(rho_q[mid]), "peak_device_GB": peak_GB,
+              "probe_draws_of_the_two_free_energy_calls": probe_draws})
+
+        # ------------------------------------------------------------------ 3b'. the probe kernel at the free-energy call's shape
+        N_p, K_p = sk_big.n_sites, 8
+        for seed in (3, 2**62 - 1, 2_718_281_828):
+            got = cp.rademacher(N_p, K_p, seed, c64, dev)
+            check(torch.equal(got.cpu(), torch.from_numpy(kpm.rademacher_probes(N_p, K_p, seed, np.complex64))),
+                  f"the probe kernel disagrees with NumPy's draw at N={N_p}, samples={K_p}, seed={seed}")
+        del got
+        probe_bytes = N_p * BLOCK * K_p * 8  # written once; nothing read
+        probe_ms = timed_ms(lambda: cp.rademacher(N_p, K_p, 5, c64, dev), 50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_block = kpm._as_tensor(kpm.rademacher_probes(N_p, K_p, 5, np.complex64), big.data)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(host_block, cp.rademacher(N_p, K_p, 5, c64, dev)), "the timed draws differ")
+        del host_block
+        blocks = cp.draw_plan(N_p * 2 * K_p, ce.sm_count())
+        emit({"phase": "main", "timing": "rademacher", "N": N_p, "samples": K_p, "dtype": "complex64",
+              "seeds_held": 3, "blocks": blocks, "threads": blocks * cp.THREADS, "ms": probe_ms,
+              "bound_ms": probe_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes written",
+              "share_of_bound": probe_bytes / HBM_BYTES_PER_S * 1e3 / probe_ms,
+              "replaced_host_draw_cast_and_upload_ms": host_ms})
 
         # ------------------------------------------------------------------ 3b. kernels, main path's shapes
         kernel_rows = {}

@@ -9,7 +9,7 @@ import pathlib
 import pytest
 
 OPS = pathlib.Path(__file__).resolve().parents[1] / "bodge_tpu_torch" / "ops"
-KERNEL_MODULES = ("cuda_ell", "cuda_gather", "cuda_filter")
+KERNEL_MODULES = ("cuda_ell", "cuda_gather", "cuda_filter", "cuda_probes")
 ABOVE_KERNELS = ("bodge_tpu_torch.ops.cuda_spmm", "bodge_tpu_torch.ops.chebyshev", "bodge_tpu_torch.ops.lanczos",
                  "bodge_tpu_torch.hamiltonian", "bodge_tpu_torch.parallel", "bodge_tpu_torch.models")
 
